@@ -1,0 +1,149 @@
+"""Dataset iterators — counterpart of ``deeplearning4j_tpu/data/iterators.py``
+(``DataSet``, ``DataSetIterator``, ``ArrayIterator``, ``AsyncIterator``).
+
+A ``DataSet`` is a (features, labels, masks) record of host arrays (numpy)
+or tensors; iterators are plain Python iterables. ``AsyncIterator``
+prefetches batches on a background thread, the reference's
+AsyncDataSetIterator. It leaves them on the host: the trainer moves each
+batch to the device in its step, on the training thread's CUDA stream.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from dataclasses import dataclass
+from typing import Any, Iterable, Iterator, List, Optional
+
+import numpy as np
+
+
+@dataclass
+class DataSet:
+    """ND4J DataSet equivalent: features, labels, optional masks."""
+
+    features: Any
+    labels: Any
+    features_mask: Optional[Any] = None
+    labels_mask: Optional[Any] = None
+
+    @property
+    def num_examples(self) -> int:
+        f = self.features
+        return int(f.shape[0] if hasattr(f, "shape") else np.asarray(f).shape[0])
+
+
+class DataSetIterator:
+    """Base protocol; DL4J DataSetIterator parity (reset/batch size)."""
+
+    def __iter__(self) -> Iterator[DataSet]:
+        raise NotImplementedError
+
+    def reset(self):
+        pass
+
+    #: minibatch size; subclasses set an instance attribute or override
+    batch_size: int = -1
+
+
+class ArrayIterator(DataSetIterator):
+    """Iterate minibatches over in-memory arrays (ListDataSetIterator
+    parity); ``shuffle`` draws from ``np.random.default_rng(seed)``."""
+
+    def __init__(self, features, labels, batch_size: int = 32, shuffle: bool = False,
+                 seed: int = 0, features_mask=None, labels_mask=None,
+                 drop_last: bool = False):
+        self.features = np.asarray(features)
+        self.labels = np.asarray(labels)
+        self.features_mask = (np.asarray(features_mask)
+                              if features_mask is not None else None)
+        self.labels_mask = (np.asarray(labels_mask)
+                            if labels_mask is not None else None)
+        self._batch = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+
+    @property
+    def batch_size(self):
+        return self._batch
+
+    def __len__(self):
+        n = self.features.shape[0]
+        return n // self._batch if self.drop_last else -(-n // self._batch)
+
+    def __iter__(self):
+        n = self.features.shape[0]
+        idx = np.arange(n)
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        end = n - n % self._batch if self.drop_last else n
+        for i in range(0, end, self._batch):
+            sl = idx[i: i + self._batch]
+            yield DataSet(
+                self.features[sl], self.labels[sl],
+                self.features_mask[sl] if self.features_mask is not None else None,
+                self.labels_mask[sl] if self.labels_mask is not None else None,
+            )
+
+
+class AsyncIterator(DataSetIterator):
+    """Background-thread prefetch over a bounded queue
+    (AsyncDataSetIterator). An exception in the producer is re-raised in
+    the consumer after the batches before it."""
+
+    _SENTINEL = object()
+
+    def __init__(self, base: Iterable[DataSet], queue_size: int = 4):
+        self.base = base
+        self.queue_size = queue_size
+
+    @property
+    def batch_size(self):
+        return getattr(self.base, "batch_size", -1)
+
+    def reset(self):
+        if hasattr(self.base, "reset"):
+            self.base.reset()
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.queue_size)
+        err: List[BaseException] = []
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for ds in self.base:
+                    while not stop.is_set():
+                        try:
+                            q.put(ds, timeout=0.1)
+                            break
+                        except queue.Full:
+                            continue
+                    if stop.is_set():
+                        return
+            except BaseException as e:  # handed to the consumer, raised there
+                err.append(e)
+            finally:
+                while not stop.is_set():
+                    try:
+                        q.put(self._SENTINEL, timeout=0.1)
+                        break
+                    except queue.Full:
+                        continue
+
+        t = threading.Thread(target=worker, daemon=True, name="dl4j-prefetch")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is self._SENTINEL:
+                    break
+                yield item
+        finally:
+            # a consumer that stops early (an exception in its step) must
+            # not leave the producer blocked on a full queue
+            stop.set()
+            t.join(timeout=5)
+        if err:
+            raise err[0]

@@ -7,6 +7,7 @@ compiler flags, so an edited source rebuilds and an unchanged one loads the
 library built before. A missing ``nvcc`` or a failed build raises: there is
 no fallback. The compiler's report (``-Xptxas -v``: registers, shared
 memory, spills) is kept beside the library as ``<lib>.log``.
+:func:`build_all` compiles every source at once, one nvcc per source.
 """
 
 from __future__ import annotations
@@ -17,12 +18,13 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("flash_fwd",)
+KERNELS = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -74,6 +76,17 @@ def build(name: str) -> Path:
                            + log.read_text()[-4000:])
     os.replace(tmp, lib)
     return lib
+
+
+def build_all() -> List[Path]:
+    """Compile every kernel in ``KERNELS`` that is not current, the nvcc
+    processes running side by side; returns the libraries' paths in
+    ``KERNELS`` order. Holds the one build lock throughout, so a concurrent
+    :func:`load` waits rather than compiling the same source twice."""
+    with _lock:
+        with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+            futures = [pool.submit(build, name) for name in KERNELS]
+        return [f.result() for f in futures]
 
 
 def build_log(name: str) -> str:

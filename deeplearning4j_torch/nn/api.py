@@ -7,7 +7,7 @@ fields, and the two functions of the contract:
   dicts of tensors drawn from the ``torch.Generator`` ``gen``;
 - ``apply(params, state, x, *, training, rng, mask)`` returns
   ``(y, new_state, out_mask)``; ``rng`` is a ``torch.Generator`` or None
-  (this slice is forward only: training-time dropout raises).
+  (training-time dropout is not ported yet and raises).
 
 ``to_dict``/``layer_from_dict`` write and read the reference's ``"@type"``
 JSON: a layer config written by either package loads in the other.
@@ -91,8 +91,8 @@ def layer_from_dict(d: dict) -> Layer:
 
 
 def no_training_dropout(layer: Layer, rate, training: bool) -> None:
-    """Dropout is a training-time operation, and training comes with a
-    later slice: refuse it rather than run a forward that skips it."""
+    """Training-time dropout is not ported yet (ROADMAP.md, Queue 1):
+    refuse it rather than run a training forward that skips it."""
     if training and rate:
         raise NotImplementedError(
             f"{layer.name or type(layer).__name__}: training-time dropout is "

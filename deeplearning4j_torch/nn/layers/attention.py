@@ -5,9 +5,11 @@ Same params (one fused QKV projection, (in, out) weights), same routing:
 ``flash=True`` with no mask or a (B, T) key mask goes to
 ``ops.flash_attention`` (on the card: the hand-written CUDA kernel);
 everything else takes the dense path, with f32 scores whatever the input
-dtype. Forward only: training-time dropout (which the reference routes to
-the dense path) raises until the training slice. ``ring=True`` behaves as
-the reference does outside a sequence-parallel trace: flash or dense.
+dtype. Both paths are differentiable (on the card the flash gradient runs
+the hand-written backward kernels). Training-time dropout (which the
+reference routes to the dense path) is not ported yet and raises.
+``ring=True`` behaves as the reference does outside a sequence-parallel
+trace: flash or dense.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from ...ops import activations, initializers
 from ...ops.flash_attention import flash_attention
@@ -165,8 +168,8 @@ class MultiHeadAttention(Layer):
 @dataclass(frozen=True)
 class TransformerEncoderBlock(Layer):
     """Pre-LN transformer block: LN -> MHA -> +res -> LN -> MLP -> +res.
-    ``remat`` is accepted for the shared config and does nothing in
-    inference."""
+    ``remat=True`` checkpoints the block (``torch.utils.checkpoint``): its
+    activations are recomputed in the backward instead of kept."""
 
     num_heads: int = 8
     mlp_ratio: int = 4
@@ -211,6 +214,15 @@ class TransformerEncoderBlock(Layer):
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
         no_training_dropout(self, self.dropout_rate, training)
+        if self.remat and torch.is_grad_enabled():
+            y = torch.utils.checkpoint.checkpoint(
+                lambda p, x_: self._body(p, x_, rng, mask, training),
+                params, x, use_reentrant=False)
+        else:
+            y = self._body(params, x, rng, mask, training)
+        return y, state, mask
+
+    def _body(self, params, x, rng, mask, training):
         h = layer_norm(x, params["ln1_g"], params["ln1_b"])
         a, _, _ = self._mha().apply(params["attn"], {}, h, training=training,
                                     rng=rng, mask=mask)
@@ -219,7 +231,7 @@ class TransformerEncoderBlock(Layer):
         act = activations.get(self.activation)
         m = act(h @ params["w_up"] + params["b_up"]) @ params["w_down"] \
             + params["b_down"]
-        return x + m, state, mask
+        return x + m
 
 
 @register_layer

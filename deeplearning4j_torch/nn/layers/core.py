@@ -1,7 +1,8 @@
-"""Core layers, forward only — counterpart of
-``deeplearning4j_tpu/nn/layers/core.py`` (Dense, EmbeddingSequence, Output,
-RnnOutput). Dense weights are (in, out), as in the reference, so params
-cross between the packages unchanged. The loss methods come with training.
+"""Core layers — counterpart of ``deeplearning4j_tpu/nn/layers/core.py``
+(Dense, EmbeddingSequence, Output, RnnOutput). Dense weights are (in, out),
+as in the reference, so params cross between the packages unchanged.
+Output layers score with the reference's fusion: softmax + MCXENT becomes
+``mcxent_logits`` on the preactivation.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ...ops import activations, initializers
+from ...ops import activations, initializers, losses
 from ..api import Layer, Shape, no_training_dropout, register_layer
 
 
@@ -72,11 +73,32 @@ class EmbeddingSequence(Layer):
         return params["w"][ids], state, mask
 
 
+class _LossMixin:
+    """Shared scoring for output layers (DL4J BaseOutputLayer.computeScore).
+    Softmax + MCXENT (or NLL) is fused into the stable ``mcxent_logits`` on
+    the preactivation; ``apply`` still emits probabilities. Sigmoid + XENT
+    (``xent_logits``) and the other losses are not ported yet."""
+
+    def _loss_fn_and_preact(self):
+        act = getattr(self, "activation", "identity")
+        loss = str(getattr(self, "loss", "mse")).lower()
+        if act == "softmax" and loss in ("mcxent", "negativeloglikelihood"):
+            return losses.get("mcxent_logits"), True
+        return losses.get(loss), False
+
+    def score_from_preactivation(self, preact, labels, mask=None):
+        fn, fused = self._loss_fn_and_preact()
+        if fused:
+            return fn(preact, labels, mask=mask)
+        act = activations.get(getattr(self, "activation", "identity"))
+        return fn(act(preact), labels, mask=mask)
+
+
 @register_layer
 @dataclass(frozen=True)
-class Output(Layer):
-    """Dense + activation; ``loss`` names the training loss (kept in the
-    config for the shared JSON; scoring comes with training)."""
+class Output(Layer, _LossMixin):
+    """Dense + activation; ``score()`` computes the training loss named by
+    ``loss``."""
 
     n_out: int = 0
     activation: str = "softmax"
@@ -101,8 +123,12 @@ class Output(Layer):
         return (activations.get(self.activation)(self.preactivation(params, x)),
                 state, mask)
 
+    def score(self, params, state, x, labels, *, mask=None):
+        return self.score_from_preactivation(self.preactivation(params, x),
+                                             labels, mask)
+
 
 @register_layer
 @dataclass(frozen=True)
 class RnnOutput(Output):
-    """Per-timestep Output over (B, T, F)."""
+    """Per-timestep Output over (B, T, F), with time masking in score."""

@@ -8,7 +8,11 @@ write and read the reference's ``deeplearning4j_tpu/sequential/v1`` format.
 
 Mixed precision follows the reference: with ``compute_dtype`` set, each
 layer's float params are cast to it at the layer, a float input is cast,
-and the output is cast back to ``dtype``. ``Graph`` comes in a later slice.
+and the output is cast back to ``dtype``. ``score`` runs every layer but
+the last that way and then the output layer on the f32 features with its
+uncast params, as the reference does: a bf16 model's training loss (the
+head and its log-softmax) is f32. ``NetConfig.remat`` checkpoints each
+layer through ``torch.utils.checkpoint``. ``Graph`` comes in a later slice.
 """
 
 from __future__ import annotations
@@ -19,8 +23,10 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
+from ..ops.losses import reduction_mass
 from .api import Layer, Params, Shape, State, layer_from_dict
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -60,6 +66,25 @@ class NetConfig:
 
 def _layer_key(i: int, layer: Layer) -> str:
     return layer.name or f"layer_{i}"
+
+
+def _is_loss_layer(layer) -> bool:
+    return hasattr(layer, "score")
+
+
+def _apply_layer(cfg: NetConfig, layer: Layer, p, s, x, *, training, rng,
+                 mask):
+    """One layer, checkpointed when ``cfg.remat`` asks for it — unless the
+    layer checkpoints itself (its own ``remat=True``): nesting would
+    recompute twice for no memory saved. Checkpointing only applies while
+    autograd records."""
+    if cfg.remat and not getattr(layer, "remat", False) \
+            and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(
+            lambda p_, x_: layer.apply(p_, s, x_, training=training, rng=rng,
+                                       mask=mask),
+            p, x, use_reentrant=False)
+    return layer.apply(p, s, x, training=training, rng=rng, mask=mask)
 
 
 class Sequential:
@@ -126,24 +151,59 @@ class Sequential:
 
     def forward(self, params: Params, state: State, x: torch.Tensor, *,
                 training: bool = False, rng: Optional[torch.Generator] = None,
-                mask: Optional[torch.Tensor] = None):
-        """Apply every layer; returns ``(y, new_state)``."""
+                mask: Optional[torch.Tensor] = None,
+                up_to: Optional[int] = None, return_mask: bool = False):
+        """Apply the first ``up_to`` layers (default all); returns
+        ``(y, new_state)``, plus the layer-propagated mask with
+        ``return_mask=True`` (the mask the loss reduces with)."""
+        n = len(self.layers) if up_to is None else up_to
         new_state = dict(state)
         cdt = DTYPES[self.config.compute_dtype] if self.config.compute_dtype else None
         if cdt is not None and x.is_floating_point():
             x = x.to(cdt)
-        for i, layer in enumerate(self.layers):
+        for i in range(n):
+            layer = self.layers[i]
             k = _layer_key(i, layer)
             p = params.get(k, {})
             if cdt is not None:
                 p = _cast_floats(p, cdt)
-            x, s_out, mask = layer.apply(p, state.get(k, {}), x,
-                                         training=training, rng=rng, mask=mask)
+            x, s_out, mask = _apply_layer(self.config, layer, p,
+                                          state.get(k, {}), x,
+                                          training=training, rng=rng,
+                                          mask=mask)
             if s_out:
                 new_state[k] = s_out
         if cdt is not None:
             x = x.to(self.dtype)
+        if return_mask:
+            return x, new_state, mask
         return x, new_state
+
+    def score(self, params: Params, state: State, x: torch.Tensor,
+              labels: torch.Tensor, *, training: bool = True,
+              rng: Optional[torch.Generator] = None,
+              mask: Optional[torch.Tensor] = None,
+              label_mask: Optional[torch.Tensor] = None,
+              with_mass: bool = False):
+        """Training loss (a 0-d f32 tensor) and the new state. The loss
+        reduces with ``label_mask`` when given, else with the
+        layer-propagated feature mask. The output layer scores the f32
+        features with its f32 params, whatever ``compute_dtype`` is.
+        ``with_mass=True`` also returns ``losses.reduction_mass``."""
+        out_layer = self.layers[-1]
+        if not _is_loss_layer(out_layer):
+            raise ValueError("Last layer must be an Output/Loss layer to "
+                             "compute score")
+        feats, new_state, prop_mask = self.forward(
+            params, state, x, training=training, rng=rng, mask=mask,
+            up_to=len(self.layers) - 1, return_mask=True)
+        k = _layer_key(len(self.layers) - 1, out_layer)
+        eff_mask = label_mask if label_mask is not None else prop_mask
+        loss = out_layer.score(params.get(k, {}), state.get(k, {}), feats,
+                               labels, mask=eff_mask)
+        if with_mass:
+            return loss, new_state, reduction_mass(labels, eff_mask)
+        return loss, new_state
 
     def output(self, x, params: Optional[Params] = None,
                state: Optional[State] = None, mask=None) -> torch.Tensor:

@@ -1,5 +1,15 @@
-"""Training-side modules of the port (this slice: model serialization)."""
+"""Training-side modules of the port: the trainer, its listeners and model
+serialization (params, state and updater state)."""
 
-from .serialization import load_model, params_from_numpy, save_model
+from .listeners import (CollectScoresListener, DeferredScoreReporter,
+                        PerformanceListener, ScoreIterationListener,
+                        TrainingListener)
+from .serialization import (load_model, load_opt_state, opt_state_from_numpy,
+                            params_from_numpy, save_model)
+from .trainer import Trainer, build_updater
 
-__all__ = ["load_model", "params_from_numpy", "save_model"]
+__all__ = ["CollectScoresListener", "DeferredScoreReporter",
+           "PerformanceListener", "ScoreIterationListener", "Trainer",
+           "TrainingListener", "build_updater", "load_model",
+           "load_opt_state", "opt_state_from_numpy", "params_from_numpy",
+           "save_model"]

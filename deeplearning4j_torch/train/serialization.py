@@ -2,26 +2,31 @@
 
 The same zip layout in both packages: ``configuration.json`` (the
 Sequential JSON), ``params.npz`` and ``state.npz`` (the params tree
-flattened to ``/``-joined key paths, e.g. ``layer_2/attn/w_qkv``). A zip
-written by either package loads in the other. The updater state and the
-normalizer come with the training slice.
+flattened to ``/``-joined key paths, e.g. ``layer_2/attn/w_qkv``) and
+``updater_state.npz`` (the updater state's leaves under their index,
+``"0"``, ``"1"``, ..., in ``jax.tree_util.tree_leaves`` order — the order
+``ops.updaters.tree_leaves`` gives the port's optax-shaped state). A zip
+written by either package loads in the other, and training resumes from it
+in either. The normalizer is not ported yet.
 
 :func:`params_from_numpy` carries a params tree of numpy arrays (the JAX
 package's tree, keys ``layer_i/...``, dense weights (in, out)) into the
-port's tensors on a device.
+port's tensors on a device; :func:`opt_state_from_numpy` does the same for
+the leaves of an optax state.
 """
 
 from __future__ import annotations
 
 import io
 import zipfile
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
 from ..nn.model import Sequential
+from ..ops.updaters import tree_leaves, tree_unflatten
 
 
 def _flatten(tree: Any, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -73,6 +78,29 @@ def params_from_numpy(model: Sequential, tree: dict,
     return _to_tensors(tree, dev)
 
 
+def opt_state_from_numpy(template, leaves: Sequence[Any],
+                         device: DeviceLike = None):
+    """The port's updater state with ``template``'s structure (a state from
+    ``Transform.init`` or ``Trainer``) and ``leaves`` as its leaves, in
+    ``tree_leaves`` order: e.g. ``jax.tree_util.tree_leaves`` of the JAX
+    package's optax state, as numpy arrays. Raises unless the count,
+    shapes and dtypes are the template's."""
+    want = tree_leaves(template)
+    leaves = [np.asarray(a) for a in leaves]
+    if len(leaves) != len(want):
+        raise ValueError(f"updater state has {len(leaves)} leaves, the "
+                         f"updater {len(want)}")
+    out = []
+    for i, (a, t) in enumerate(zip(leaves, want)):
+        if tuple(a.shape) != tuple(t.shape) or \
+                torch.from_numpy(np.zeros((), a.dtype)).dtype != t.dtype:
+            raise ValueError(f"updater state leaf {i}: {a.dtype}{a.shape}, "
+                             f"want {t.dtype}{tuple(t.shape)}")
+        dev = t.device if device is None else torch.device(device)
+        out.append(torch.from_numpy(np.array(a, copy=True)).to(dev))
+    return tree_unflatten(template, out)
+
+
 def _save_npz(zf: zipfile.ZipFile, name: str, tree: Any) -> None:
     buf = io.BytesIO()
     np.savez(buf, **_flatten(tree))
@@ -87,8 +115,10 @@ def _load_npz(zf: zipfile.ZipFile, name: str) -> Optional[dict]:
         return _unflatten({k: data[k] for k in data.files})
 
 
-def save_model(path: str, model: Sequential, *, params=None, state=None) -> None:
-    """Write ``model``'s config and params (default: its own) as a zip."""
+def save_model(path: str, model: Sequential, *, params=None, state=None,
+               opt_state=None) -> None:
+    """Write ``model``'s config and params (default: its own), and the
+    updater state when given, as a zip."""
     params = params if params is not None else model.params
     state = state if state is not None else model.state
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
@@ -96,6 +126,23 @@ def save_model(path: str, model: Sequential, *, params=None, state=None) -> None
         _save_npz(zf, "params.npz", params or {})
         if state:
             _save_npz(zf, "state.npz", state)
+        if opt_state is not None:
+            _save_npz(zf, "updater_state.npz",
+                      {str(i): leaf for i, leaf in
+                       enumerate(tree_leaves(opt_state))})
+
+
+def load_opt_state(path: str, template, device: DeviceLike = None):
+    """The updater state saved in the zip at ``path``, rebuilt with
+    ``template``'s structure (see :func:`opt_state_from_numpy`), or None
+    when the zip holds none."""
+    with zipfile.ZipFile(path) as zf:
+        if "updater_state.npz" not in zf.namelist():
+            return None
+        with zf.open("updater_state.npz") as f:
+            data = np.load(io.BytesIO(f.read()))
+            leaves = [data[str(i)] for i in range(len(data.files))]
+    return opt_state_from_numpy(template, leaves, device)
 
 
 def load_model(path: str, device: DeviceLike = None

@@ -1,16 +1,22 @@
-"""The port's flash attention (deeplearning4j_torch/ops/flash_attention.py)
-held against the JAX package's.
+"""The port's flash attention (deeplearning4j_torch/ops/flash_attention.py),
+forward and backward, held against the JAX package's.
 
-On the CPU the port runs its plain PyTorch version; the reference runs its
-Pallas kernel in interpret mode, as tests/test_flash_attention.py runs it.
-Inputs are made with numpy from a seed and handed to both. Tolerances: f32
-1e-5 (abs and rel; the two sum in different orders); bf16 against the
-reference one bf16 ulp relative (2**-7: both round P to bf16 before P.V,
-and the measured gap is 0). The CUDA kernel against the plain version,
-bf16: 8e-3 abs + 1e-2 rel (it rounds P relative to running maxima, the
-plain version relative to the row's maximum). Tests of the CUDA kernel
-itself carry the ``gpu`` marker and skip without a card."""
+On the CPU the port runs its plain PyTorch versions; the reference runs its
+Pallas kernels in interpret mode, as tests/test_flash_attention.py runs
+them (the backward through ``backward="pallas"`` or ``_flash_bwd_pallas``:
+K2 and K3). Inputs are made with numpy from a seed and handed to both.
+Tolerances: f32 1e-5 (abs and rel; the two sum in different orders); bf16
+against the reference one bf16 ulp relative (2**-7: both round P to bf16
+before P.V, and ds and p where K2/K3 round them; the measured forward gap
+is 0, and in the backward an f32 summation-order difference can flip one
+ds rounding, measured 1.4e-7 abs on an entry near 0, hence 1e-6 abs
+beside it). The CUDA kernels against the plain versions, bf16: 8e-3 abs +
+1e-2 rel for o (K1 rounds P relative to running maxima, the plain version
+relative to the row's maximum), 1e-2 abs + 1e-2 rel for dq, dk, dv (max
+seen 3.9e-3). Tests of the CUDA kernels themselves carry the ``gpu`` marker
+and skip without a card."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,13 +25,17 @@ import torch
 from deeplearning4j_torch.kernels import _build
 from deeplearning4j_torch.nn.layers import MultiHeadAttention as TMHA
 from deeplearning4j_torch.ops.flash_attention import (
-    flash_attention, flash_attention_reference, flash_fwd_cuda)
+    column_broadcast_cuda, flash_attention, flash_attention_backward_reference,
+    flash_attention_reference, flash_bwd_cuda, flash_bwd_dkv_cuda,
+    flash_bwd_dq_cuda, flash_fwd_cuda)
 from deeplearning4j_tpu.nn.layers import MultiHeadAttention as JMHA
 from deeplearning4j_tpu.ops import flash_attention as jfa
 
 F32_TOL = 1e-5
 BF16_RTOL = 2.0 ** -7  # one bf16 ulp
+BF16_BWD_ATOL = 1e-6
 KERNEL_BF16_ATOL, KERNEL_BF16_RTOL = 8e-3, 1e-2
+KERNEL_BWD_BF16_ATOL, KERNEL_BWD_BF16_RTOL = 1e-2, 1e-2
 
 
 def _qkv(B=2, T=48, H=3, D=16, seed=0):
@@ -144,6 +154,107 @@ def test_lse_matches_reference_kernel(case):
                                rtol=F32_TOL, atol=F32_TOL)
 
 
+def _stat_inputs(kw, dtype, BH=3, T=40, D=16, seed=5):
+    """numpy q, k, v, do, lens, kmask for LSE_CASES entry ``kw``; q, k, v,
+    do already rounded to ``dtype``."""
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (np.asarray(jnp.asarray(
+        rng.standard_normal((BH, T, D)).astype(np.float32), dtype)
+        .astype(jnp.float32)) for _ in range(4))
+    lens = None if "lens" not in kw else np.array(kw["lens"], np.int32)
+    kmask = (_gappy_mask(BH, T, 6).astype(np.int8) if kw.get("kmask")
+             else None)
+    return q, k, v, do, lens, kmask
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(LSE_CASES))
+def test_backward_matches_reference_kernels(case, dtype):
+    """(dq, dk, dv) of the plain backward against the reference's backward
+    kernels K2 and K3, _flash_bwd_pallas in interpret mode, from the same
+    forward statistics."""
+    kw = LSE_CASES[case]
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, k, v, do, lens, kmask = _stat_inputs(kw, jdt)
+    window, scale = kw.get("window", 0), 0.25
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    jl = None if lens is None else jnp.asarray(lens)
+    jm = None if kmask is None else jnp.asarray(kmask)
+    o, lse = jfa._flash_fwd(jq, jk, jv, jl, jm, scale, kw["causal"], 16, 16,
+                            True, lens is not None, kmask is not None, window)
+    want = jfa._flash_bwd_pallas(jq, jk, jv, jl, jm, o, lse, jdo, scale,
+                                 kw["causal"], 16, 16, True, window)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    to = torch.from_numpy(np.asarray(o.astype(jnp.float32))).to(tdt)
+    delta = (tdo.float() * to.float()).sum(-1)
+    got = flash_attention_backward_reference(
+        tq, tk, tv, tdo, torch.from_numpy(np.asarray(lse)), delta,
+        None if lens is None else torch.from_numpy(lens),
+        None if kmask is None else torch.from_numpy(kmask), scale=scale,
+        causal=kw["causal"], window=window)
+    for name, a, b in zip("qkv", got, want):
+        assert a.dtype == tdt
+        b = np.asarray(b.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(a.numpy(), b, rtol=F32_TOL,
+                                       atol=F32_TOL, err_msg=f"d{name}")
+        else:
+            np.testing.assert_allclose(a.float().numpy(), b, rtol=BF16_RTOL,
+                                       atol=BF16_BWD_ATOL, err_msg=f"d{name}")
+
+
+def _grads_both(q, k, v, w, **kw):
+    """d(sum(o * w))/d(q, k, v) through the port's flash_attention and
+    through the reference's with its Pallas backward (K2, K3)."""
+    jkw = {n: (jnp.asarray(a) if isinstance(a, np.ndarray) else a)
+           for n, a in kw.items()}
+    tkw = {n: (torch.from_numpy(a) if isinstance(a, np.ndarray) else a)
+           for n, a in kw.items()}
+
+    def loss(q, k, v):
+        return jnp.sum(jfa.flash_attention(q, k, v, backward="pallas",
+                                           block_q=16, block_k=16, **jkw) * w)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    (flash_attention(tq, tk, tv, **tkw) * torch.from_numpy(w)).sum().backward()
+    return (tq.grad, tk.grad, tv.grad), want
+
+
+class TestBackward:
+    @pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+    def test_grads_match_reference(self, case):
+        shape, kw = FORWARD_CASES[case]
+        q, k, v = _qkv(**shape)
+        w = np.random.default_rng(99).standard_normal(q.shape).astype(
+            np.float32)
+        got, want = _grads_both(q, k, v, w, **kw)
+        for name, a, b in zip("qkv", got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       rtol=F32_TOL, atol=F32_TOL,
+                                       err_msg=f"d{name}")
+
+    def test_zero_length_row_and_padded_keys_get_zero_grads(self):
+        q, k, v = (torch.from_numpy(a).requires_grad_()
+                   for a in _qkv(B=3, T=32, seed=15))
+        o = flash_attention(q, k, v, causal=True,
+                            lengths=torch.tensor([32, 0, 9]))
+        (o ** 2).sum().backward()
+        for g in (q.grad, k.grad, v.grad):
+            assert torch.all(g[1] == 0)
+        assert torch.all(k.grad[2, 9:] == 0) and torch.all(v.grad[2, 9:] == 0)
+        assert torch.all(torch.isfinite(q.grad))
+
+    def test_lse_output_is_not_differentiable(self):
+        from deeplearning4j_torch.ops.flash_attention import _FlashAttention
+
+        q = torch.randn((2, 8, 16), requires_grad=True)
+        o, lse = _FlashAttention.apply(q, q, q, None, None, 0.25, True, 0)
+        assert o.requires_grad and not lse.requires_grad
+
+
 REJECTED = {
     "shape_mismatch": (lambda q: dict(k=q[:, :10]), "shapes must match"),
     "lengths_and_key_mask": (
@@ -229,6 +340,26 @@ class TestBuild:
         assert "-shared" in flags and "-fPIC" in flags
         assert _build.library_path("flash_fwd").parent == _build.BUILD_DIR
 
+    def test_every_source_is_a_kernel_and_hashed_apart(self):
+        assert set(_build.KERNELS) == {p.stem for p in
+                                       _build.CSRC.glob("*.cu")}
+        paths = {_build.library_path(n) for n in _build.KERNELS}
+        assert len(paths) == len(_build.KERNELS)
+
+    def test_build_all_compiles_side_by_side(self, monkeypatch):
+        """build_all starts one build per source at once (a build waits
+        until every other one has started) and returns them in order."""
+        import threading
+
+        started = threading.Barrier(len(_build.KERNELS), timeout=10)
+
+        def fake_build(name):
+            started.wait()
+            return name
+
+        monkeypatch.setattr(_build, "build", fake_build)
+        assert _build.build_all() == list(_build.KERNELS)
+
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -285,10 +416,46 @@ class TestKernelOnCard:
         torch.testing.assert_close(lse[live], lse_ref[live], rtol=F32_TOL,
                                    atol=1e-4)
 
-    def test_gradient_is_refused(self, cuda):
-        q = torch.randn((1, 16, 1, 16), device=cuda, requires_grad=True)
-        with pytest.raises(NotImplementedError):
-            flash_attention(q, q, q)
+    @pytest.mark.parametrize("case", range(len(KERNEL_CASES)))
+    def test_backward_kernels_match_plain(self, cuda, case):
+        dt, BH, T, D, causal, window, lens, hole = KERNEL_CASES[case]
+        gen = torch.Generator(device=cuda).manual_seed(100 + case)
+        q, k, v, do = (torch.randn((BH, T, D), generator=gen,
+                                   device=cuda).to(dt) for _ in range(4))
+        lens_t = None if lens is None else torch.tensor(lens, device=cuda)
+        kmask = None
+        if hole:
+            kmask = torch.ones((BH, T), dtype=torch.int8, device=cuda)
+            kmask[:, T // 3:T // 2] = 0
+        kw = dict(scale=D ** -0.5, causal=causal, window=window)
+        o, lse = flash_attention_reference(q, k, v, lens_t, kmask, **kw)
+        delta = (do.float() * o.float()).sum(-1)
+        before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
+        got = flash_bwd_cuda(q, k, v, do, lse, delta, lens_t, kmask, **kw)
+        assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
+            (before[0] + 1, before[1] + 1)
+        want = flash_attention_backward_reference(q, k, v, do, lse, delta,
+                                                  lens_t, kmask, **kw)
+        atol, rtol = ((F32_TOL, F32_TOL) if dt == torch.float32
+                      else (KERNEL_BWD_BF16_ATOL, KERNEL_BWD_BF16_RTOL))
+        for a, b in zip(got, want):
+            assert a.dtype == dt
+            torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                       atol=atol)
+
+    def test_gradient_runs_the_backward_kernels(self, cuda):
+        q = torch.randn((2, 64, 2, 16), device=cuda, requires_grad=True)
+        before = (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+                  flash_bwd_dkv_cuda.launches)
+        flash_attention(q, q, q, causal=True).sum().backward()
+        assert (flash_fwd_cuda.launches, flash_bwd_dq_cuda.launches,
+                flash_bwd_dkv_cuda.launches) == tuple(b + 1 for b in before)
+        assert torch.isfinite(q.grad).all()
+
+    def test_column_broadcast_is_bit_equal(self, cuda):
+        x = torch.randn((1, 512, 1), device=cuda)
+        torch.testing.assert_close(column_broadcast_cuda(x, 128),
+                                   x.expand(1, 512, 128), rtol=0, atol=0)
 
     def test_unsupported_head_dim_raises(self, cuda):
         q = torch.randn((1, 16, 1, 24), device=cuda)

@@ -37,6 +37,26 @@ last line):
 6. flash vs dense gradients — a 2-layer model of the same width, one
    2 x 1024 batch: in f32 every param's gradient within 1e-3 of the dense
    path's, relative to its largest entry (gated); bf16 reported.
+7. bn kernels — BatchNorm's backward kernels, K4a (per-channel Σdy and
+   Σdy·x) and K4b (dx), and their composition ``bn_bwd`` against the plain
+   versions over a case list (f32 and bf16, C from 5 to 2048, M not a
+   multiple of any block, a constant channel), then at the microbench's
+   shape (bf16, M = 128·56·56, C = 256, seed 0), timed beside the plain
+   versions and the library's BatchNorm backward.
+8. resnet — ``ResNet50(num_classes=1000, seed=0, input_shape=(224, 224,
+   3))`` (bf16 compute, f32 params, adam 1e-3) trained by
+   ``Trainer(model).fit`` on ``BenchmarkIterator`` batches of 128 for 12
+   steps: 2 warm-up steps in one fit, 10 in a second fit timed as one
+   window. Launch counts are zeroed before and read after: every step
+   launches K4a and K4b once per BatchNorm (53). Gated: losses finite and
+   the last below the first; every running mean and var finite and
+   changed. Printed: step time, images/s, model FLOP and MFU, peak memory,
+   where a step's time goes (forward, backward, K4a + K4b at every
+   BatchNorm's shape, adam), a step with the batch already on the card,
+   and the card's busy share over 3 steps under torch.profiler.
+9. resnet gradients — the same model in f32 on one batch of 8: every
+   param's gradient through K4a/K4b within 1e-3 of the plain BN
+   backward's, relative to the largest entry of its node (gated).
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -57,6 +77,7 @@ import torch.nn.functional as F
 
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor cores
+PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 F32_TOL = 1e-5                  # kernel vs plain, f32: abs and rel
 BF16_ATOL, BF16_RTOL = 8e-3, 1e-2   # kernel vs plain, bf16 o (max seen 3.9e-3)
 # backward kernels vs plain, bf16 dq/dk/dv: both round ds and p to bf16,
@@ -368,6 +389,141 @@ def phase_bwd_kernels():
     return rows + [k5]
 
 
+# K4a/K4b case list: (dtype, M, C, constant channel); M not a multiple of
+# any block, C from the stem's 64 to stage 4's 2048, and C that takes the
+# one-element path (5, 12 in bf16)
+BN_CASES = [
+    (torch.float32, 1000, 64, False),
+    (torch.float32, 4099, 256, True),
+    (torch.float32, 777, 5, False),
+    (torch.float32, 301, 2048, False),
+    (torch.bfloat16, 4099, 64, True),
+    (torch.bfloat16, 1003, 256, False),
+    (torch.bfloat16, 301, 2048, False),
+    (torch.bfloat16, 999, 12, False),
+]
+# K4a vs plain, per channel: both sum in f32 in different orders; the
+# error is held to this share of the sum of the terms' magnitudes
+BN_SUM_RTOL = 2e-5
+
+
+def _bn_compare(x, dy, a, c1, c2, what):
+    """K4a, K4b and their composition against the plain versions on one
+    (M, C) case; returns the largest abs error of the composed dx."""
+    from deeplearning4j_torch.ops.batch_norm import (
+        bn_bwd, bn_bwd_reference, bn_dx, bn_dx_reference, bn_reduce,
+        bn_reduce_reference)
+
+    s = bn_reduce(x, dy)
+    dx = bn_dx(x, dy, a, c1, c2)
+    composed = bn_bwd(x, dy, a)
+    torch.cuda.synchronize()
+    xf, dyf = x.float(), dy.float()
+    for name, got, want, terms in zip(
+            ("sum dy", "sum dy*x"), s, bn_reduce_reference(x, dy),
+            (dyf, dyf * xf)):
+        err = (got - want).abs()
+        bound = BN_SUM_RTOL * terms.abs().sum(0) + 1e-6
+        check(bool(torch.isfinite(got).all() and (err <= bound).all()),
+              f"{what}: K4a {name} differs from the plain version (max abs "
+              f"err {err.max().item():.3g})")
+    want = bn_dx_reference(x, dy, a, c1, c2)
+    check(bool(torch.equal(dx, want)), f"{what}: K4b differs from the plain "
+          f"version (max abs err {(dx.float() - want.float()).abs().max().item():.3g}; "
+          f"both round the same ops in the same order)")
+    # the composition: a summation-order difference in K4a can move c1 or
+    # c2 by one rounding in x's dtype, and dx by one rounding of its own
+    ref = bn_bwd_reference(x, dy, a)
+    M = x.shape[0]
+    c1r = (bn_reduce_reference(x, dy)[0] * (1.0 / M)).abs()
+    c2r = (bn_reduce_reference(x, dy)[1] * (2.0 / M)).abs()
+    r = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
+    bound = r * (ref.float().abs() + c1r + xf.abs() * c2r) + 1e-30
+    err = (composed.float() - ref.float()).abs()
+    check(bool((err <= bound).all()), f"{what}: bn_bwd differs from the "
+          f"plain composition (max abs err {err.max().item():.3g})")
+    return err.max().item()
+
+
+def phase_bn_kernels():
+    """K4a and K4b against their plain versions over BN_CASES, then at the
+    microbench's shape (bf16, M = 128*56*56, C = 256, seed 0 as
+    scripts/bn_reduce_bench.py draws it), timed beside the plain versions
+    and the library's BatchNorm backward."""
+    from deeplearning4j_torch.ops.batch_norm import (
+        bn_dx, bn_dx_reference, bn_reduce, bn_reduce_reference)
+
+    gen = torch.Generator(device="cuda")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (dt, M, C, const) in enumerate(BN_CASES):
+        gen.manual_seed(400 + i)
+        x, dy = (torch.randn((M, C), generator=gen, device="cuda").to(dt)
+                 for _ in range(2))
+        if const:
+            x[:, 3] = 0.75
+        a = torch.randn((C,), generator=gen, device="cuda").to(dt)
+        c1, c2 = (1e-2 * torch.randn((C,), generator=gen, device="cuda")
+                  for _ in range(2))
+        what = f"{str(dt)[6:]} M={M} C={C} constant channel={const}"
+        err = _bn_compare(x, dy, a, c1, c2, what)
+        worst[dt] = max(worst[dt], err)
+        print(f"[bn] ok {what}: composed dx max abs err {err:.3g}")
+
+    M, C = 128 * 56 * 56, 256
+    rng = np.random.RandomState(0)
+    x, dy = (torch.from_numpy(rng.randn(M, C).astype(np.float32)).cuda()
+             .to(torch.bfloat16) for _ in range(2))
+    a = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda().to(
+        torch.bfloat16)
+    s_dy, s_dyx = bn_reduce_reference(x, dy)
+    c1 = (s_dy * (1.0 / M)).to(x.dtype)
+    c2 = (s_dyx * (2.0 / M)).to(x.dtype)
+    err = _bn_compare(x, dy, a, c1, c2, "microbench shape")
+    k4a_ms = time_ms(lambda: bn_reduce(x, dy))
+    k4b_ms = time_ms(lambda: bn_dx(x, dy, a, c1, c2))
+    k4a_plain = time_ms(lambda: bn_reduce_reference(x, dy), reps=5, warmup=1)
+    k4b_plain = time_ms(lambda: bn_dx_reference(x, dy, a, c1, c2), reps=5,
+                        warmup=1)
+    # the library's BN backward (dx, dgamma, dbeta of a standard BN in one
+    # call) on the same tensors viewed as channels_last NCHW: it stands for
+    # K4a + K4b together
+    x4, dy4 = (t.view(128, 56, 56, C).permute(0, 3, 1, 2) for t in (x, dy))
+    mean = x.float().mean(0)
+    invstd = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
+    w = torch.ones(C, device="cuda")
+    library_ms = time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
+        dy4, x4, w, None, None, mean, invstd, True, 1e-5, [True, True, True]))
+    rows = []
+    for name, ms, plain_ms, n_io, replaces in (
+            ("bn_reduce", k4a_ms, k4a_plain, 2,
+             "scripts/bn_reduce_bench.py:41"),
+            ("bn_dx", k4b_ms, k4b_plain, 3,
+             "scripts/bn_reduce_bench.py:68")):
+        # least work: x and dy read once (and dx written once); a few f32
+        # FLOP per element on the CUDA cores
+        nbytes = n_io * M * C * x.element_size() + (2 if n_io == 2 else 3) \
+            * C * 4
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = 3 * M * C / PEAK_F32_FLOPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "deeplearning4j_torch/kernels/csrc/bn_bwd.cu",
+            "replaces": replaces, "launches": None, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms,
+            "library": "native_batch_norm_backward (dx, dgamma, dbeta), "
+                       "K4a + K4b together"})
+        print(f"[bn] microbench shape M={M} C={C} bf16, {name}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
+              f"{nbytes / 1e6:.1f} MB); library BN backward {library_ms:.4f} "
+              f"ms; composed dx max abs err {err:.3g}")
+    print(f"[bn] composed dx largest abs err: f32 {worst[torch.float32]:.3g}, "
+          f"bf16 {worst[torch.bfloat16]:.3g}")
+    return rows
+
+
 def _lm(flash: bool):
     from deeplearning4j_torch.models import CausalLM
 
@@ -650,6 +806,293 @@ def phase_grad_flash_vs_dense():
     check(rel <= GRAD_RTOL, f"f32 flash vs dense gradient rel diff {rel:.3g}")
 
 
+RN_BATCH, RN_STEPS, RN_WARMUP = 128, 12, 2
+RN_GRAD_BATCH = 8
+RN_GRAD_RTOL = 1e-3     # f32 gradients, kernels vs plain BN backward
+
+
+def _resnet50(compute_dtype):
+    from deeplearning4j_torch.models import ResNet50
+
+    model = ResNet50(num_classes=1000, seed=0,
+                     input_shape=(224, 224, 3)).build()
+    model.config.compute_dtype = compute_dtype
+    return model
+
+
+def _bn_nodes(model, batch):
+    """(name, M, C) of every BatchNorm of a Graph at this batch size."""
+    from deeplearning4j_torch.nn.layers import BatchNorm
+
+    out = []
+    for name in model.topo_order:
+        node = model.nodes[name]
+        if isinstance(node.spec, BatchNorm):
+            h, w, c = model.node_shape(node.inputs[0])
+            out.append((name, batch * h * w, c))
+    return out
+
+
+def _model_flop(model, batch):
+    """Model FLOP of one training step: 2 FLOP per multiply-add of every
+    conv and dense layer's forward, times 3 (forward, and the input and
+    weight gradients of the backward)."""
+    from deeplearning4j_torch.nn.layers import Conv2D, Output
+
+    macs = 0
+    for name in model.topo_order:
+        node = model.nodes[name]
+        if isinstance(node.spec, Conv2D):
+            oh, ow, co = model.node_shape(name)
+            kh, kw = node.spec.kernel
+            ci = model.node_shape(node.inputs[0])[-1] // node.spec.groups
+            macs += oh * ow * co * kh * kw * ci
+        elif isinstance(node.spec, Output):
+            macs += model.node_shape(node.inputs[0])[-1] * node.spec.n_out
+    return 6 * macs * batch
+
+
+def phase_resnet_train():
+    """Trainer(ResNet50).fit at full width (224², batch 128, bf16 compute,
+    adam 1e-3): RN_WARMUP steps in one fit, the rest in a second fit timed
+    as one window. Launch counts of K4a and K4b are zeroed before the first
+    fit and read after the second: 53 each per step."""
+    from deeplearning4j_torch.data import BenchmarkIterator
+    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    t0 = time.perf_counter()
+    model = _resnet50("bfloat16")
+    model.init(seed=0)
+    torch.cuda.synchronize()
+    n_bn = len(_bn_nodes(model, RN_BATCH))
+    print(f"[resnet] ResNet50 graph of {len(model.nodes)} nodes ({n_bn} "
+          f"BatchNorms), {model.param_count()} params, initialized in "
+          f"{time.perf_counter() - t0:.2f} s")
+    stats0 = {k: {n: t.clone() for n, t in v.items()}
+              for k, v in model.state.items()}
+    trainer = Trainer(model)
+    scores = CollectScoresListener()
+    timed = RN_STEPS - RN_WARMUP
+
+    def batches(n):
+        return BenchmarkIterator((224, 224, 3), 1000, RN_BATCH, n, seed=0)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bn_reduce.launches = bn_dx.launches = 0
+    t0 = time.perf_counter()
+    trainer.fit(batches(RN_WARMUP), listeners=[scores])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.fit(batches(timed), listeners=[scores])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = (bn_reduce.launches, bn_dx.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in scores.scores]
+    check(len(losses) == RN_STEPS, f"{len(losses)} losses for {RN_STEPS} "
+          f"steps")
+    check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(counts == (n_bn * RN_STEPS,) * 2,
+          f"launches K4a, K4b {counts}: want {n_bn} each per step over "
+          f"{RN_STEPS} steps")
+    moved = 0
+    for k, v in trainer.state.items():
+        for n, t in v.items():
+            check(bool(torch.isfinite(t).all()), f"non-finite running {n} "
+                  f"in {k}")
+            moved += int(not torch.equal(t, stats0[k][n]))
+    check(moved == 2 * n_bn, f"{moved} of {2 * n_bn} running statistics "
+          f"changed over the fit")
+    step_ms = 1e3 * (t2 - t1) / timed
+    flop = _model_flop(model, RN_BATCH)
+    print(f"[resnet] {RN_STEPS} steps of Trainer.fit (adam 1e-3, bf16 "
+          f"compute, f32 params), BenchmarkIterator batch {RN_BATCH} at "
+          f"224x224x3: losses " + " ".join(f"{l:.4f}" for l in losses))
+    print(f"[resnet] launches K4a {counts[0]}, K4b {counts[1]} ({n_bn} each "
+          f"per step); running mean and var of all {n_bn} BatchNorms finite "
+          f"and changed; warm-up fit of {RN_WARMUP} steps {t1 - t0:.2f} s")
+    print(f"[resnet] step ms (one fit of {timed} steps after the warm-up, "
+          f"synchronized at both ends, window / steps): {step_ms:.2f} ms "
+          f"({1e3 * (t2 - t1):.1f} ms window), "
+          f"{RN_BATCH / step_ms * 1e3:.1f} images/s")
+    print(f"[resnet] model FLOP/step = 6 x conv and dense multiply-adds x "
+          f"batch = {flop:.4g}; MFU {flop / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.4f}"
+          f" of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
+    return counts, trainer
+
+
+def resnet_breakdown(trainer):
+    """Where one ResNet-50 step's time goes, each part timed alone by CUDA
+    events on the trained model: forward with the loss, forward plus
+    backward, the adam update; and K4a + K4b at every BatchNorm's shape,
+    summed over the 53 BatchNorms."""
+    from deeplearning4j_torch.data import BenchmarkIterator
+    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    model, params, state = trainer.model, trainer.params, trainer.state
+    ds = next(iter(BenchmarkIterator((224, 224, 3), 1000, RN_BATCH, 1,
+                                     seed=0)))
+    x, y = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    leaves = tree_leaves(params)
+
+    def fwd():
+        model.score(params, state, x, y)
+
+    def fwd_bwd():
+        loss, _ = model.score(params, state, x, y)
+        torch.autograd.grad(loss, leaves)
+
+    loss, _ = model.score(params, state, x, y)
+    grads = list(torch.autograd.grad(loss, leaves))
+    del loss
+
+    def update():
+        trainer.tx.update(grads, trainer.opt_state, leaves)
+
+    t = {name: time_ms(fn, reps=5, warmup=1) for name, fn in (
+        ("fwd", fwd), ("fwd_bwd", fwd_bwd), ("update", update))}
+    del grads
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    per_shape = {}
+    bn_total = 0.0
+    shapes = _bn_nodes(model, RN_BATCH)
+    for _, M, C in shapes:
+        if (M, C) not in per_shape:
+            xb, dyb = (torch.randn((M, C), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(2))
+            cv = torch.randn((C,), generator=gen, device="cuda")
+            per_shape[(M, C)] = (time_ms(lambda: bn_reduce(xb, dyb), reps=10),
+                                 time_ms(lambda: bn_dx(xb, dyb, cv, cv, cv),
+                                         reps=10))
+            del xb, dyb
+        bn_total += sum(per_shape[(M, C)])
+    k4a = sum(per_shape[(M, C)][0] for _, M, C in shapes)
+    elems = sum(M * C for _, M, C in shapes)
+    bound = sum((2 + 3) * M * C * 2 for _, M, C in shapes) \
+        / PEAK_BYTES_PER_S * 1e3
+    print(f"[resnet] step breakdown (CUDA events, median of 5, each part "
+          f"alone): forward + loss {t['fwd']:.2f} ms; backward "
+          f"{t['fwd_bwd'] - t['fwd']:.2f} ms (K4a + K4b over the {len(shapes)} "
+          f"BatchNorms {bn_total:.2f} ms: K4a {k4a:.2f}, K4b "
+          f"{bn_total - k4a:.2f}; their bytes bound {bound:.2f} ms over "
+          f"{elems / 1e9:.3f} G elements); adam update {t['update']:.2f} ms")
+    print("[resnet] K4a, K4b ms per (M, C): " + "; ".join(
+        f"{M}x{C} {a:.4f}, {b:.4f}" for (M, C), (a, b) in per_shape.items()))
+    return t, bn_total
+
+
+def resnet_step_anatomy(trainer):
+    """What separates the fit's step time from the device parts: steps
+    with the batch already on the card (5, one window), the host time to
+    enqueue one such step, and a torch.profiler trace of 3 fit steps, whose
+    kernel intervals give the card's busy and idle share under the
+    profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_torch.data import BenchmarkIterator
+
+    ds = next(iter(BenchmarkIterator((224, 224, 3), 1000, RN_BATCH, 1,
+                                     seed=0)))
+    x, y = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    p, o, s = trainer.params, trainer.opt_state, trainer.state
+    p, o, s, _ = trainer.step(p, o, s, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p, o, s, _ = trainer.step(p, o, s, x, y)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        p, o, s, _ = trainer.step(p, o, s, x, y)
+    torch.cuda.synchronize()
+    on_card_ms = 1e3 * (time.perf_counter() - t0) / 5
+    trainer.opt_state, trainer.state = o, s
+    print(f"[resnet] step with the batch already on the card (5 steps, one "
+          f"window): {on_card_ms:.2f} ms; host time to enqueue one such "
+          f"step: {enqueue_ms:.2f} ms")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.fit(BenchmarkIterator((224, 224, 3), 1000, RN_BATCH, 3,
+                                      seed=0))
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.device_type == DeviceType.CUDA)
+    if not kernels:
+        print("[resnet] profiler: no device events recorded; busy and idle "
+              "share not measured")
+        return None
+    busy, cur_s, cur_e = 0.0, None, None
+    for st, en in kernels:
+        if cur_e is None or st > cur_e:
+            busy += 0.0 if cur_e is None else cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    busy += cur_e - cur_s
+    span = max(e.time_range.end for e in events) \
+        - min(e.time_range.start for e in events)
+    top = sorted(prof.key_averages(), key=lambda a: -a.device_time_total)[:6]
+    print(f"[resnet] profiler, 3 fit steps: card busy {busy / 1e3:.2f} ms "
+          f"of a {span / 1e3:.2f} ms trace, idle share "
+          f"{1 - busy / span:.4f}; {len(kernels)} device events; top by "
+          f"device time: " + "; ".join(
+              f"{a.key[:60]} {a.device_time_total / 1e3:.2f} ms" for a in top))
+    return 1 - busy / span
+
+
+def phase_resnet_grad_gate():
+    """f32 gradients of every ResNet-50 param on one batch of 8 at 224²:
+    through K4a/K4b against through their plain versions. Each param's
+    largest difference is held to RN_GRAD_RTOL of the largest gradient
+    entry of its node (its layer's params together): a BatchNorm whose
+    output reaches only BatchNorms through ReLU and max pooling (the stem)
+    has a beta gradient that is zero up to rounding, whose own largest
+    entry is no scale."""
+    from deeplearning4j_torch.data import BenchmarkIterator
+    from deeplearning4j_torch.ops import batch_norm
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    model = _resnet50(None)
+    params, state = model.init(seed=0)
+    ds = next(iter(BenchmarkIterator((224, 224, 3), 1000, RN_GRAD_BATCH, 1,
+                                     seed=1)))
+    x, y = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    names = [k for k in sorted(params) for _ in tree_leaves(params[k])]
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    loss, _ = model.score(params, state, x, y)
+    got = torch.autograd.grad(loss, leaves)
+    # the BatchNorm Function's backward calls the module's bn_reduce and
+    # bn_dx: point them at the plain versions for the reference gradients
+    kernels = batch_norm.bn_reduce, batch_norm.bn_dx
+    batch_norm.bn_reduce = batch_norm.bn_reduce_reference
+    batch_norm.bn_dx = batch_norm.bn_dx_reference
+    try:
+        loss_p, _ = model.score(params, state, x, y)
+        want = torch.autograd.grad(loss_p, leaves)
+    finally:
+        batch_norm.bn_reduce, batch_norm.bn_dx = kernels
+    scale = {}
+    for n, w in zip(names, want):
+        scale[n] = max(scale.get(n, 0.0), w.abs().max().item())
+    rel_node = max(((g - w).abs().max().item() / scale[n])
+                   for n, g, w in zip(names, got, want))
+    rel_own = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                  .item() for g, w in zip(got, want))
+    print(f"[resnet grad] f32, batch {RN_GRAD_BATCH} at 224x224x3, loss "
+          f"{loss.item():.6f} (plain {loss_p.item():.6f}): max over params "
+          f"of max |kernels - plain| / largest gradient entry of the node "
+          f"{rel_node:.3g} (gate {RN_GRAD_RTOL}); of the param itself "
+          f"{rel_own:.3g}")
+    check(rel_node <= RN_GRAD_RTOL, f"f32 ResNet-50 gradient, kernels vs "
+          f"plain BN backward, rel diff {rel_node:.3g}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -674,12 +1117,22 @@ def main() -> int:
     del model, trainer
     torch.cuda.empty_cache()
     phase_grad_flash_vs_dense()
+    bn_rows = phase_bn_kernels()
+    (k4a_train, k4b_train), trainer = phase_resnet_train()
+    resnet_breakdown(trainer)
+    resnet_step_anatomy(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    phase_resnet_grad_gate()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train}
     bwd_rows[0]["launches"] = k2_train
     bwd_rows[1]["launches"] = k3_train
     bwd_rows[2]["launches"] = k5_train
-    print(json.dumps({"kernels": [k1] + bwd_rows}))
+    for row, n in zip(bn_rows, (k4a_train, k4b_train)):
+        row["launches"] = n
+        row["launches_by_path"] = {"train": n}
+    print(json.dumps({"kernels": [k1] + bwd_rows + bn_rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

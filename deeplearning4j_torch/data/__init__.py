@@ -1,6 +1,8 @@
-"""Data pipeline of the port (this slice: in-memory and prefetching
+"""Data pipeline of the port (so far: in-memory, prefetching and benchmark
 iterators)."""
 
-from .iterators import ArrayIterator, AsyncIterator, DataSet, DataSetIterator
+from .iterators import (ArrayIterator, AsyncIterator, BenchmarkIterator,
+                        DataSet, DataSetIterator)
 
-__all__ = ["ArrayIterator", "AsyncIterator", "DataSet", "DataSetIterator"]
+__all__ = ["ArrayIterator", "AsyncIterator", "BenchmarkIterator", "DataSet",
+           "DataSetIterator"]

@@ -1,5 +1,6 @@
 """Dataset iterators — counterpart of ``deeplearning4j_tpu/data/iterators.py``
-(``DataSet``, ``DataSetIterator``, ``ArrayIterator``, ``AsyncIterator``).
+(``DataSet``, ``DataSetIterator``, ``ArrayIterator``, ``AsyncIterator``,
+``BenchmarkIterator``).
 
 A ``DataSet`` is a (features, labels, masks) record of host arrays (numpy)
 or tensors; iterators are plain Python iterables. ``AsyncIterator``
@@ -13,7 +14,7 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
-from typing import Any, Iterable, Iterator, List, Optional
+from typing import Any, Iterable, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -85,6 +86,39 @@ class ArrayIterator(DataSetIterator):
                 self.features_mask[sl] if self.features_mask is not None else None,
                 self.labels_mask[sl] if self.labels_mask is not None else None,
             )
+
+
+class BenchmarkIterator(DataSetIterator):
+    """BenchmarkDataSetIterator.java — the same random batch served
+    ``num_batches`` times, isolating compute from data loading. Features
+    are standard normal and labels one-hot, drawn from
+    ``np.random.default_rng(seed)`` in the reference's order, so both
+    packages serve the same batch."""
+
+    def __init__(self, feature_shape: Sequence[int], num_classes: int,
+                 batch_size: int, num_batches: int, seed: int = 0,
+                 dtype=np.float32):
+        rng = np.random.default_rng(seed)
+        self._features = rng.standard_normal(
+            (batch_size, *feature_shape)).astype(dtype)
+        labels = np.zeros((batch_size, num_classes), dtype)
+        labels[np.arange(batch_size),
+               rng.integers(0, num_classes, batch_size)] = 1
+        self._labels = labels
+        self._batch = batch_size
+        self.num_batches = num_batches
+
+    @property
+    def batch_size(self):
+        return self._batch
+
+    def __len__(self):
+        return self.num_batches
+
+    def __iter__(self):
+        ds = DataSet(self._features, self._labels)
+        for _ in range(self.num_batches):
+            yield ds
 
 
 class AsyncIterator(DataSetIterator):

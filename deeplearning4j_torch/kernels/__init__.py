@@ -5,6 +5,11 @@
 wrapper of each kernel lives beside the op it serves, with its plain PyTorch
 version and its launch count:
 
-- ``flash_fwd`` — attention forward, wrapped by
-  ``ops.flash_attention.flash_fwd_cuda``.
+- ``flash_fwd`` — attention forward (K1), wrapped by
+  ``ops.flash_attention.flash_fwd_cuda``;
+- ``flash_bwd`` — attention backward (K2, K3) and the column broadcast
+  probe (K5), wrapped by ``ops.flash_attention.flash_bwd_dq_cuda``,
+  ``flash_bwd_dkv_cuda`` and ``column_broadcast_cuda``;
+- ``bn_bwd`` — BatchNorm's backward reductions (K4a) and dx (K4b), wrapped
+  by ``ops.batch_norm.bn_reduce`` and ``bn_dx``.
 """

@@ -8,6 +8,8 @@ library built before. A missing ``nvcc`` or a failed build raises: there is
 no fallback. The compiler's report (``-Xptxas -v``: registers, shared
 memory, spills) is kept beside the library as ``<lib>.log``.
 :func:`build_all` compiles every source at once, one nvcc per source.
+:func:`launch` calls a loaded launcher on PyTorch's current stream and
+counts the launch on the kernel's wrapper.
 """
 
 from __future__ import annotations
@@ -22,14 +24,17 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Any, Dict, List, Tuple
 
+import torch
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("flash_fwd", "flash_bwd")
+KERNELS = ("flash_fwd", "flash_bwd", "bn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 
@@ -108,3 +113,24 @@ def load(name: str, prototypes: Dict[str, Tuple[list, Any]]) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _loaded[name] = lib
         return lib
+
+
+def _arg(a):
+    if a is None:
+        return None
+    return a.data_ptr() if isinstance(a, torch.Tensor) else a
+
+
+def launch(lib: ctypes.CDLL, fn: str, args, what: str, wrapper) -> None:
+    """Call C launcher ``fn`` of ``lib`` with ``args`` (tensors passed as
+    their data pointers) and PyTorch's current stream on the first
+    argument's device; raise on a CUDA error (the launch was refused and
+    never ran), else add one to ``wrapper.launches``."""
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn)(*[_arg(a) for a in args], stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.dl4j_cuda_error_string(rc).decode()}")
+    with _count_lock:
+        wrapper.launches += 1

@@ -16,7 +16,8 @@ def register_model(cls):
 
 
 class ZooModel:
-    """Base: subclasses define ``build() -> Sequential`` on ``self.device``
+    """Base: subclasses define ``build()`` (a ``Sequential`` or a
+    ``Graph``) on ``self.device``
     (the card unless the caller names another)."""
 
     name: str = "zoo"

@@ -1,11 +1,16 @@
-"""Layer catalog of the port (this slice: the CausalLM stack)."""
+"""Layer catalog of the port (so far: the CausalLM stack and the
+ResNet-50 graph's conv, pooling and BatchNorm layers)."""
 
 from .attention import (MultiHeadAttention, PositionalEmbedding,
                         TransformerEncoderBlock, dot_product_attention,
                         rope_rotate)
-from .core import Dense, EmbeddingSequence, Output, RnnOutput
-from .norm import LayerNorm
+from .conv import Conv2D, Subsampling2D
+from .core import ActivationLayer, Dense, EmbeddingSequence, Output, RnnOutput
+from .norm import BatchNorm, LayerNorm
+from .pooling import Flatten, GlobalPooling
 
-__all__ = ["Dense", "EmbeddingSequence", "LayerNorm", "MultiHeadAttention",
-           "Output", "PositionalEmbedding", "RnnOutput",
-           "TransformerEncoderBlock", "dot_product_attention", "rope_rotate"]
+__all__ = ["ActivationLayer", "BatchNorm", "Conv2D", "Dense",
+           "EmbeddingSequence", "Flatten", "GlobalPooling", "LayerNorm",
+           "MultiHeadAttention", "Output", "PositionalEmbedding", "RnnOutput",
+           "Subsampling2D", "TransformerEncoderBlock",
+           "dot_product_attention", "rope_rotate"]

@@ -1,5 +1,5 @@
 """Core layers — counterpart of ``deeplearning4j_tpu/nn/layers/core.py``
-(Dense, EmbeddingSequence, Output, RnnOutput). Dense weights are (in, out),
+(Dense, ActivationLayer, EmbeddingSequence, Output, RnnOutput). Dense weights are (in, out),
 as in the reference, so params cross between the packages unchanged.
 Output layers score with the reference's fusion: softmax + MCXENT becomes
 ``mcxent_logits`` on the preactivation.
@@ -46,6 +46,17 @@ class Dense(Layer):
         if self.use_bias:
             y = y + params["b"]
         return activations.get(self.activation)(y), state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class ActivationLayer(Layer):
+    """A standalone activation (ActivationLayer.java)."""
+
+    activation: str = "relu"
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        return activations.get(self.activation)(x), state, mask
 
 
 @register_layer

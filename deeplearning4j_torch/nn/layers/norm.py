@@ -1,5 +1,6 @@
-"""Normalization — counterpart of ``LayerNorm`` in
-``deeplearning4j_tpu/nn/layers/norm.py``."""
+"""Normalization — counterpart of ``BatchNorm`` and ``LayerNorm`` in
+``deeplearning4j_tpu/nn/layers/norm.py`` (LRN and RMSNorm are not ported
+yet: ROADMAP.md, Queue 1 item 4)."""
 
 from __future__ import annotations
 
@@ -7,8 +8,66 @@ from dataclasses import dataclass
 
 import torch
 
+from ...ops import activations
 from ...ops.activations import weak_scalar
+from ...ops.batch_norm import batch_norm_train
 from ..api import Layer, register_layer
+
+
+@register_layer
+@dataclass(frozen=True)
+class BatchNorm(Layer):
+    """BatchNormalization.java — normalizes over every axis but the last.
+
+    Running mean and var live in ``state`` (f32, whatever the compute
+    dtype); training-mode ``apply`` returns them EMA-updated with ``decay``
+    and the caller threads them, as in the reference. Training mode runs
+    ``ops.batch_norm.batch_norm_train`` on the (M, C) rows (single-pass f32
+    statistics; the backward is the K4a/K4b kernels); inference mode is
+    ``y = x·a + b`` from the running statistics under plain autograd. Both
+    fold (mean, var, γ, β) into a per-channel f32 affine cast to x's dtype,
+    as the reference does."""
+
+    decay: float = 0.9
+    eps: float = 1e-5
+    lock_gamma_beta: bool = False  # fixed gamma = 1, beta = 0
+    activation: str = "identity"
+
+    def init(self, gen, input_shape, dtype=torch.float32, device=None):
+        n = input_shape[-1]
+        params = {}
+        if not self.lock_gamma_beta:
+            params = {"gamma": torch.ones((n,), dtype=dtype, device=device),
+                      "beta": torch.zeros((n,), dtype=dtype, device=device)}
+        state = {"mean": torch.zeros((n,), dtype=dtype, device=device),
+                 "var": torch.ones((n,), dtype=dtype, device=device)}
+        return params, state
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        gamma = None if self.lock_gamma_beta else params["gamma"]
+        beta = None if self.lock_gamma_beta else params["beta"]
+        if training:
+            C = x.shape[-1]
+            y, mean, var = batch_norm_train(x.contiguous().view(-1, C), gamma,
+                                            beta, self.eps)
+            y = y.view(x.shape)
+            sdt = state["mean"].dtype
+            new_state = {
+                "mean": self.decay * state["mean"]
+                + (1 - self.decay) * mean.to(sdt),
+                "var": self.decay * state["var"]
+                + (1 - self.decay) * var.to(sdt)}
+        else:
+            inv = torch.rsqrt(state["var"].float() + self.eps)
+            mean = state["mean"].float()
+            if gamma is None:
+                a, b = inv, -mean * inv
+            else:
+                a = inv * gamma.float()
+                b = beta.float() - mean * a
+            y = x * a.to(x.dtype) + b.to(x.dtype)
+            new_state = state
+        return activations.get(self.activation)(y), new_state, mask
 
 
 def layer_norm(x, gamma, beta, eps: float = 1e-6):

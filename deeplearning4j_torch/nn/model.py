@@ -1,18 +1,23 @@
-"""Sequential network container — counterpart of ``Sequential``,
-``SequentialBuilder`` and ``NetConfig`` in ``deeplearning4j_tpu/nn/model.py``.
+"""Network containers — counterpart of ``Sequential``, ``Graph``, their
+builders and ``NetConfig`` in ``deeplearning4j_tpu/nn/model.py``.
 
 A container is a config plus pure functions over a params dict keyed by
-layer name (``layer_i`` unless the layer is named), the reference's tree:
-params cross between the packages key for key. ``to_json``/``from_json``
-write and read the reference's ``deeplearning4j_tpu/sequential/v1`` format.
+layer name (``layer_i`` unless the layer is named; a ``Graph``'s node
+name), the reference's tree: params cross between the packages key for
+key. ``to_json``/``from_json`` write and read the reference's
+``deeplearning4j_tpu/sequential/v1`` and ``deeplearning4j_tpu/graph/v1``
+formats.
 
 Mixed precision follows the reference: with ``compute_dtype`` set, each
 layer's float params are cast to it at the layer, a float input is cast,
-and the output is cast back to ``dtype``. ``score`` runs every layer but
-the last that way and then the output layer on the f32 features with its
-uncast params, as the reference does: a bf16 model's training loss (the
-head and its log-softmax) is f32. ``NetConfig.remat`` checkpoints each
-layer through ``torch.utils.checkpoint``. ``Graph`` comes in a later slice.
+and the output is cast back to ``dtype``. ``Sequential.score`` runs every
+layer but the last that way and then the output layer on the f32 features
+with its uncast params, as the reference does: a bf16 ``Sequential``'s
+training loss (the head and its log-softmax) is f32. ``Graph.score`` runs
+its output layers in the compute dtype too, with cast params, and casts
+each loss to f32 before summing, as the reference's ``Graph.score`` does.
+``NetConfig.remat`` checkpoints each layer through
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -28,16 +33,30 @@ import torch.utils.checkpoint
 from ..device import DeviceLike, resolve_device
 from ..ops.losses import reduction_mass
 from .api import Layer, Params, Shape, State, layer_from_dict
+from .vertices import GraphVertex, vertex_from_dict
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
 FORMAT = "deeplearning4j_tpu/sequential/v1"
+GRAPH_FORMAT = "deeplearning4j_tpu/graph/v1"
 
 
 def _cast_floats(tree, cdt):
     if isinstance(tree, dict):
         return {k: _cast_floats(v, cdt) for k, v in tree.items()}
     return tree.to(cdt) if tree.is_floating_point() else tree
+
+
+def _tree_shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
+def _tree_size(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_size(v) for v in tree.values())
+    return tree.numel()
 
 
 @dataclass
@@ -129,25 +148,12 @@ class Sequential:
 
     def param_shapes(self) -> Dict[str, dict]:
         """The params tree's shapes, computed without allocating."""
-        params, _ = self._init_on(None, torch.device("meta"))
-
-        def shapes(tree):
-            if isinstance(tree, dict):
-                return {k: shapes(v) for k, v in tree.items()}
-            return tuple(tree.shape)
-
-        return shapes(params)
+        return _tree_shapes(self._init_on(None, torch.device("meta"))[0])
 
     def param_count(self) -> int:
         if self.params is None:
             raise ValueError("call init() first")
-
-        def count(tree):
-            if isinstance(tree, dict):
-                return sum(count(v) for v in tree.values())
-            return tree.numel()
-
-        return count(self.params)
+        return _tree_size(self.params)
 
     def forward(self, params: Params, state: State, x: torch.Tensor, *,
                 training: bool = False, rng: Optional[torch.Generator] = None,
@@ -231,7 +237,8 @@ class Sequential:
         d = json.loads(s)
         if "sequential" not in d.get("format", ""):
             raise ValueError(f"not a Sequential config: format "
-                             f"{d.get('format')!r} (Graph is not ported yet)")
+                             f"{d.get('format')!r} (a Graph's loads with "
+                             f"Graph.from_json)")
         return cls(NetConfig.from_dict(d["config"]),
                    [layer_from_dict(ld) for ld in d["layers"]],
                    tuple(d["input_shape"]), device=device)
@@ -260,3 +267,348 @@ class SequentialBuilder:
             raise ValueError("set input_shape first")
         return Sequential(self.config, self._layers, self._input_shape,
                           device=self.device)
+
+
+def _collect_aux_losses(new_state, device) -> torch.Tensor:
+    """Sum of per-layer auxiliary training losses surfaced through layer
+    state (``state["aux_loss"]``), as f32; zero when no layer adds one."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for s in new_state.values():
+        if isinstance(s, dict) and "aux_loss" in s:
+            total = total + torch.as_tensor(s["aux_loss"]).float()
+    return total
+
+
+def _wants_flat_input(spec) -> bool:
+    """Feed-forward layers that take flattened features when wired to
+    conv-shaped (H, W, C) activations (the reference's implicit
+    CnnToFeedForwardPreProcessor)."""
+    from .layers.core import Dense, Output, RnnOutput
+
+    return isinstance(spec, (Dense, Output)) and not isinstance(spec, RnnOutput)
+
+
+@dataclass(frozen=True)
+class GraphNode:
+    """One node of a Graph config: a Layer or GraphVertex and its input
+    names."""
+
+    spec: Union[Layer, GraphVertex]
+    inputs: Tuple[str, ...]
+
+    def is_layer(self) -> bool:
+        return isinstance(self.spec, Layer)
+
+
+class Graph:
+    """ComputationGraph equivalent: a DAG of layers and vertices on one
+    device (the card unless ``device`` names another).
+
+    ``nodes``: name -> GraphNode; ``inputs``: the external input names;
+    ``outputs``: the output node names, whose order is the order of the
+    labels in ``score`` and ``fit``. Nodes run in the reference's
+    topological order (Kahn's, ties by name), so params are drawn and
+    layers applied in the same order in both packages."""
+
+    def __init__(self, config: NetConfig, inputs: Sequence[str],
+                 input_shapes: Dict[str, Shape], nodes: Dict[str, GraphNode],
+                 outputs: Sequence[str], device: DeviceLike = None):
+        self.config = config
+        self.inputs = list(inputs)
+        self.input_shapes = {k: tuple(v) for k, v in input_shapes.items()}
+        self.nodes = dict(nodes)
+        self.outputs = list(outputs)
+        self.device = resolve_device(device)
+        self.dtype = DTYPES[config.dtype]
+        self.topo_order = self._topo_sort()
+        self._shapes = self._infer_shapes()
+        self.params: Optional[Params] = None
+        self.state: Optional[State] = None
+
+    def _topo_sort(self) -> List[str]:
+        indeg = {name: 0 for name in self.nodes}
+        children: Dict[str, List[str]] = {name: [] for name in self.nodes}
+        for name, node in self.nodes.items():
+            for inp in node.inputs:
+                if inp in self.nodes:
+                    indeg[name] += 1
+                    children[inp].append(name)
+                elif inp not in self.inputs:
+                    raise ValueError(f"Node '{name}' references unknown "
+                                     f"input '{inp}'")
+        queue = sorted(n for n, d in indeg.items() if d == 0)
+        order = []
+        while queue:
+            n = queue.pop(0)
+            order.append(n)
+            for c in children[n]:
+                indeg[c] -= 1
+                if indeg[c] == 0:
+                    queue.append(c)
+            queue.sort()
+        if len(order) != len(self.nodes):
+            cyc = set(self.nodes) - set(order)
+            raise ValueError(f"Graph has a cycle involving: {sorted(cyc)}")
+        return order
+
+    def _infer_shapes(self) -> Dict[str, Shape]:
+        shapes: Dict[str, Shape] = dict(self.input_shapes)
+        for name in self.topo_order:
+            node = self.nodes[name]
+            in_shapes = [shapes[i] for i in node.inputs]
+            shapes[name] = tuple(node.spec.output_shape(in_shapes[0])
+                                 if node.is_layer()
+                                 else node.spec.output_shape(in_shapes))
+        return shapes
+
+    @property
+    def output_shapes(self) -> List[Shape]:
+        return [self._shapes[o] for o in self.outputs]
+
+    def node_shape(self, name: str) -> Shape:
+        """The feature shape (without batch) of a node's output or an
+        input."""
+        return self._shapes[name]
+
+    def _layer_names(self) -> List[str]:
+        return [n for n in self.topo_order if self.nodes[n].is_layer()]
+
+    def _init_on(self, gen, device) -> Tuple[Params, State]:
+        params: Params = {}
+        state: State = {}
+        for name in self._layer_names():
+            node = self.nodes[name]
+            p, s = node.spec.init(gen, self._shapes[node.inputs[0]],
+                                  self.dtype, device)
+            if p:
+                params[name] = p
+            if s:
+                state[name] = s
+        return params, state
+
+    def init(self, seed: Optional[int] = None) -> Tuple[Params, State]:
+        """Random params on the model's device from a ``torch.Generator``
+        seeded with ``seed`` (default ``config.seed``), drawn node by node
+        in topological order."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.config.seed if seed is None else seed)
+        self.params, self.state = self._init_on(gen, self.device)
+        return self.params, self.state
+
+    def param_shapes(self) -> Dict[str, dict]:
+        """The params tree's shapes, computed without allocating."""
+        return _tree_shapes(self._init_on(None, torch.device("meta"))[0])
+
+    def param_count(self) -> int:
+        if self.params is None:
+            raise ValueError("call init() first")
+        return _tree_size(self.params)
+
+    def _start(self, inputs, masks):
+        """The activations and masks dicts a pass starts from."""
+        if not isinstance(inputs, dict):
+            inputs = {self.inputs[0]: inputs}
+        if masks is not None and not isinstance(masks, dict):
+            masks = {self.inputs[0]: masks}
+        cdt = (DTYPES[self.config.compute_dtype]
+               if self.config.compute_dtype else None)
+        if cdt is not None:
+            inputs = {k: v.to(cdt) if v.is_floating_point() else v
+                      for k, v in inputs.items()}
+        acts = dict(inputs)
+        act_masks = {k: (masks or {}).get(k) for k in inputs}
+        return cdt, acts, act_masks
+
+    def _run_layer(self, name, params, state, acts, act_masks, new_state,
+                   cdt, training, rng):
+        node = self.nodes[name]
+        p = params.get(name, {})
+        if cdt is not None:
+            p = _cast_floats(p, cdt)
+        y, s_out, m_out = _apply_layer(
+            self.config, node.spec, p, state.get(name, {}),
+            acts[node.inputs[0]], training=training, rng=rng,
+            mask=act_masks.get(node.inputs[0]))
+        acts[name], act_masks[name] = y, m_out
+        if s_out:
+            new_state[name] = s_out
+
+    def _run_vertex(self, name, acts, act_masks):
+        node = self.nodes[name]
+        acts[name] = node.spec.apply([acts[i] for i in node.inputs])
+        act_masks[name] = act_masks.get(node.inputs[0])
+
+    def forward(self, params: Params, state: State, inputs, *,
+                training: bool = False, rng: Optional[torch.Generator] = None,
+                masks=None) -> Tuple[List[torch.Tensor], State]:
+        """Every node in topological order; returns ``(outputs, new_state)``
+        with ``outputs`` in ``self.outputs`` order. ``inputs`` (and
+        ``masks``) are a tensor for the first input or a dict by input
+        name."""
+        cdt, acts, act_masks = self._start(inputs, masks)
+        new_state = dict(state)
+        for name in self.topo_order:
+            if self.nodes[name].is_layer():
+                self._run_layer(name, params, state, acts, act_masks,
+                                new_state, cdt, training, rng)
+            else:
+                self._run_vertex(name, acts, act_masks)
+        outs = [acts[o] for o in self.outputs]
+        if cdt is not None:
+            outs = [o.to(self.dtype) if o.is_floating_point() else o
+                    for o in outs]
+        return outs, new_state
+
+    def score(self, params: Params, state: State, inputs, labels, *,
+              training: bool = True, rng: Optional[torch.Generator] = None,
+              masks=None, label_masks=None) -> Tuple[torch.Tensor, State]:
+        """Training loss (a 0-d f32 tensor): the sum of the losses of the
+        output layers, each scored in the compute dtype and cast to f32,
+        plus any auxiliary loss in the layers' state; and the new state.
+        ``labels`` (and ``label_masks``) are one per output, or a single
+        one for a one-output graph."""
+        if not any(_is_loss_layer(self.nodes[o].spec) for o in self.outputs):
+            raise ValueError("Graph has no loss-bearing output layer — "
+                             "score/fit would silently return 0")
+        if not isinstance(labels, (list, tuple)):
+            labels = [labels]
+        cdt, acts, act_masks = self._start(inputs, masks)
+        new_state = dict(state)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        out_idx = {o: i for i, o in enumerate(self.outputs)}
+        consumed = {i for node in self.nodes.values() for i in node.inputs}
+        for name in self.topo_order:
+            node = self.nodes[name]
+            if not node.is_layer():
+                self._run_vertex(name, acts, act_masks)
+                continue
+            if name in out_idx and _is_loss_layer(node.spec):
+                li = out_idx[name]
+                lm = None
+                if label_masks is not None:
+                    lm = (label_masks[li]
+                          if isinstance(label_masks, (list, tuple))
+                          else label_masks)
+                if lm is None:
+                    lm = act_masks.get(node.inputs[0])
+                p = params.get(name, {})
+                if cdt is not None:
+                    p = _cast_floats(p, cdt)
+                loss = node.spec.score(p, state.get(name, {}),
+                                       acts[node.inputs[0]], labels[li],
+                                       mask=lm)
+                total = total + loss.float()
+                if name not in consumed:  # nothing downstream needs it
+                    continue
+            self._run_layer(name, params, state, acts, act_masks, new_state,
+                            cdt, training, rng)
+        return total + _collect_aux_losses(new_state, total.device), new_state
+
+    def output(self, inputs, params: Optional[Params] = None,
+               state: Optional[State] = None, masks=None) -> List[torch.Tensor]:
+        """Inference on ``inputs`` (tensors or arrays; moved to the model's
+        device) with the given or the model's own params."""
+        p = params if params is not None else self.params
+        s = state if state is not None else self.state
+        if p is None:
+            raise ValueError("call init() first")
+        if isinstance(inputs, dict):
+            inputs = {k: torch.as_tensor(v, device=self.device)
+                      for k, v in inputs.items()}
+        else:
+            inputs = torch.as_tensor(inputs, device=self.device)
+        with torch.inference_mode():
+            ys, _ = self.forward(p, s, inputs, training=False, masks=masks)
+        return ys
+
+    def to_json(self) -> str:
+        nodes = {name: {"kind": "layer" if node.is_layer() else "vertex",
+                        "spec": node.spec.to_dict(),
+                        "inputs": list(node.inputs)}
+                 for name, node in self.nodes.items()}
+        return json.dumps({
+            "format": GRAPH_FORMAT,
+            "config": self.config.to_dict(),
+            "inputs": self.inputs,
+            "input_shapes": {k: list(v) for k, v in self.input_shapes.items()},
+            "nodes": nodes,
+            "outputs": self.outputs,
+        }, indent=2)
+
+    @classmethod
+    def from_json(cls, s: str, device: DeviceLike = None) -> "Graph":
+        d = json.loads(s)
+        if "graph" not in d.get("format", ""):
+            raise ValueError(f"not a Graph config: format "
+                             f"{d.get('format')!r}")
+        nodes = {}
+        for name, nd in d["nodes"].items():
+            spec = (layer_from_dict(nd["spec"]) if nd["kind"] == "layer"
+                    else vertex_from_dict(nd["spec"]))
+            nodes[name] = GraphNode(spec, tuple(nd["inputs"]))
+        return cls(NetConfig.from_dict(d["config"]), d["inputs"],
+                   {k: tuple(v) for k, v in d["input_shapes"].items()},
+                   nodes, d["outputs"], device=device)
+
+
+class GraphBuilder:
+    """Fluent builder (ComputationGraphConfiguration.GraphBuilder)."""
+
+    def __init__(self, config: Optional[NetConfig] = None,
+                 device: DeviceLike = None):
+        self.config = config or NetConfig()
+        self.device = device
+        self._inputs: List[str] = []
+        self._input_shapes: Dict[str, Shape] = {}
+        self._nodes: Dict[str, GraphNode] = {}
+        self._outputs: List[str] = []
+
+    def add_input(self, name: str, shape: Shape) -> "GraphBuilder":
+        self._inputs.append(name)
+        self._input_shapes[name] = tuple(shape)
+        return self
+
+    def add_layer(self, name: str, layer: Layer, *inputs: str) -> "GraphBuilder":
+        self._nodes[name] = GraphNode(layer, tuple(inputs))
+        return self
+
+    def add_vertex(self, name: str, vertex: GraphVertex,
+                   *inputs: str) -> "GraphBuilder":
+        self._nodes[name] = GraphNode(vertex, tuple(inputs))
+        return self
+
+    def set_outputs(self, *names: str) -> "GraphBuilder":
+        self._outputs = list(names)
+        return self
+
+    def build(self) -> Graph:
+        """The Graph, with a ``Flatten`` node (``<layer>_flatten``)
+        inserted wherever a Dense or Output layer is wired to conv-shaped
+        (H, W, C) activations, as the reference's builder inserts it.
+        ``Graph.from_json`` bypasses the builder, so a round trip never
+        inserts twice."""
+        from .layers.pooling import Flatten
+
+        probe = Graph(self.config, self._inputs, self._input_shapes,
+                      self._nodes, self._outputs,
+                      device=self.device or "meta")  # validates, sorts
+        shapes: Dict[str, Shape] = dict(probe.input_shapes)
+        nodes: Dict[str, GraphNode] = {}
+        for name in probe.topo_order:
+            node = self._nodes[name]
+            in_shape = shapes[node.inputs[0]] if node.inputs else None
+            if (node.is_layer() and _wants_flat_input(node.spec)
+                    and len(in_shape) == 3):
+                fname = f"{name}_flatten"
+                while fname in self._nodes or fname in nodes:
+                    fname += "_"
+                flatten = Flatten()
+                nodes[fname] = GraphNode(flatten, node.inputs)
+                node = GraphNode(node.spec, (fname,))
+                in_shape = tuple(flatten.output_shape(in_shape))
+            nodes[name] = node
+            shapes[name] = tuple(
+                node.spec.output_shape(in_shape) if node.is_layer()
+                else node.spec.output_shape([shapes[i] for i in node.inputs]))
+        return Graph(self.config, self._inputs, self._input_shapes, nodes,
+                     self._outputs, device=self.device)

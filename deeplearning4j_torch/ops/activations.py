@@ -2,7 +2,7 @@
 ``deeplearning4j_tpu/ops/activations.py``.
 
 Configs name activations as strings, so the registry keys are the
-reference's; this slice carries the ones its layers use. ``gelu`` is the
+reference's; the port carries the ones its layers use so far. ``gelu`` is the
 tanh approximation, which is what ``jax.nn.gelu`` computes by default
 (torch's default is the erf form).
 
@@ -65,5 +65,6 @@ def gelu(x):
 
 
 register("identity")(lambda x: x)
+register("relu")(torch.relu)
 register("softmax")(softmax)
 register("gelu")(gelu)

@@ -33,15 +33,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional, Tuple
 
 import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-
-_count_lock = threading.Lock()
 
 
 def _valid(BH, T, lens, kmask, causal, window, device) -> torch.Tensor:
@@ -156,24 +153,6 @@ def _kernel_operands(tensors, lens, kmask, who: str):
     return tensors, lens, kmask
 
 
-def _ptr(a):
-    return None if a is None else a.data_ptr()
-
-
-def _launch(lib, fn, args, what: str, wrapper) -> None:
-    """Call C launcher ``fn`` on the current stream; raise on a CUDA error
-    (the launch was refused and never ran), else count the launch."""
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, fn)(*[_ptr(a) if isinstance(a, torch.Tensor) or a is None
-                                else a for a in args], stream)
-    if rc != 0:
-        raise RuntimeError(f"{what} kernel launch failed: "
-                           f"{lib.dl4j_cuda_error_string(rc).decode()}")
-    with _count_lock:
-        wrapper.launches += 1
-
-
 def flash_fwd_cuda(q, k, v, lens=None, kmask=None, *, scale: float,
                    causal: bool = False,
                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -189,10 +168,11 @@ def flash_fwd_cuda(q, k, v, lens=None, kmask=None, *, scale: float,
     from ..kernels import _build
 
     lib = _build.load("flash_fwd", _FWD_PROTOTYPES)
-    _launch(lib, "dl4j_flash_fwd",
-            (q, k, v, lens, kmask, o, lse, BH, T, D,
-             1 if q.dtype == torch.bfloat16 else 0, float(scale),
-             1 if causal else 0, int(window)), "flash forward", flash_fwd_cuda)
+    _build.launch(lib, "dl4j_flash_fwd",
+                  (q, k, v, lens, kmask, o, lse, BH, T, D,
+                   1 if q.dtype == torch.bfloat16 else 0, float(scale),
+                   1 if causal else 0, int(window)),
+                  "flash forward", flash_fwd_cuda)
     return o, lse
 
 
@@ -226,11 +206,11 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, lens=None, kmask=None, *,
     from ..kernels import _build
 
     lib = _build.load("flash_bwd", _BWD_PROTOTYPES)
-    _launch(lib, "dl4j_flash_bwd_dq",
-            (q, k, v, do, lse, delta, lens, kmask, dq, BH, T, D,
-             1 if q.dtype == torch.bfloat16 else 0, float(scale),
-             1 if causal else 0, int(window)), "flash backward dQ",
-            flash_bwd_dq_cuda)
+    _build.launch(lib, "dl4j_flash_bwd_dq",
+                  (q, k, v, do, lse, delta, lens, kmask, dq, BH, T, D,
+                   1 if q.dtype == torch.bfloat16 else 0, float(scale),
+                   1 if causal else 0, int(window)), "flash backward dQ",
+                  flash_bwd_dq_cuda)
     return dq
 
 
@@ -250,11 +230,11 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, lens=None, kmask=None, *,
     from ..kernels import _build
 
     lib = _build.load("flash_bwd", _BWD_PROTOTYPES)
-    _launch(lib, "dl4j_flash_bwd_dkv",
-            (q, k, v, do, lse, delta, lens, kmask, dk, dv, BH, T, D,
-             1 if q.dtype == torch.bfloat16 else 0, float(scale),
-             1 if causal else 0, int(window)), "flash backward dK/dV",
-            flash_bwd_dkv_cuda)
+    _build.launch(lib, "dl4j_flash_bwd_dkv",
+                  (q, k, v, do, lse, delta, lens, kmask, dk, dv, BH, T, D,
+                   1 if q.dtype == torch.bfloat16 else 0, float(scale),
+                   1 if causal else 0, int(window)), "flash backward dK/dV",
+                  flash_bwd_dkv_cuda)
     return dk, dv
 
 
@@ -286,8 +266,9 @@ def column_broadcast_cuda(x: torch.Tensor, width: int) -> torch.Tensor:
     from ..kernels import _build
 
     lib = _build.load("flash_bwd", _BWD_PROTOTYPES)
-    _launch(lib, "dl4j_column_broadcast", (x, out, x.numel(), int(width)),
-            "column broadcast", column_broadcast_cuda)
+    _build.launch(lib, "dl4j_column_broadcast",
+                  (x, out, x.numel(), int(width)), "column broadcast",
+                  column_broadcast_cuda)
     return out
 
 

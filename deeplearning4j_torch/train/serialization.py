@@ -1,8 +1,10 @@
 """Model zips — counterpart of ``deeplearning4j_tpu/train/serialization.py``.
 
 The same zip layout in both packages: ``configuration.json`` (the
-Sequential JSON), ``params.npz`` and ``state.npz`` (the params tree
-flattened to ``/``-joined key paths, e.g. ``layer_2/attn/w_qkv``) and
+Sequential or Graph JSON), ``params.npz`` and ``state.npz`` (the params
+and state trees flattened to ``/``-joined key paths, e.g.
+``layer_2/attn/w_qkv`` or a Graph's ``s0b0_a_c/w``; a BatchNorm's running
+statistics are ``<node>/mean`` and ``<node>/var`` in ``state.npz``) and
 ``updater_state.npz`` (the updater state's leaves under their index,
 ``"0"``, ``"1"``, ..., in ``jax.tree_util.tree_leaves`` order — the order
 ``ops.updaters.tree_leaves`` gives the port's optax-shaped state). A zip
@@ -10,22 +12,24 @@ written by either package loads in the other, and training resumes from it
 in either. The normalizer is not ported yet.
 
 :func:`params_from_numpy` carries a params tree of numpy arrays (the JAX
-package's tree, keys ``layer_i/...``, dense weights (in, out)) into the
-port's tensors on a device; :func:`opt_state_from_numpy` does the same for
-the leaves of an optax state.
+package's tree: keys ``layer_i/...`` or a Graph's node names, dense
+weights (in, out), conv weights HWIO) into the port's tensors on a
+device; :func:`state_from_numpy` does the same for a layer-state tree and
+:func:`opt_state_from_numpy` for the leaves of an optax state.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import zipfile
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..nn.model import Sequential
+from ..nn.model import Graph, Sequential
 from ..ops.updaters import tree_leaves, tree_unflatten
 
 
@@ -64,7 +68,7 @@ def _shapes(tree):
     return tuple(np.shape(tree))
 
 
-def params_from_numpy(model: Sequential, tree: dict,
+def params_from_numpy(model: Union[Sequential, Graph], tree: dict,
                       device: DeviceLike = None) -> dict:
     """The port's params from a tree of arrays with the reference's keys
     and layouts, on ``device`` (default: the model's). Raises if the tree's
@@ -115,8 +119,22 @@ def _load_npz(zf: zipfile.ZipFile, name: str) -> Optional[dict]:
         return _unflatten({k: data[k] for k in data.files})
 
 
-def save_model(path: str, model: Sequential, *, params=None, state=None,
-               opt_state=None) -> None:
+def model_from_json(js: str, device: DeviceLike = None
+                    ) -> Union[Sequential, Graph]:
+    """A Sequential or a Graph from its JSON, by the config's format."""
+    fmt = json.loads(js).get("format", "")
+    cls = Sequential if "sequential" in fmt else Graph
+    return cls.from_json(js, device=device)
+
+
+def state_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
+    """A layer-state tree (e.g. BatchNorm running statistics) of arrays as
+    the port's tensors on ``device`` (the card unless named)."""
+    return _to_tensors(tree, resolve_device(device))
+
+
+def save_model(path: str, model: Union[Sequential, Graph], *, params=None,
+               state=None, opt_state=None) -> None:
     """Write ``model``'s config and params (default: its own), and the
     updater state when given, as a zip."""
     params = params if params is not None else model.params
@@ -146,14 +164,15 @@ def load_opt_state(path: str, template, device: DeviceLike = None):
 
 
 def load_model(path: str, device: DeviceLike = None
-               ) -> Tuple[Sequential, dict, dict]:
-    """Read a model zip onto ``device`` (the card unless named). Returns
-    ``(model, params, state)``; ``model.params``/``state`` are set."""
+               ) -> Tuple[Union[Sequential, Graph], dict, dict]:
+    """Read a model zip (a Sequential or a Graph) onto ``device`` (the
+    card unless named). Returns ``(model, params, state)``;
+    ``model.params``/``state`` are set."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path) as zf:
-        model = Sequential.from_json(zf.read("configuration.json").decode(),
-                                     device=dev)
+        model = model_from_json(zf.read("configuration.json").decode(),
+                                device=dev)
         params = params_from_numpy(model, _load_npz(zf, "params.npz") or {})
-        state = _to_tensors(_load_npz(zf, "state.npz") or {}, dev)
+        state = state_from_numpy(_load_npz(zf, "state.npz") or {}, dev)
     model.params, model.state = params, state
     return model, params, state

@@ -1,7 +1,9 @@
 """Trainer — counterpart of ``deeplearning4j_tpu/train/trainer.py``.
 
-One training step is the reference's ``_step_math``: ``Sequential.score``,
-its gradient, the updater (``ops.updaters``), then ``params + updates``.
+One training step is the reference's ``_step_math``: the model's ``score``
+(a ``Sequential`` or a ``Graph``), its gradient, the updater
+(``ops.updaters``), then ``params + updates``; the layers' new state (a
+BatchNorm's running statistics) is threaded from step to step.
 The reference jits it with the params' buffers donated; here the params
 are leaf tensors that the step updates in place under ``no_grad``, which
 is the same thing on the card: no second copy of the params. The step
@@ -11,23 +13,25 @@ runs on the model's device (the card unless the model was built with
 ``fit`` is the plain-step path with prefetch and deferred loss readback.
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, Queue
 1): ``grad_accum``, ``steps_per_execution``, truncated BPTT, ``mesh=``,
-``telemetry=``, ``Frozen`` layers.
+``telemetry=``, ``Frozen`` layers, and a multi-input Graph fed
+``MultiDataSet``-style batches (a list or dict of feature arrays).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import torch
 
 from ..data.iterators import AsyncIterator
-from ..nn.model import Sequential, _layer_key
+from ..nn.model import Graph, Sequential, _layer_key
 from ..ops import updaters as upd
 from ..ops.updaters import Transform, tree_leaves
 from .listeners import DeferredScoreReporter, PerformanceListener, TrainingListener
 from .serialization import load_model, load_opt_state, save_model
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: slice 2 left-outs)"
+_NOT_PORTED_GRAPH = "not ported yet (ROADMAP.md, Queue 1: slice 3 left-outs)"
 
 
 def _leaf_owners(tree) -> List[str]:
@@ -39,11 +43,29 @@ def _leaf_owners(tree) -> List[str]:
     return [k for k in sorted(tree) for _ in range(count(tree[k]))]
 
 
-def build_updater(model: Sequential) -> Transform:
+def _named_layers(model):
+    """(params key, layer) of every layer: ``layer_i``/name in a
+    Sequential, the node name in a Graph."""
+    if isinstance(model, Graph):
+        return [(n, model.nodes[n].spec) for n in model.topo_order
+                if model.nodes[n].is_layer()]
+    return [(_layer_key(i, l), l) for i, l in enumerate(model.layers)]
+
+
+def _score(model, params, state, x, y, *, training, rng, mask, label_mask):
+    """``model.score`` with the mask keywords of its container."""
+    if isinstance(model, Graph):
+        return model.score(params, state, x, y, training=training, rng=rng,
+                           masks=mask, label_masks=label_mask)
+    return model.score(params, state, x, y, training=training, rng=rng,
+                       mask=mask, label_mask=label_mask)
+
+
+def build_updater(model) -> Transform:
     """The update pipeline from ``NetConfig`` (updater, l1, l2, gradient
     normalization) and per-layer ``updater`` overrides, which become a
-    multi-transform keyed by layer, labelled as the reference labels them
-    (``__default__``, ``override_<layer key>``)."""
+    multi-transform keyed by layer (a Graph's by node name), labelled as
+    the reference labels them (``__default__``, ``override_<key>``)."""
     cfg = model.config
 
     def base_tx(updater_cfg):
@@ -53,11 +75,11 @@ def build_updater(model: Sequential) -> Transform:
                          l1=cfg.l1, l2=cfg.l2)
 
     overrides: Dict[str, Any] = {}
-    for i, layer in enumerate(model.layers):
+    for key, layer in _named_layers(model):
         if type(layer).__name__ == "Frozen":
             raise NotImplementedError(f"Frozen layers are {_NOT_PORTED}")
         if getattr(layer, "updater", None) is not None:
-            overrides[_layer_key(i, layer)] = layer.updater
+            overrides[key] = layer.updater
     if not overrides:
         return base_tx(cfg.updater)
     transforms = {"__default__": base_tx(cfg.updater)}
@@ -74,7 +96,8 @@ class Trainer:
     """Owns the params, net state and updater state of one model and runs
     its training steps (Solver parity)."""
 
-    def __init__(self, model: Sequential, updater: Optional[Transform] = None,
+    def __init__(self, model: Union[Sequential, Graph],
+                 updater: Optional[Transform] = None,
                  seed: int = 0, mesh=None, rules=None, grad_accum: int = 1):
         if mesh is not None or rules is not None:
             raise NotImplementedError(f"training over a mesh is {_NOT_PORTED}")
@@ -100,6 +123,8 @@ class Trainer:
         self._gen.manual_seed(seed)
 
     def _to_device(self, a):
+        if isinstance(a, (list, tuple)):
+            return [self._to_device(t) for t in a]
         return None if a is None else torch.as_tensor(a, device=self.device)
 
     def step(self, params, opt_state, net_state, x, y, gen=None, mask=None,
@@ -112,9 +137,9 @@ class Trainer:
         leaves = tree_leaves(params)
         trained = [p for p in leaves if p.requires_grad]
         with torch.enable_grad():
-            loss, new_state = self.model.score(params, net_state, x, y,
-                                               training=True, rng=gen,
-                                               mask=mask, label_mask=label_mask)
+            loss, new_state = _score(self.model, params, net_state, x, y,
+                                     training=True, rng=gen, mask=mask,
+                                     label_mask=label_mask)
             grads = torch.autograd.grad(loss, trained, allow_unused=True)
         grads = iter(grads)
         with torch.no_grad():
@@ -147,6 +172,10 @@ class Trainer:
                 lst.on_epoch_start(self, epoch)
             it = AsyncIterator(iterator) if prefetch else iterator
             for ds in it:
+                if isinstance(ds.features, (list, tuple, dict)):
+                    raise NotImplementedError(
+                        f"multi-input (MultiDataSet) batches are "
+                        f"{_NOT_PORTED_GRAPH}")
                 for lst in perf:
                     lst.step_begin(ds.num_examples)
                 self.params, self.opt_state, self.state, loss = self.step(
@@ -167,9 +196,10 @@ class Trainer:
         total, n = 0.0, 0
         with torch.no_grad():
             for ds in iterator:
-                loss, _ = self.model.score(
-                    self.params, self.state, self._to_device(ds.features),
-                    self._to_device(ds.labels), training=False,
+                loss, _ = _score(
+                    self.model, self.params, self.state,
+                    self._to_device(ds.features), self._to_device(ds.labels),
+                    training=False, rng=None,
                     mask=self._to_device(ds.features_mask),
                     label_mask=self._to_device(ds.labels_mask))
                 total += float(loss)

@@ -8,14 +8,20 @@ last line):
 
 1. build — compile every CUDA kernel of the port from ``deeplearning4j_torch/
    kernels/csrc`` with nvcc for sm_90a, one nvcc per source side by side,
-   and print the card.
+   print each kernel's registers and spills (gated: none for K1's Hopper
+   kernel at D 64) and the card.
 2. kernels — each kernel against its plain PyTorch version on the card:
    the flash forward (K1) and the flash backward's dQ (K2) and dK/dV (K3)
    passes in f32 and bf16, several head dims, ragged T, causal, windows,
-   lengths (a 0 among them) and a key mask with a hole; the column
-   broadcast probe (K5) bit for bit. Then K1 at the serving shape and K2,
-   K3 at the training shape, timed beside the plain version and the
-   PyTorch library call.
+   lengths (a 0 among them) and a key mask with a hole; K1 also over its
+   Hopper kernel's edges (bf16 D 64 and 128: T = 1 and below a tile, T
+   off the tile grid, lengths either side of a tile edge, windows of 1,
+   64 and 200); the column broadcast probe (K5) bit for bit. Then K1 at
+   the serving shape and K2, K3 at the training shape, timed beside the
+   plain version and the PyTorch library call (each time the median of
+   one call at a time between two CUDA events; K1 and SDPA also with 20
+   calls back to back between the events, which leaves out the host's
+   launch work).
 3. serve — a 738M-parameter CausalLM (12 layers, d_model 2048, 32 heads,
    vocab 32000, T 1024, learned positions, bf16 compute, flash attention)
    with random weights from seed 0, served through ``ServeEngine`` to 12
@@ -123,6 +129,27 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def time_b2b_ms(fn, reps: int = 20, warmup: int = 3, rounds: int = 3) -> float:
+    """Device time of one call with ``reps`` calls back to back between two
+    CUDA events, the median of ``rounds`` such rounds. The host's launch
+    work then overlaps the device's run, so a kernel that runs longer than
+    its launch is timed alone; ``time_ms`` includes that launch work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
 def phase_build():
     from deeplearning4j_torch.kernels import _build
 
@@ -135,7 +162,22 @@ def phase_build():
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    spills = sm90_spills(_build.build_log("flash_fwd_sm90"), 64)
+    check(spills == "0 bytes spill stores, 0 bytes spill loads",
+          f"flash_fwd_sm90 at D 64 spills: {spills!r}")
     print(f"[build] card: {card()}")
+
+
+def sm90_spills(log: str, d: int) -> str:
+    """The spill counts that ``-Xptxas -v`` reports in ``log`` for
+    flash_fwd_sm90.cu's kernel at head dim ``d`` ('' if not found)."""
+    fn = None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line and fn and f"flash_fwd_sm90_kernelILi{d}E" in fn:
+            return line.split(",", 1)[1].strip()
+    return ""
 
 
 # the kernels' case list: (dtype, BH, T, D, causal, window, lengths,
@@ -150,6 +192,38 @@ KERNEL_CASES = [
     (torch.bfloat16, 4, 333, 64, False, 0, None, False),
     (torch.bfloat16, 4, 200, 128, True, 0, [200, 0, 65, 130], False),
     (torch.bfloat16, 4, 190, 64, True, 50, None, True),
+]
+
+# K1's edges, forward only: bf16 at D 64 and 128 runs flash_fwd_sm90.cu
+# (128 query rows a CTA; 128 keys a tile at D 64, 64 at D 128), bf16 at D 32
+# stays on flash_fwd.cu. T below a tile and T = 1; T off the tile grid; BH 1;
+# lengths 0, 1 and either side of a tile edge; a key-mask hole; windows of
+# 1, 64 and 200; causal and not.
+FWD_EDGE_CASES = [
+    (torch.bfloat16, 3, 1, 64, True, 0, None, False),
+    (torch.bfloat16, 3, 100, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1, 128, False, 0, None, False),
+    (torch.bfloat16, 3, 50, 128, True, 0, None, False),
+    (torch.bfloat16, 4, 333, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1000, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1000, 64, False, 0, None, False),
+    (torch.bfloat16, 2, 1000, 128, True, 0, None, False),
+    (torch.bfloat16, 2, 333, 128, False, 0, None, False),
+    (torch.bfloat16, 1, 257, 64, True, 0, None, False),
+    (torch.bfloat16, 1, 257, 128, True, 0, None, False),
+    (torch.bfloat16, 5, 300, 64, True, 0, [0, 1, 127, 128, 129], False),
+    (torch.bfloat16, 5, 300, 64, False, 0, [0, 1, 127, 128, 129], False),
+    (torch.bfloat16, 5, 300, 128, False, 0, [0, 1, 127, 128, 129], False),
+    (torch.bfloat16, 5, 300, 128, True, 0, [0, 1, 63, 64, 65], False),
+    (torch.bfloat16, 4, 300, 64, True, 0, None, True),
+    (torch.bfloat16, 3, 200, 128, False, 0, None, True),
+    (torch.bfloat16, 3, 400, 64, True, 1, None, False),
+    (torch.bfloat16, 3, 400, 64, True, 64, None, False),
+    (torch.bfloat16, 3, 400, 64, True, 200, None, False),
+    (torch.bfloat16, 3, 400, 128, True, 1, None, False),
+    (torch.bfloat16, 3, 400, 128, True, 64, [400, 130, 7], False),
+    (torch.bfloat16, 3, 400, 128, True, 200, None, True),
+    (torch.bfloat16, 4, 200, 32, True, 0, [200, 0, 99, 150], False),
 ]
 
 
@@ -194,11 +268,11 @@ def _compare(o, lse, o_ref, lse_ref, what):
 
 def phase_kernels():
     from deeplearning4j_torch.ops.flash_attention import (
-        flash_attention_reference, flash_fwd_cuda)
+        _fwd_route, flash_attention_reference, flash_fwd_cuda)
 
     bf16 = torch.bfloat16
     gen = torch.Generator(device="cuda")
-    for i, case in enumerate(KERNEL_CASES):
+    for i, case in enumerate(KERNEL_CASES + FWD_EDGE_CASES):
         dt, bh, t, d, causal, window, lens, hole = case
         gen.manual_seed(i)
         q, k, v = _qkv(gen, bh, t, d, dt)
@@ -209,9 +283,19 @@ def phase_kernels():
         torch.cuda.synchronize()
         o_ref, lse_ref = flash_attention_reference(
             q, k, v, lens_t, kmask, scale=scale, causal=causal, window=window)
-        what = _what(*case)
+        what = f"{_what(*case)} ({_fwd_route(dt, d)})"
         err = _compare(o, lse, o_ref, lse_ref, what)
         print(f"[kernels] ok {what}: max abs err {err:.3g}")
+    # a negative scale: the Hopper kernel then masks-tests every tile
+    gen.manual_seed(99)
+    q, k, v = _qkv(gen, 3, 300, 64, bf16)
+    o, lse = flash_fwd_cuda(q, k, v, scale=-0.125, causal=True)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = flash_attention_reference(q, k, v, scale=-0.125,
+                                               causal=True)
+    err = _compare(o, lse, o_ref, lse_ref, "bf16 D=64 scale=-0.125")
+    print(f"[kernels] ok bf16 BH=3 T=300 D=64 causal scale=-0.125: max abs "
+          f"err {err:.3g}")
 
     # the serving shape: batch 4 x 32 heads, T 1024, head dim 64, bf16
     bh, t, d = 128, 1024, 64
@@ -224,10 +308,14 @@ def phase_kernels():
     err = _compare(o, lse, o_ref, lse_ref, "serving shape")
     del o_ref, lse_ref
     ms = time_ms(lambda: flash_fwd_cuda(q, k, v, scale=scale, causal=True))
+    ms_b2b = time_b2b_ms(lambda: flash_fwd_cuda(q, k, v, scale=scale,
+                                                causal=True))
     plain_ms = time_ms(lambda: flash_attention_reference(
         q, k, v, scale=scale, causal=True), reps=5, warmup=1)
     q4, k4, v4 = (a.view(1, bh, t, d) for a in (q, k, v))
     library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, scale=scale))
+    library_ms_b2b = time_b2b_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, is_causal=True, scale=scale))
     # least work the inputs need: each of q, k, v read once, o and lse
     # written once; 2 FLOP per multiply-add over the T(T+1)/2 causal pairs,
@@ -236,17 +324,23 @@ def phase_kernels():
     flops = 2 * 2 * d * (t * (t + 1) // 2) * bh
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    route = _fwd_route(bf16, d)
     row = {"name": "flash_fwd", "route": "cuda",
-           "source": "deeplearning4j_torch/kernels/csrc/flash_fwd.cu",
+           "source": f"deeplearning4j_torch/kernels/csrc/{route}.cu",
            "replaces": "deeplearning4j_tpu/ops/flash_attention.py:41",
            "launches": None, "max_abs_err": err, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": library_ms}
-    print(f"[kernels] serving shape BH={bh} T={t} D={d} bf16 causal: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"sdpa {library_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-          f"({row['bound_by']}), max abs err {err:.3g}")
+           "library_ms": library_ms, "design": "tma+wgmma",
+           "tflops": flops / (ms * 1e-3) / 1e12, "ms_b2b": ms_b2b,
+           "library_ms_b2b": library_ms_b2b,
+           "tflops_b2b": flops / (ms_b2b * 1e-3) / 1e12}
+    print(f"[kernels] serving shape BH={bh} T={t} D={d} bf16 causal "
+          f"({route}): kernel {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s), "
+          f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}), max abs err "
+          f"{err:.3g}; back to back: kernel {ms_b2b:.4f} ms "
+          f"({row['tflops_b2b']:.1f} TFLOP/s), sdpa {library_ms_b2b:.4f} ms")
     return row
 
 

@@ -5,8 +5,9 @@
 wrapper of each kernel lives beside the op it serves, with its plain PyTorch
 version and its launch count:
 
-- ``flash_fwd`` — attention forward (K1), wrapped by
-  ``ops.flash_attention.flash_fwd_cuda``;
+- ``flash_fwd_sm90`` — attention forward (K1) in bf16 at head dims 64 and
+  128 (TMA, wgmma, warp specialised), and ``flash_fwd`` — K1 in f32 and in
+  bf16 at 16 and 32; both wrapped by ``ops.flash_attention.flash_fwd_cuda``;
 - ``flash_bwd`` — attention backward (K2, K3) and the column broadcast
   probe (K5), wrapped by ``ops.flash_attention.flash_bwd_dq_cuda``,
   ``flash_bwd_dkv_cuda`` and ``column_broadcast_cuda``;

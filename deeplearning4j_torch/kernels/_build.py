@@ -28,7 +28,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("flash_fwd", "flash_bwd", "bn_bwd")
+KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "bn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

@@ -1,5 +1,6 @@
-// Flash attention forward for Hopper (sm_90a), built by nvcc into a shared
-// library with a plain C interface (loaded through ctypes, see _build.py).
+// Flash attention forward (f32; bf16 at head dims 16 and 32) for Hopper
+// (sm_90a), built by nvcc into a shared library with a plain C interface
+// (loaded through ctypes, see _build.py).
 //
 // Replaces the TPU kernel deeplearning4j_tpu/ops/flash_attention.py:
 // _fwd_kernel (launched by _flash_fwd). It computes what that kernel
@@ -22,14 +23,15 @@
 // heaviest first (the last tile of the causal triangle first) so the tail
 // of the grid is short.
 //
-// bf16 (the serving path): four warps, 16 query rows each. Both products
-// run on the tensor cores as mma.sync m16n8k16 with f32 accumulation: Q's
-// fragments stay in registers for the whole key loop; the score tile's
-// accumulator fragments are rescaled, exponentiated and packed to bf16 in
-// registers, where they are already laid out as the A operand of P.V (the
-// FlashAttention-2 register reuse), so P never touches shared memory. K rows
-// and V^T rows are padded by 8 elements so the fragment loads of a warp hit
-// 32 distinct banks.
+// bf16 at head dims 16 and 32 (bf16 at 64 and 128, the serving path, is
+// flash_fwd_sm90.cu: TMA and wgmma): four warps, 16 query rows each. Both
+// products run on the tensor cores as mma.sync m16n8k16 with f32
+// accumulation: Q's fragments stay in registers for the whole key loop; the
+// score tile's accumulator fragments are rescaled, exponentiated and packed
+// to bf16 in registers, where they are already laid out as the A operand of
+// P.V (the FlashAttention-2 register reuse), so P never touches shared
+// memory. K rows and V^T rows are padded by 8 elements so the fragment
+// loads of a warp hit 32 distinct banks.
 //
 // f32: four threads per query row on the CUDA cores (f32 FMA), each holding
 // a quarter of the row's q and acc in interleaved float4 chunks, so the four
@@ -37,12 +39,8 @@
 // shuffles sum the partial dot products and leave all four threads
 // bit-identical scores, so their max and exp decisions agree.
 //
-// Bound on an H100 SXM at the serving shape (B*H = 128, T = 1024, D = 64,
-// bf16, causal): the causal pairs need 4*D*T(T+1)/2 FLOP per head, 17.2
-// GFLOP in all, 17 us at the 989 TFLOP/s bf16 tensor-core peak; q, k, v and
-// o are 67 MB, 20 us at 3.35 TB/s. So the bound is about 20 us, set by
-// bytes. mma.sync without a load pipeline stays well above it; TMA loads
-// with wgmma and a multi-stage K/V ring are the next step.
+// Neither path is on the main path's shape (bf16, D = 64), whose bound
+// flash_fwd_sm90.cu's note states.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -447,7 +445,9 @@ extern "C" {
 
 // q, k, v, o: (bh, t_len, d) contiguous, f32 (is_bf16 = 0) or bf16, 16-byte
 // aligned; lens: (bh,) int32 or null; kmask: (bh, t_len) int8 or null;
-// lse: (bh, t_len) f32. window <= 0 means none. Returns a cudaError_t.
+// lse: (bh, t_len) f32. window <= 0 means none. bf16 at d = 64 or 128
+// returns cudaErrorInvalidValue (dl4j_flash_fwd_sm90 takes it). Returns a
+// cudaError_t.
 int dl4j_flash_fwd(const void* q, const void* k, const void* v, const void* lens,
                    const void* kmask, void* o, void* lse, int bh, int t_len, int d,
                    int is_bf16, float scale, int causal, int window, void* stream) {
@@ -458,14 +458,21 @@ int dl4j_flash_fwd(const void* q, const void* k, const void* v, const void* lens
     return is_bf16                                                                      \
         ? launch_bf16<D>(q, k, v, lens, kmask, o, lse, bh, t_len, scale, causal, window, s) \
         : launch_f32<D>(q, k, v, lens, kmask, o, lse, bh, t_len, scale, causal, window, s);
+  // bf16 at 64 and 128 is flash_fwd_sm90.cu's
+#define DL4J_FLASH_F32_CASE(D)                                                          \
+  case D:                                                                               \
+    return is_bf16                                                                      \
+        ? cudaErrorInvalidValue                                                         \
+        : launch_f32<D>(q, k, v, lens, kmask, o, lse, bh, t_len, scale, causal, window, s);
   switch (d) {
     DL4J_FLASH_CASE(16)
     DL4J_FLASH_CASE(32)
-    DL4J_FLASH_CASE(64)
-    DL4J_FLASH_CASE(128)
+    DL4J_FLASH_F32_CASE(64)
+    DL4J_FLASH_F32_CASE(128)
     default:
       return cudaErrorInvalidValue;
   }
+#undef DL4J_FLASH_F32_CASE
 #undef DL4J_FLASH_CASE
 }
 

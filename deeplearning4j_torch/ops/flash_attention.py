@@ -7,8 +7,10 @@ contract are the reference's; the TPU-only arguments (``interpret``,
 ``block_q``, ``block_k``, ``backward``) are gone — the kernels pick their
 own tiles.
 
-- On a CUDA tensor the forward is the hand-written kernel
-  ``kernels/csrc/flash_fwd.cu`` (:func:`flash_fwd_cuda`) and the gradient
+- On a CUDA tensor the forward is a hand-written kernel
+  (:func:`flash_fwd_cuda`): ``kernels/csrc/flash_fwd_sm90.cu`` (TMA and
+  wgmma) for bf16 at head dims 64 and 128, ``kernels/csrc/flash_fwd.cu``
+  for f32 and for bf16 at 16 and 32 (:func:`_fwd_route`); the gradient
   the two backward kernels of ``kernels/csrc/flash_bwd.cu``
   (:func:`flash_bwd_dq_cuda`, :func:`flash_bwd_dkv_cuda`), joined by a
   ``torch.autograd.Function``; a failed build or launch raises: there is
@@ -39,6 +41,7 @@ import torch
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+SM90_HEAD_DIMS = (64, 128)    # bf16 head dims of flash_fwd_sm90.cu
 
 
 def _valid(BH, T, lens, kmask, causal, window, device) -> torch.Tensor:
@@ -104,11 +107,13 @@ def flash_attention_backward_reference(q, k, v, do, lse, delta, lens=None,
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# q, k, v, lens, kmask, o, lse, BH, T, D, is_bf16, scale, causal, window,
+# stream: one C signature for both K1 libraries
+_FWD_ARGS = ([_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _I, _P], _I)
 _FWD_PROTOTYPES = {
-    # q, k, v, lens, kmask, o, lse, BH, T, D, is_bf16, scale, causal,
-    # window, stream
-    "dl4j_flash_fwd": ([_P] * 7 + [_I] * 4 + [ctypes.c_float, _I, _I, _P], _I),
-    "dl4j_cuda_error_string": ([_I], ctypes.c_char_p),
+    route: {f"dl4j_{route}": _FWD_ARGS,
+            "dl4j_cuda_error_string": ([_I], ctypes.c_char_p)}
+    for route in ("flash_fwd", "flash_fwd_sm90")
 }
 _BWD_PROTOTYPES = {
     # q, k, v, do, lse, delta, lens, kmask, dq, BH, T, D, is_bf16, scale,
@@ -153,22 +158,40 @@ def _kernel_operands(tensors, lens, kmask, who: str):
     return tensors, lens, kmask
 
 
+def _fwd_route(dtype: torch.dtype, D: int) -> str:
+    """The K1 kernel source that takes a forward of ``dtype`` at head dim
+    ``D``: ``"flash_fwd_sm90"`` (TMA, wgmma) for bf16 at D 64 and 128,
+    ``"flash_fwd"`` for f32 and for bf16 at D 16 and 32. Raises on a dtype
+    or head dim no kernel takes."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash kernel takes float32 or bfloat16, got {dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel head dim must be one of "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
+        return "flash_fwd_sm90"
+    return "flash_fwd"
+
+
 def flash_fwd_cuda(q, k, v, lens=None, kmask=None, *, scale: float,
                    causal: bool = False,
                    window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA flash forward (K1) on (BH, T, D) CUDA tensors;
-    returns ``(o, lse)``. bf16 runs on the tensor cores, f32 on the CUDA
-    cores. A bare forward: it records no gradient (:func:`flash_attention`
-    does). ``flash_fwd_cuda.launches`` counts the launches."""
+    returns ``(o, lse)``. bf16 runs on the tensor cores (wgmma at D 64 and
+    128, mma.sync below), f32 on the CUDA cores; :func:`_fwd_route` picks
+    the source. A bare forward: it records no gradient
+    (:func:`flash_attention` does). ``flash_fwd_cuda.launches`` counts the
+    launches of either source."""
     (q, k, v), lens, kmask = _kernel_operands((q, k, v), lens, kmask,
                                               "flash_fwd_cuda")
     BH, T, D = q.shape
+    route = _fwd_route(q.dtype, D)
     o = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
     from ..kernels import _build
 
-    lib = _build.load("flash_fwd", _FWD_PROTOTYPES)
-    _build.launch(lib, "dl4j_flash_fwd",
+    lib = _build.load(route, _FWD_PROTOTYPES[route])
+    _build.launch(lib, f"dl4j_{route}",
                   (q, k, v, lens, kmask, o, lse, BH, T, D,
                    1 if q.dtype == torch.bfloat16 else 0, float(scale),
                    1 if causal else 0, int(window)),

@@ -25,9 +25,9 @@ import torch
 from deeplearning4j_torch.kernels import _build
 from deeplearning4j_torch.nn.layers import MultiHeadAttention as TMHA
 from deeplearning4j_torch.ops.flash_attention import (
-    column_broadcast_cuda, flash_attention, flash_attention_backward_reference,
-    flash_attention_reference, flash_bwd_cuda, flash_bwd_dkv_cuda,
-    flash_bwd_dq_cuda, flash_fwd_cuda)
+    _fwd_route, column_broadcast_cuda, flash_attention,
+    flash_attention_backward_reference, flash_attention_reference,
+    flash_bwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
 from deeplearning4j_tpu.nn.layers import MultiHeadAttention as JMHA
 from deeplearning4j_tpu.ops import flash_attention as jfa
 
@@ -333,6 +333,22 @@ def test_unknown_device_is_refused_not_computed():
         flash_attention(q, q, q)
 
 
+# ptxas's -Xptxas -v report for flash_fwd_sm90.cu on sm_90a, as nvcc
+# 12 printed it for the two instantiations (the anonymous namespace's
+# name carries a hash of the file)
+_SM90_FN = ("_ZN50_GLOBAL__N__f84803df_17_flash_fwd_sm90_cu_a2c8b2f321"
+           "flash_fwd_sm90_kernelILi{}EEEv14CUtensorMap_stS1_S1_PKiPKaP13"
+           "__nv_bfloat16Pfiifii")
+_SM90_LOG = "\n".join(
+    [f"ptxas info    : Compiling entry function '{_SM90_FN.format(d)}' for "
+     f"'sm_90a'\n"
+     f"ptxas info    : Function properties for {_SM90_FN.format(d)}\n"
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+     "ptxas info    : Used 168 registers, used 1 barriers\n"
+     f"ptxas info    : Compile time = {ms} ms" for d, ms in (
+         (128, "217.520"), (64, "271.990"))])
+
+
 class TestBuild:
     def test_targets_hopper_sm90a(self):
         flags = " ".join(_build.NVCC_FLAGS)
@@ -360,6 +376,39 @@ class TestBuild:
         monkeypatch.setattr(_build, "build", fake_build)
         assert _build.build_all() == list(_build.KERNELS)
 
+    def test_hopper_forward_source_is_listed_and_hashed_apart(self):
+        """K1's Hopper source (TMA, wgmma) is a kernel of its own beside
+        v2's: listed, built to its own library, hashed apart."""
+        assert "flash_fwd_sm90" in _build.KERNELS
+        assert (_build.CSRC / "flash_fwd_sm90.cu").is_file()
+        sm90 = _build.library_path("flash_fwd_sm90")
+        assert sm90.name.startswith("libflash_fwd_sm90-")
+        assert sm90 != _build.library_path("flash_fwd")
+
+    @pytest.mark.parametrize("spilling, d, want", [
+        (False, 64, "0 bytes spill stores, 0 bytes spill loads"),
+        (False, 128, "0 bytes spill stores, 0 bytes spill loads"),
+        (False, 32, ""),
+        (True, 64, "16 bytes spill stores, 40 bytes spill loads")])
+    def test_chip_smoke_reads_the_hopper_kernel_spills(self, spilling, d,
+                                                       want):
+        """chip_smoke gates the Hopper K1's D 64 spills on ptxas's report:
+        the spill line that follows each kernel's properties line. The
+        spilling case replaces D 64's real line with a made-up one."""
+        import chip_smoke
+
+        log = _SM90_LOG
+        if spilling:
+            head, tail = log.split(
+                f"Function properties for {_SM90_FN.format(64)}\n")
+            tail = tail.replace(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads", "16 bytes stack frame, 16 bytes spill stores, 40 "
+                "bytes spill loads", 1)
+            log = (f"{head}Function properties for "
+                   f"{_SM90_FN.format(64)}\n{tail}")
+        assert chip_smoke.sm90_spills(log, d) == want
+
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -368,6 +417,25 @@ class TestBuild:
             pytest.skip("a built library is present; nothing to compile")
         with pytest.raises(RuntimeError, match="nvcc not found"):
             _build.build("flash_fwd")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_fwd_route(dtype, D):
+    """bf16 at head dims 64 and 128 goes to the Hopper kernel; f32 at every
+    head dim and bf16 at 16 and 32 stay on flash_fwd.cu."""
+    want = ("flash_fwd_sm90" if dtype == torch.bfloat16 and D in (64, 128)
+            else "flash_fwd")
+    assert _fwd_route(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype, D, match", [
+    (torch.bfloat16, 48, "head dim"), (torch.bfloat16, 256, "head dim"),
+    (torch.float32, 8, "head dim"), (torch.float16, 64, "float32 or bfloat16"),
+])
+def test_fwd_route_refuses(dtype, D, match):
+    with pytest.raises(ValueError, match=match):
+        _fwd_route(dtype, D)
 
 
 @pytest.fixture
@@ -386,13 +454,33 @@ KERNEL_CASES = [
     (torch.bfloat16, 4, 200, 64, True, 0, None, False),
     (torch.bfloat16, 4, 150, 128, True, 20, [150, 0, 64, 1], True),
 ]
+# K1's edges, forward only: the Hopper kernel (bf16, D 64 and 128; 128 query
+# rows a CTA, 128 keys a tile at D 64 and 64 at D 128) at T below a tile and
+# T = 1, T off the tile grid, BH 1, lengths either side of a tile edge, a
+# key-mask hole, windows of 1, 64 and 200, causal and not; bf16 at D 32 stays
+# on flash_fwd.cu
+FWD_CASES = KERNEL_CASES + [
+    (torch.bfloat16, 3, 1, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1, 128, False, 0, None, False),
+    (torch.bfloat16, 3, 100, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 333, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1000, 128, True, 0, None, False),
+    (torch.bfloat16, 1, 257, 64, False, 0, None, False),
+    (torch.bfloat16, 5, 300, 64, True, 0, [0, 1, 127, 128, 129], False),
+    (torch.bfloat16, 5, 300, 128, False, 0, [0, 1, 63, 64, 65], False),
+    (torch.bfloat16, 3, 300, 64, True, 0, None, True),
+    (torch.bfloat16, 3, 400, 64, True, 1, None, False),
+    (torch.bfloat16, 3, 400, 64, True, 64, None, False),
+    (torch.bfloat16, 3, 400, 128, True, 200, [400, 130, 7], False),
+    (torch.bfloat16, 4, 200, 32, True, 0, [200, 0, 99, 150], False),
+]
 
 
 @pytest.mark.gpu
 class TestKernelOnCard:
-    @pytest.mark.parametrize("case", range(len(KERNEL_CASES)))
+    @pytest.mark.parametrize("case", range(len(FWD_CASES)))
     def test_kernel_matches_plain(self, cuda, case):
-        dt, BH, T, D, causal, window, lens, hole = KERNEL_CASES[case]
+        dt, BH, T, D, causal, window, lens, hole = FWD_CASES[case]
         gen = torch.Generator(device=cuda).manual_seed(case)
         q, k, v = (torch.randn((BH, T, D), generator=gen, device=cuda).to(dt)
                    for _ in range(3))
@@ -415,6 +503,21 @@ class TestKernelOnCard:
         live = lse_ref > -1e29
         torch.testing.assert_close(lse[live], lse_ref[live], rtol=F32_TOL,
                                    atol=1e-4)
+
+    @pytest.mark.parametrize("scale", [-0.125, 0.0])
+    def test_kernel_takes_any_scale(self, cuda, scale):
+        """A scale <= 0 sends every key tile of the Hopper kernel down its
+        masked path (interior tiles fold a positive scale into exp2)."""
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        q, k, v = (torch.randn((2, 300, 64), generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(3))
+        o, lse = flash_fwd_cuda(q, k, v, scale=scale, causal=True)
+        o_ref, lse_ref = flash_attention_reference(q, k, v, scale=scale,
+                                                   causal=True)
+        torch.testing.assert_close(o.float(), o_ref.float(),
+                                   rtol=KERNEL_BF16_RTOL,
+                                   atol=KERNEL_BF16_ATOL)
+        torch.testing.assert_close(lse, lse_ref, rtol=F32_TOL, atol=1e-4)
 
     @pytest.mark.parametrize("case", range(len(KERNEL_CASES)))
     def test_backward_kernels_match_plain(self, cuda, case):

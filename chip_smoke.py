@@ -8,20 +8,21 @@ last line):
 
 1. build — compile every CUDA kernel of the port from ``deeplearning4j_torch/
    kernels/csrc`` with nvcc for sm_90a, one nvcc per source side by side,
-   print each kernel's registers and spills (gated: none for K1's Hopper
-   kernel at D 64) and the card.
+   print each kernel's registers and spills (gated: none for the Hopper
+   kernels of K1, K2 and K3 at D 64) and the card.
 2. kernels — each kernel against its plain PyTorch version on the card:
    the flash forward (K1) and the flash backward's dQ (K2) and dK/dV (K3)
    passes in f32 and bf16, several head dims, ragged T, causal, windows,
    lengths (a 0 among them) and a key mask with a hole; K1 also over its
    Hopper kernel's edges (bf16 D 64 and 128: T = 1 and below a tile, T
    off the tile grid, lengths either side of a tile edge, windows of 1,
-   64 and 200); the column broadcast probe (K5) bit for bit. Then K1 at
-   the serving shape and K2, K3 at the training shape, timed beside the
-   plain version and the PyTorch library call (each time the median of
-   one call at a time between two CUDA events; K1 and SDPA also with 20
-   calls back to back between the events, which leaves out the host's
-   launch work).
+   64 and 200); K2 and K3 likewise over their Hopper kernels' edges
+   (``BWD_EDGE_CASES``, a scale <= 0, and two launches bit-identical);
+   the column broadcast probe (K5) bit for bit. Then K1 at the serving
+   shape and K2, K3 at the training shape, timed beside the plain version
+   and the PyTorch library call (each time the median of one call at a
+   time between two CUDA events; also with 20 calls back to back between
+   the events, which leaves out the host's launch work).
 3. serve — a 738M-parameter CausalLM (12 layers, d_model 2048, 32 heads,
    vocab 32000, T 1024, learned positions, bf16 compute, flash attention)
    with random weights from seed 0, served through ``ServeEngine`` to 12
@@ -160,22 +161,32 @@ def phase_build():
           + ", ".join(p.name for p in libs))
     for name in _build.KERNELS:
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry function" in line
+                    or "Performance Loss" in line):
                 print(f"[build] {name}: {line.strip()}")
-    spills = sm90_spills(_build.build_log("flash_fwd_sm90"), 64)
-    check(spills == "0 bytes spill stores, 0 bytes spill loads",
-          f"flash_fwd_sm90 at D 64 spills: {spills!r}")
+    for source, kernel in SM90_GATED:
+        spills = sm90_spills(_build.build_log(source), 64, kernel)
+        check(spills == "0 bytes spill stores, 0 bytes spill loads",
+              f"{kernel} at D 64 spills: {spills!r}")
     print(f"[build] card: {card()}")
 
 
-def sm90_spills(log: str, d: int) -> str:
-    """The spill counts that ``-Xptxas -v`` reports in ``log`` for
-    flash_fwd_sm90.cu's kernel at head dim ``d`` ('' if not found)."""
+# (source, kernel) of the Hopper kernels whose D 64 build must not spill
+SM90_GATED = (("flash_fwd_sm90", "flash_fwd_sm90_kernel"),
+              ("flash_bwd_sm90", "flash_bwd_dq_sm90_kernel"),
+              ("flash_bwd_sm90", "flash_bwd_dkv_sm90_kernel"))
+
+
+def sm90_spills(log: str, d: int, kernel: str = "flash_fwd_sm90_kernel") -> str:
+    """The spill counts that ``-Xptxas -v`` reports in ``log`` for the
+    Hopper kernel template ``kernel`` at head dim ``d`` ('' if not
+    found)."""
     fn = None
     for line in log.splitlines():
         if "Function properties for" in line:
             fn = line.split("Function properties for", 1)[1].strip()
-        elif "spill" in line and fn and f"flash_fwd_sm90_kernelILi{d}E" in fn:
+        elif "spill" in line and fn and f"{kernel}ILi{d}E" in fn:
             return line.split(",", 1)[1].strip()
     return ""
 
@@ -224,6 +235,40 @@ FWD_EDGE_CASES = [
     (torch.bfloat16, 3, 400, 128, True, 64, [400, 130, 7], False),
     (torch.bfloat16, 3, 400, 128, True, 200, None, True),
     (torch.bfloat16, 4, 200, 32, True, 0, [200, 0, 99, 150], False),
+]
+
+
+# K2 and K3's edges, backward only: bf16 at D 64 runs flash_bwd_sm90.cu
+# (dK/dV: 128 keys a CTA, query tiles of 64; dQ: 128 queries a CTA, key
+# tiles of 64), bf16 at D 128 stays on flash_bwd.cu. T = 1 and below a
+# tile; T off the tile grid; BH 1; lengths 0, 1 and either side of 64 and
+# 128; a key-mask hole; windows of 1, 64 and 200; causal and not.
+BWD_EDGE_CASES = [
+    (torch.bfloat16, 3, 1, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1, 128, False, 0, None, False),
+    (torch.bfloat16, 3, 50, 64, False, 0, None, False),
+    (torch.bfloat16, 3, 100, 128, True, 0, None, False),
+    (torch.bfloat16, 2, 333, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 333, 64, False, 0, None, False),
+    (torch.bfloat16, 2, 1000, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1000, 128, True, 0, None, False),
+    (torch.bfloat16, 1, 257, 64, True, 0, None, False),
+    (torch.bfloat16, 1, 257, 128, False, 0, None, False),
+    (torch.bfloat16, 8, 300, 64, True, 0, [0, 1, 63, 64, 65, 127, 128, 129],
+     False),
+    (torch.bfloat16, 8, 300, 64, False, 0, [0, 1, 63, 64, 65, 127, 128, 129],
+     False),
+    (torch.bfloat16, 8, 300, 128, True, 0, [0, 1, 63, 64, 65, 127, 128, 129],
+     False),
+    (torch.bfloat16, 4, 300, 64, True, 0, None, True),
+    (torch.bfloat16, 3, 200, 64, False, 0, None, True),
+    (torch.bfloat16, 3, 200, 128, True, 0, None, True),
+    (torch.bfloat16, 3, 400, 64, True, 1, None, False),
+    (torch.bfloat16, 3, 400, 64, True, 64, None, False),
+    (torch.bfloat16, 3, 400, 64, True, 200, [400, 130, 7], False),
+    (torch.bfloat16, 3, 400, 128, True, 1, None, False),
+    (torch.bfloat16, 3, 400, 128, True, 64, None, True),
+    (torch.bfloat16, 3, 400, 128, True, 200, None, False),
 ]
 
 
@@ -360,11 +405,56 @@ def _bwd_compare(got, want, what):
     return worst
 
 
-def phase_bwd_kernels():
-    """K2 and K3 against the plain backward over the K1 case list, K5 bit
-    for bit, then K2 and K3 timed at the training shape."""
+def _bwd_case(gen, case, seed, scale=None):
+    """K2 and K3 on one case against the plain backward, from the plain
+    forward's lse; keys past a length must get exactly 0. Returns the
+    largest abs error."""
     from deeplearning4j_torch.ops.flash_attention import (
-        column_broadcast_cuda, flash_attention_backward_reference,
+        _bwd_route, flash_attention_backward_reference,
+        flash_attention_reference, flash_bwd_cuda)
+
+    dt, bh, t, d, causal, window, lens, hole = case
+    gen.manual_seed(seed)
+    q, k, v, do = _qkv(gen, bh, t, d, dt, n=4)
+    lens_t, kmask = _masks(bh, t, lens, hole)
+    kw = dict(scale=1.0 / d ** 0.5 if scale is None else scale,
+              causal=causal, window=window)
+    o, lse = flash_attention_reference(q, k, v, lens_t, kmask, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    got = flash_bwd_cuda(q, k, v, do, lse, delta, lens_t, kmask, **kw)
+    torch.cuda.synchronize()
+    want = flash_attention_backward_reference(q, k, v, do, lse, delta,
+                                              lens_t, kmask, **kw)
+    what = (f"bwd {_what(*case)}"
+            + ("" if scale is None else f" scale={scale}")
+            + f" ({_bwd_route(dt, d)})")
+    err = _bwd_compare(got, want, what)
+    if lens is not None:
+        for b, n in enumerate(lens):
+            check(bool((got[1][b, n:] == 0).all() and (got[2][b, n:] == 0).all()),
+                  f"{what}: keys past the length got a gradient")
+    print(f"[kernels] ok {what}: max abs err {err:.3g}")
+    return err
+
+
+def _bwd_deterministic(args, kw, what):
+    """Two launches of K2 and K3 on the same inputs give the same bits."""
+    from deeplearning4j_torch.ops.flash_attention import flash_bwd_cuda
+
+    first = flash_bwd_cuda(*args, **kw)
+    second = flash_bwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        check(torch.equal(a, b), f"{what}: two launches give different {name}")
+    print(f"[kernels] ok {what}: two launches bit-identical (dq, dk, dv)")
+
+
+def phase_bwd_kernels():
+    """K2 and K3 against the plain backward over the K1 case list and their
+    Hopper kernels' edges, two launches bit for bit, K5 bit for bit, then
+    K2 and K3 timed at the training shape."""
+    from deeplearning4j_torch.ops.flash_attention import (
+        _bwd_route, column_broadcast_cuda, flash_attention_backward_reference,
         flash_attention_reference, flash_bwd_cuda, flash_bwd_dkv_cuda,
         flash_bwd_dq_cuda)
 
@@ -372,28 +462,26 @@ def phase_bwd_kernels():
     gen = torch.Generator(device="cuda")
     errs = {f32: 0.0, bf16: 0.0}
     for i, case in enumerate(KERNEL_CASES):
-        dt, bh, t, d, causal, window, lens, hole = case
-        gen.manual_seed(200 + i)
-        q, k, v, do = _qkv(gen, bh, t, d, dt, n=4)
-        lens_t, kmask = _masks(bh, t, lens, hole)
-        kw = dict(scale=1.0 / d ** 0.5, causal=causal, window=window)
-        o, lse = flash_attention_reference(q, k, v, lens_t, kmask, **kw)
-        delta = (do.float() * o.float()).sum(-1)
-        got = flash_bwd_cuda(q, k, v, do, lse, delta, lens_t, kmask, **kw)
-        torch.cuda.synchronize()
-        want = flash_attention_backward_reference(q, k, v, do, lse, delta,
-                                                  lens_t, kmask, **kw)
-        what = "bwd " + _what(*case)
-        err = _bwd_compare(got, want, what)
-        if lens is not None:
-            for b, n in enumerate(lens):
-                check(bool((got[1][b, n:] == 0).all() and (got[2][b, n:] == 0).all()),
-                      f"{what}: keys past the length got a gradient")
-        errs[dt] = max(errs[dt], err)
-        print(f"[kernels] ok {what}: max abs err {err:.3g}")
+        errs[case[0]] = max(errs[case[0]], _bwd_case(gen, case, 200 + i))
+    for i, case in enumerate(BWD_EDGE_CASES):
+        errs[bf16] = max(errs[bf16], _bwd_case(gen, case, 500 + i))
+    # a scale <= 0: the Hopper kernels then test every tile element by
+    # element, as K1 does
+    for i, scale in enumerate((-0.125, 0.0)):
+        errs[bf16] = max(errs[bf16], _bwd_case(
+            gen, (bf16, 3, 300, 64, True, 0, None, False), 600 + i, scale))
     print(f"[kernels] backward: largest abs err f32 {errs[f32]:.3g} (gate "
           f"{F32_TOL} abs + rel), bf16 {errs[bf16]:.3g} (gate "
           f"{BWD_BF16_ATOL} abs + {BWD_BF16_RTOL} rel)")
+    # the same bits from two launches, under lengths and a window too
+    gen.manual_seed(610)
+    q, k, v, do = _qkv(gen, 3, 400, 64, bf16, n=4)
+    lens_t, _ = _masks(3, 400, [400, 130, 7], False)
+    kw = dict(scale=0.125, causal=True, window=200)
+    o, lse = flash_attention_reference(q, k, v, lens_t, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    _bwd_deterministic((q, k, v, do, lse, delta, lens_t), kw,
+                       "bwd bf16 BH=3 T=400 D=64 causal window=200 lengths")
 
     # K5, the (rows, 1) column broadcast probe, at the reference's shape
     gen.manual_seed(300)
@@ -429,8 +517,13 @@ def phase_bwd_kernels():
     want = flash_attention_backward_reference(q, k, v, do, lse, delta, **kw)
     err = _bwd_compare(got, want, "training shape")
     del got, want
+    _bwd_deterministic((q, k, v, do, lse, delta), kw, "training shape")
     dq_ms = time_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta, **kw))
     dkv_ms = time_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw))
+    dq_b2b = time_b2b_ms(lambda: flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                   **kw))
+    dkv_b2b = time_b2b_ms(lambda: flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                     **kw))
     plain_ms = time_ms(lambda: flash_attention_backward_reference(
         q, k, v, do, lse, delta, **kw), reps=5, warmup=1)
     # the library's backward for dq, dk and dv together: fwd+bwd through
@@ -449,13 +542,15 @@ def phase_bwd_kernels():
                                        scale=kw["scale"]).backward(do4)
 
     library_ms = time_ms(sdpa_fwd_bwd) - time_ms(sdpa_fwd)
+    library_ms_b2b = time_b2b_ms(sdpa_fwd_bwd) - time_b2b_ms(sdpa_fwd)
     pairs = t * (t + 1) // 2
     esize = q.element_size()
+    route = _bwd_route(bf16, d)
     rows = []
-    for name, ms, flop_per_pair, n_out, replaces in (
-            ("flash_bwd_dq", dq_ms, 6, 1,
+    for name, ms, ms_b2b, flop_per_pair, n_out, replaces in (
+            ("flash_bwd_dq", dq_ms, dq_b2b, 6, 1,
              "deeplearning4j_tpu/ops/flash_attention.py:278"),
-            ("flash_bwd_dkv", dkv_ms, 8, 2,
+            ("flash_bwd_dkv", dkv_ms, dkv_b2b, 8, 2,
              "deeplearning4j_tpu/ops/flash_attention.py:330")):
         # least work the inputs need: q, k, v, do read once, lse and delta
         # read once, the outputs written once; recomputing s and dp and
@@ -465,21 +560,29 @@ def phase_bwd_kernels():
         t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         rows.append({"name": name, "route": "cuda",
-                     "source": "deeplearning4j_torch/kernels/csrc/flash_bwd.cu",
+                     "source": f"deeplearning4j_torch/kernels/csrc/{route}.cu",
                      "replaces": replaces, "launches": None,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "library_ms": library_ms,
+                     "library_ms": library_ms, "design": "tma+wgmma",
+                     "tflops": flops / (ms * 1e-3) / 1e12, "ms_b2b": ms_b2b,
+                     "library_ms_b2b": library_ms_b2b,
+                     "tflops_b2b": flops / (ms_b2b * 1e-3) / 1e12,
                      "library": "scaled_dot_product_attention backward, "
                                 "dq+dk+dv together",
                      "plain": "flash_attention_backward_reference, "
                               "dq+dk+dv together"})
         print(f"[kernels] training shape BH={bh} T={t} D={d} bf16 causal, "
-              f"{name}: kernel {ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} "
-              f"ms ({rows[-1]['bound_by']}); plain backward (dq, dk, dv) "
-              f"{plain_ms:.4f} ms; sdpa backward (dq, dk, dv) "
-              f"{library_ms:.4f} ms; max abs err {err:.3g}")
+              f"{name} ({route}): kernel {ms:.4f} ms "
+              f"({rows[-1]['tflops']:.1f} TFLOP/s), back to back "
+              f"{ms_b2b:.4f} ms ({rows[-1]['tflops_b2b']:.1f} TFLOP/s), bound "
+              f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}); plain "
+              f"backward (dq, dk, dv) {plain_ms:.4f} ms; max abs err "
+              f"{err:.3g}")
+    print(f"[kernels] training shape: K2 + K3 {dq_ms + dkv_ms:.4f} ms, back "
+          f"to back {dq_b2b + dkv_b2b:.4f} ms; sdpa backward (dq, dk, dv) "
+          f"{library_ms:.4f} ms, back to back {library_ms_b2b:.4f} ms")
     return rows + [k5]
 
 

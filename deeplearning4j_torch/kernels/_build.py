@@ -1,12 +1,14 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface. At first use
-it is compiled for Hopper (``sm_90a``) into
-``_build/lib<name>-<hash>.so``, where the hash covers the source and the
-compiler flags, so an edited source rebuilds and an unchanged one loads the
-library built before. A missing ``nvcc`` or a failed build raises: there is
-no fallback. The compiler's report (``-Xptxas -v``: registers, shared
-memory, spills) is kept beside the library as ``<lib>.log``.
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface; the Hopper
+sources share ``csrc/sm90_common.cuh``. At first use a source is compiled
+for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so``, where the hash
+covers the source, every header it includes from ``csrc/`` and the
+compiler flags, so an edited source or header rebuilds and an unchanged one
+loads the library built before. A missing ``nvcc`` or a failed build
+raises: there is no fallback. The compiler's report (``-Xptxas -v``:
+registers, shared memory, spills) is kept beside the library as
+``<lib>.log``.
 :func:`build_all` compiles every source at once, one nvcc per source.
 :func:`launch` calls a loaded launcher on PyTorch's current stream and
 counts the launch on the kernel's wrapper.
@@ -17,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -28,7 +31,8 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "bn_bwd")
+KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "flash_bwd_sm90",
+           "bn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -52,11 +56,31 @@ def nvcc() -> str:
                        "built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every header it includes with ``#include
+    "..."``, directly or through another header, each once, in the order
+    first met."""
+    seen: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        todo += [path.parent / inc.decode()
+                 for inc in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + "\0".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in sources(name):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

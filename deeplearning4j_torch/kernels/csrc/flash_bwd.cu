@@ -1,5 +1,7 @@
 // Flash attention backward for Hopper (sm_90a), built by nvcc into a shared
-// library with a plain C interface (loaded through ctypes, see _build.py).
+// library with a plain C interface (loaded through ctypes, see _build.py):
+// f32 at every head dim and bf16 at 16, 32 and 128. bf16 at 64 is
+// flash_bwd_sm90.cu's (TMA, wgmma); this library refuses it.
 //
 // Replaces the TPU kernels of deeplearning4j_tpu/ops/flash_attention.py:
 //   K2 _bwd_dq_kernel (with _bwd_p_ds)  -> flash_bwd_dq_mma_kernel (bf16),
@@ -36,24 +38,21 @@
 // Tiles above the causal diagonal, wholly behind the window or past the
 // length are skipped (exact: they would contribute p = 0).
 //
-// bf16 at D <= 64 (the training path) runs on the tensor cores: four warps
-// of 16 rows per CTA, every product a mma.sync m16n8k16 with f32
-// accumulation (see "bf16 on the tensor cores" below). f32, and bf16 at
-// D = 128, run on the CUDA cores (f32 FMA): G threads share a row (4 for
-// D <= 64, 8 for D = 128 so that the four f32 row vectors a dK/dV thread
-// holds stay at 64 registers instead of spilling), each holding interleaved
+// bf16 at D 16 and 32 runs on the tensor cores: four warps of 16 rows per
+// CTA, every product a mma.sync m16n8k16 with f32 accumulation (see "bf16
+// on the tensor cores" below). f32, and bf16 at D = 128, run on the CUDA
+// cores (f32 FMA): G
+// threads share a row (4 for D <= 64, 8 for D = 128 so that the four f32
+// row vectors a dK/dV thread holds stay at 64 registers instead of
+// spilling), each holding interleaved
 // float4 chunks; xor shuffles sum the partial dot products and leave the G
 // threads bit-identical scores. The staged tile (K and V for dQ, Q and dO
 // for dK/dV) is read as a broadcast: every row of the CTA reads the same
 // staged row at the same time.
 //
-// Bound on an H100 SXM at the training shape (B*H = 128, T = 1024, D = 64,
-// bf16, causal, 524,800 pairs per head): dQ recomputes s and dp and forms
-// dq, 6*D FLOP per pair, 25.8 GFLOP, 26 us at the 989 TFLOP/s bf16 peak,
-// against 85 MB of bytes (25 us at 3.35 TB/s); dK/dV 8*D FLOP per pair,
-// 34.4 GFLOP, 35 us, against 102 MB (30 us). Both are bound by operations on
-// the tensor cores. mma.sync with no load pipeline stays well above that;
-// TMA loads into a multi-stage ring with wgmma are the next step.
+// The training path (bf16, D 64) runs on flash_bwd_sm90.cu; the bounds at
+// its shape are worked out there. mma.sync with no load pipeline stays well
+// above them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -331,7 +330,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 }
 
 // ------------------------------------------- bf16 on the tensor cores
-// K2 and K3 again for bf16 at D <= 64 (the training path): four warps, 16
+// K2 and K3 again for bf16 at D 16 and 32: four warps, 16
 // rows each (queries for dQ, keys for dK/dV), every product a mma.sync
 // m16n8k16 with f32 accumulation. The rows' own operands (q and do for dQ,
 // k and v for dK/dV) stay in registers as A fragments for the whole loop;
@@ -619,7 +618,7 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// bf16 at D <= 64 on the tensor cores, everything else on the FMA kernels.
+// bf16 at D 16 and 32 on the tensor cores, everything else on the FMA kernels.
 template <typename T, int D>
 constexpr bool use_mma() { return sizeof(T) == 2 && D <= 64; }
 
@@ -692,15 +691,16 @@ extern "C" {
 
 // q, k, v, dout, dq/dk/dv: (bh, t_len, d) contiguous, f32 (is_bf16 = 0) or
 // bf16, 16-byte aligned; lse, delta: (bh, t_len) f32; lens: (bh,) int32 or
-// null; kmask: (bh, t_len) int8 or null. window <= 0 means none. Each
-// returns a cudaError_t.
-#define DL4J_BWD_SWITCH(CALL)                                              \
-  switch (d) {                                                             \
-    case 16: return is_bf16 ? CALL(__nv_bfloat16, 16) : CALL(float, 16);   \
-    case 32: return is_bf16 ? CALL(__nv_bfloat16, 32) : CALL(float, 32);   \
-    case 64: return is_bf16 ? CALL(__nv_bfloat16, 64) : CALL(float, 64);   \
+// null; kmask: (bh, t_len) int8 or null. window <= 0 means none. bf16 at
+// d = 64 (flash_bwd_sm90.cu's) returns cudaErrorInvalidValue. Each returns
+// a cudaError_t.
+#define DL4J_BWD_SWITCH(CALL)                                                \
+  switch (d) {                                                               \
+    case 16: return is_bf16 ? CALL(__nv_bfloat16, 16) : CALL(float, 16);     \
+    case 32: return is_bf16 ? CALL(__nv_bfloat16, 32) : CALL(float, 32);     \
+    case 64: return is_bf16 ? cudaErrorInvalidValue : CALL(float, 64);       \
     case 128: return is_bf16 ? CALL(__nv_bfloat16, 128) : CALL(float, 128); \
-    default: return cudaErrorInvalidValue;                                 \
+    default: return cudaErrorInvalidValue;                                   \
   }
 
 int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

@@ -67,23 +67,14 @@
 // warpgroups and softmax/wgmma overlap within one, a persistent grid, o
 // stored by TMA, clusters with multicast.
 
-#include <atomic>
-
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;  // masked score, as the TPU kernel uses
-constexpr float LOG2E = 1.4426950408889634f;
-constexpr float LN2 = 0.6931471805599453f;
 constexpr int BQ = 128;                        // query rows per CTA
 constexpr int CONSUMERS = 2 * 128;             // two consumer warpgroups
 constexpr int THREADS = CONSUMERS + 128;       // and the producer warpgroup
 constexpr int STAGES = 2;                      // K/V ring depth
-constexpr int ROW_BYTES = 128;                 // one swizzled row of a box
 constexpr int PRODUCER_REGS = 24;              // setmaxnreg: 128 * 24 +
 constexpr int CONSUMER_REGS = 240;             //   256 * 240 = 384 * 168
 
@@ -99,224 +90,7 @@ struct Tile {
   static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + BAR_BYTES + 1024;
 };
 
-// ------------------------------------------------------ shared memory, TMA
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` of barrier `bar` has completed. A
-// wait that lasts about 8 s (2^34 cycles) traps, so a barrier fault fails
-// the launch instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > (1LL << 34)) __trap();
-  }
-}
-
-// One box of a 3-D tensor map, at (column c0, row c1, head c2), into
-// shared memory at dst; completion is counted on barrier bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
-      : "memory");
-}
-
-// ------------------------------------------------------------------ wgmma
-// A shared-memory matrix descriptor with the 128-byte swizzle: start
-// address, leading and stride byte offsets, each in 16-byte units.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-       | static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16
-       | static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32
-       | 1ull << 62;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from moving reads of registers that an in-flight
-// wgmma writes (or reads) across the wait.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
-}
-
-// wgmma_ss: d (+)= A.B with A (64 x 16) and B (16 x N) both read from shared
-// memory by descriptor, K-major; scale_d = 0 overwrites d. wgmma_rs: d +=
-// A.B with A from registers (the m16n8k16 A fragment, warp w of the
-// warpgroup holding rows 16w..16w+15) and B MN-major in shared memory (the
-// transpose-B immediate). The accumulator: register 4j + e of a thread
-// (lane = 4g + t, warp w) is row 16w + g + 8(e / 2), column 8j + 2t + e % 2.
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                         int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
 // ---------------------------------------------------------------- kernel
-// First and one-past-last key tile the query tile at q0 must visit.
-template <int BK>
-__device__ __forceinline__ void key_tile_range(int q0, int lim, int causal, int window,
-                                               int* begin, int* end) {
-  int e = (lim + BK - 1) / BK;
-  if (causal) e = min(e, (q0 + BQ - 1) / BK + 1);
-  int b = 0;
-  if (causal && window > 0) b = max(0, q0 - (window - 1)) / BK;
-  *begin = b;
-  *end = e;
-}
-
-// 2^x by the special-function unit alone (about 2 ulp; subnormal results
-// flush to 0, as exp of a masked or far-below-max score should)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// log2(x) by the special-function unit alone (lg2.approx, about 2^-22 abs)
-__device__ __forceinline__ float lg2(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two f32 rounded to bf16 and packed, the lower index in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The key mask at a thread's keys kb + 8j + e (e = 0, 1) of a tile, as bit
-// 2j + e, loaded without a branch; a key at or past lim reads as masked.
-template <int BK>
-__device__ __forceinline__ uint32_t key_bits(const int8_t* km, int kb, int lim) {
-  uint32_t bits = 0u;
-#pragma unroll
-  for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int kp = kb + 8 * j + e;
-      bits |= static_cast<uint32_t>((kp < lim) & (km[max(min(kp, lim - 1), 0)] != 0))
-              << (2 * j + e);
-    }
-  }
-  return bits;
-}
-
 // The online softmax of one score tile s (BK keys from k0) for this
 // thread's two rows row0 and row0 + 8 (exp2 units: c = scale * log2(e), m2
 // the running max of s * c): updates m2 and this thread's share of l,
@@ -428,7 +202,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   const int q0 = (nq - 1 - blockIdx.x % nq) * BQ;  // heaviest query tile first
   const int lim = min(lens ? lens[bh] : t_len, t_len);
   int kt_begin, kt_end;
-  key_tile_range<BK>(q0, lim, causal, window, &kt_begin, &kt_end);
+  key_tile_range<BQ, BK>(q0, lim, causal, window, &kt_begin, &kt_end);
   const int n_tiles = kt_end - kt_begin;
 
   if (threadIdx.x == 0) {
@@ -502,7 +276,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                smem_desc(k_st + (kk / 4) * BK * ROW_BYTES + col, 16, 1024), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(s);
 
     // (a scale <= 0 runs every tile masked, where c multiplies each score)
@@ -524,7 +298,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int j = 0; j < BK / 16; ++j)
       wgmma_rs(oacc, pa[j], smem_desc(v_st + j * 16 * ROW_BYTES, BK * ROW_BYTES, 1024));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(oacc);
     fence_regs(pa);
     mbar_arrive(bars + 8 * (STAGES + st));  // this thread is done with the slot
@@ -551,47 +325,6 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 }
 
 // ------------------------------------------------------------------- host
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query, so the
-// library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A (D, T, B*H) bf16 tensor map with (64, rows, 1) boxes and the 128-byte
-// swizzle; rows past T read as zeros.
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int bh, int t_len,
-                int d, int rows) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(t_len),
-                              static_cast<cuuint64_t>(bh)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
-                                 static_cast<cuuint64_t>(t_len) * d * 2};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
-                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* lens,
                    const void* kmask, void* o, void* lse, int bh, int t_len, float scale,
@@ -605,18 +338,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* lens
       || !encode_map(encode, &vmap, v, bh, t_len, D, TL::BK))
     return cudaErrorInvalidValue;
   auto kernel = flash_fwd_sm90_kernel<D>;
-  // more than 48 KB of dynamic shared memory needs the attribute, set once
-  // per head dim and device
-  static std::atomic<uint64_t> smem_set{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  static std::atomic<uint64_t> smem_set{0};  // per head dim
+  const cudaError_t e = allow_smem_once(kernel, TL::SMEM, smem_set);
   if (e != cudaSuccess) return e;
-  const uint64_t bit = uint64_t{1} << (dev & 63);
-  if ((smem_set.load(std::memory_order_relaxed) & bit) == 0) {
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
-    if (e != cudaSuccess) return e;
-    smem_set.fetch_or(bit, std::memory_order_relaxed);
-  }
   const int nq = (t_len + BQ - 1) / BQ;
   kernel<<<static_cast<unsigned>(bh) * nq, THREADS, TL::SMEM, stream>>>(
       qmap, kmap, vmap, static_cast<const int*>(lens), static_cast<const int8_t*>(kmask),

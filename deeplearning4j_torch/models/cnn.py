@@ -2,7 +2,8 @@
 ``deeplearning4j_tpu/models/cnn.py``: the same graph, node names, layer
 configs and updater (adam at 1e-3), so params and configs cross between
 the packages. The other CNNs of the reference's zoo are not ported yet
-(ROADMAP.md, Queue 1 item 6)."""
+(ROADMAP.md, Queue 1, "The rest of ``models/cnn.py`` and
+``models/zoo.py``")."""
 
 from __future__ import annotations
 

@@ -20,7 +20,8 @@ pooling). The reference's space-to-depth rewrite of the 7x7/2 stem conv
 the port runs the plain strided conv, and the params keep HWIO
 ``(7, 7, 3, 64)``.
 
-Not ported yet (ROADMAP.md, Queue 1 item 4): ``Subsampling2D`` pnorm and
+Not ported yet (ROADMAP.md, Queue 1, "The rest of
+``nn/layers/{conv,norm,pooling}``"): ``Subsampling2D`` pnorm and
 the other layers of the reference's module (Conv1D, Deconv2D,
 DepthwiseConv2D, SeparableConv2D, Upsampling, ZeroPadding, Cropping,
 SpaceToBatch, SpaceToDepth).
@@ -166,7 +167,7 @@ class Subsampling2D(Layer):
         if self.mode == "pnorm":
             raise NotImplementedError(
                 "Subsampling2D mode='pnorm' is not ported yet (ROADMAP.md, "
-                "Queue 1 item 4)")
+                "Queue 1, 'The rest of nn/layers/{conv,norm,pooling}')")
         if self.mode not in ("max", "avg", "sum"):
             raise ValueError(f"Unknown pooling mode {self.mode}")
         (ph_lo, ph_hi), (pw_lo, pw_hi) = _pads(x.shape[1:3], kernel, stride,

@@ -1,6 +1,7 @@
 """Normalization — counterpart of ``BatchNorm`` and ``LayerNorm`` in
 ``deeplearning4j_tpu/nn/layers/norm.py`` (LRN and RMSNorm are not ported
-yet: ROADMAP.md, Queue 1 item 4)."""
+yet: ROADMAP.md, Queue 1, "The rest of
+``nn/layers/{conv,norm,pooling}``")."""
 
 from __future__ import annotations
 

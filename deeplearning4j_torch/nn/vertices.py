@@ -4,8 +4,8 @@ A vertex is a parameterless multi-input op inside a ``Graph``: a frozen
 dataclass config with ``apply(inputs) -> output``. ``to_dict`` writes every
 field, as the reference does, so a vertex written by either package loads
 in the other. The port carries ``Merge`` and ``ElementWise``; the other
-vertex types of the reference are not ported yet (ROADMAP.md, Queue 1
-item 5) and ``vertex_from_dict`` names them.
+vertex types of the reference are not ported yet (ROADMAP.md, Queue 1,
+"The rest of ``Graph`` and ``data/``") and ``vertex_from_dict`` names them.
 """
 
 from __future__ import annotations
@@ -55,7 +55,8 @@ def vertex_from_dict(d: dict) -> GraphVertex:
     kind = d.get("@type")
     if kind in _NOT_PORTED:
         raise NotImplementedError(f"vertex type '{kind}' is not ported yet "
-                                  f"(ROADMAP.md, Queue 1 item 5)")
+                                  f"(ROADMAP.md, Queue 1, 'The rest of Graph "
+                                  f"and data/')")
     if kind not in VERTEX_REGISTRY:
         raise ValueError(f"Unknown vertex type '{kind}'")
     return VERTEX_REGISTRY[kind].from_dict(d)

@@ -11,10 +11,12 @@ own tiles.
   (:func:`flash_fwd_cuda`): ``kernels/csrc/flash_fwd_sm90.cu`` (TMA and
   wgmma) for bf16 at head dims 64 and 128, ``kernels/csrc/flash_fwd.cu``
   for f32 and for bf16 at 16 and 32 (:func:`_fwd_route`); the gradient
-  the two backward kernels of ``kernels/csrc/flash_bwd.cu``
-  (:func:`flash_bwd_dq_cuda`, :func:`flash_bwd_dkv_cuda`), joined by a
-  ``torch.autograd.Function``; a failed build or launch raises: there is
-  no fallback.
+  two backward kernels (:func:`flash_bwd_dq_cuda`,
+  :func:`flash_bwd_dkv_cuda`), from ``kernels/csrc/flash_bwd_sm90.cu``
+  (TMA and wgmma) for bf16 at head dim 64 and from
+  ``kernels/csrc/flash_bwd.cu`` for the rest (:func:`_bwd_route`), joined
+  by a ``torch.autograd.Function``; a failed build or launch raises:
+  there is no fallback.
 - On a CPU tensor the same Function runs :func:`flash_attention_reference`
   and :func:`flash_attention_backward_reference`, the plain PyTorch
   versions of the same functions, which the tests hold against the
@@ -42,6 +44,7 @@ import torch
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 SM90_HEAD_DIMS = (64, 128)    # bf16 head dims of flash_fwd_sm90.cu
+SM90_BWD_HEAD_DIMS = (64,)    # bf16 head dims of flash_bwd_sm90.cu
 
 
 def _valid(BH, T, lens, kmask, causal, window, device) -> torch.Tensor:
@@ -115,18 +118,27 @@ _FWD_PROTOTYPES = {
             "dl4j_cuda_error_string": ([_I], ctypes.c_char_p)}
     for route in ("flash_fwd", "flash_fwd_sm90")
 }
+# q, k, v, do, lse, delta, lens, kmask, dq, BH, T, D, is_bf16, scale,
+# causal, window, stream; dK/dV: ... dk, dv, BH, ...: one C signature each
+# for both backward libraries
+_DQ_ARGS = ([_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _I, _P], _I)
+_DKV_ARGS = ([_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _I, _P], _I)
 _BWD_PROTOTYPES = {
-    # q, k, v, do, lse, delta, lens, kmask, dq, BH, T, D, is_bf16, scale,
-    # causal, window, stream
-    "dl4j_flash_bwd_dq": ([_P] * 9 + [_I] * 4 + [ctypes.c_float, _I, _I, _P],
-                          _I),
-    # ... dk, dv, BH, ...
-    "dl4j_flash_bwd_dkv": ([_P] * 10 + [_I] * 4
-                           + [ctypes.c_float, _I, _I, _P], _I),
-    # x, out, rows, width, stream
-    "dl4j_column_broadcast": ([_P, _P, ctypes.c_longlong, _I, _P], _I),
-    "dl4j_cuda_error_string": ([_I], ctypes.c_char_p),
+    route: {f"dl4j_{route}_dq": _DQ_ARGS, f"dl4j_{route}_dkv": _DKV_ARGS,
+            "dl4j_cuda_error_string": ([_I], ctypes.c_char_p)}
+    for route in ("flash_bwd", "flash_bwd_sm90")
 }
+# x, out, rows, width, stream
+_BWD_PROTOTYPES["flash_bwd"]["dl4j_column_broadcast"] = (
+    [_P, _P, ctypes.c_longlong, _I, _P], _I)
+
+
+def _check_kernel_type(dtype: torch.dtype, D: int) -> None:
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash kernel takes float32 or bfloat16, got {dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash kernel head dim must be one of "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
 
 
 def _kernel_operands(tensors, lens, kmask, who: str):
@@ -136,17 +148,12 @@ def _kernel_operands(tensors, lens, kmask, who: str):
     q = tensors[0]
     if not all(a.is_cuda for a in tensors):
         raise ValueError(f"{who} takes CUDA tensors")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
+    _check_kernel_type(q.dtype, q.shape[-1])
     if any(a.dtype != q.dtype for a in tensors):
         raise ValueError("q, k and v must share one dtype")
     if any(a.shape != q.shape for a in tensors):
         raise ValueError(f"{who}: operand shapes differ from q's "
                          f"{tuple(q.shape)}")
-    D = q.shape[-1]
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim must be one of "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
     tensors = [a.contiguous() for a in tensors]
     if any(a.data_ptr() % 16 for a in tensors):
         raise ValueError("flash kernel needs 16-byte aligned operands")
@@ -163,14 +170,21 @@ def _fwd_route(dtype: torch.dtype, D: int) -> str:
     ``D``: ``"flash_fwd_sm90"`` (TMA, wgmma) for bf16 at D 64 and 128,
     ``"flash_fwd"`` for f32 and for bf16 at D 16 and 32. Raises on a dtype
     or head dim no kernel takes."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"flash kernel takes float32 or bfloat16, got {dtype}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash kernel head dim must be one of "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    _check_kernel_type(dtype, D)
     if dtype == torch.bfloat16 and D in SM90_HEAD_DIMS:
         return "flash_fwd_sm90"
     return "flash_fwd"
+
+
+def _bwd_route(dtype: torch.dtype, D: int) -> str:
+    """The K2/K3 kernel source that takes a backward of ``dtype`` at head
+    dim ``D``: ``"flash_bwd_sm90"`` (TMA, wgmma) for bf16 at D 64,
+    ``"flash_bwd"`` for f32 and for bf16 at D 16, 32 and 128. Raises on a
+    dtype or head dim no kernel takes."""
+    _check_kernel_type(dtype, D)
+    if dtype == torch.bfloat16 and D in SM90_BWD_HEAD_DIMS:
+        return "flash_bwd_sm90"
+    return "flash_bwd"
 
 
 def flash_fwd_cuda(q, k, v, lens=None, kmask=None, *, scale: float,
@@ -221,15 +235,17 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, lens=None, kmask=None, *,
                       window: int = 0) -> torch.Tensor:
     """Launch K2, the dQ pass of the CUDA flash backward, on (BH, T, D)
     CUDA tensors with the forward's ``lse`` and ``delta = rowsum(do * o)``
-    ((BH, T) f32); returns dq in q's dtype. ``.launches`` counts them."""
+    ((BH, T) f32); returns dq in q's dtype. :func:`_bwd_route` picks the
+    source; ``.launches`` counts the launches of either."""
     (q, k, v, do), (lse, delta), lens, kmask = _bwd_operands(
         q, k, v, do, lse, delta, lens, kmask, "flash_bwd_dq_cuda")
     BH, T, D = q.shape
+    route = _bwd_route(q.dtype, D)
     dq = torch.empty_like(q)
     from ..kernels import _build
 
-    lib = _build.load("flash_bwd", _BWD_PROTOTYPES)
-    _build.launch(lib, "dl4j_flash_bwd_dq",
+    lib = _build.load(route, _BWD_PROTOTYPES[route])
+    _build.launch(lib, f"dl4j_{route}_dq",
                   (q, k, v, do, lse, delta, lens, kmask, dq, BH, T, D,
                    1 if q.dtype == torch.bfloat16 else 0, float(scale),
                    1 if causal else 0, int(window)), "flash backward dQ",
@@ -243,17 +259,19 @@ flash_bwd_dq_cuda.launches = 0
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, lens=None, kmask=None, *,
                        scale: float, causal: bool = False,
                        window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K3, the dK/dV pass of the CUDA flash backward; arguments as
-    :func:`flash_bwd_dq_cuda`. Returns ``(dk, dv)``; a key wholly past its
-    example's length gets exactly 0. ``.launches`` counts them."""
+    """Launch K3, the dK/dV pass of the CUDA flash backward; arguments and
+    route as :func:`flash_bwd_dq_cuda`. Returns ``(dk, dv)``; a key wholly
+    past its example's length gets exactly 0. ``.launches`` counts the
+    launches of either source."""
     (q, k, v, do), (lse, delta), lens, kmask = _bwd_operands(
         q, k, v, do, lse, delta, lens, kmask, "flash_bwd_dkv_cuda")
     BH, T, D = q.shape
+    route = _bwd_route(q.dtype, D)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     from ..kernels import _build
 
-    lib = _build.load("flash_bwd", _BWD_PROTOTYPES)
-    _build.launch(lib, "dl4j_flash_bwd_dkv",
+    lib = _build.load(route, _BWD_PROTOTYPES[route])
+    _build.launch(lib, f"dl4j_{route}_dkv",
                   (q, k, v, do, lse, delta, lens, kmask, dk, dv, BH, T, D,
                    1 if q.dtype == torch.bfloat16 else 0, float(scale),
                    1 if causal else 0, int(window)), "flash backward dK/dV",
@@ -288,7 +306,7 @@ def column_broadcast_cuda(x: torch.Tensor, width: int) -> torch.Tensor:
                       device=x.device)
     from ..kernels import _build
 
-    lib = _build.load("flash_bwd", _BWD_PROTOTYPES)
+    lib = _build.load("flash_bwd", _BWD_PROTOTYPES["flash_bwd"])
     _build.launch(lib, "dl4j_column_broadcast",
                   (x, out, x.numel(), int(width)), "column broadcast",
                   column_broadcast_cuda)

@@ -25,7 +25,7 @@ import torch
 from deeplearning4j_torch.kernels import _build
 from deeplearning4j_torch.nn.layers import MultiHeadAttention as TMHA
 from deeplearning4j_torch.ops.flash_attention import (
-    _fwd_route, column_broadcast_cuda, flash_attention,
+    _bwd_route, _fwd_route, column_broadcast_cuda, flash_attention,
     flash_attention_backward_reference, flash_attention_reference,
     flash_bwd_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_fwd_cuda)
 from deeplearning4j_tpu.nn.layers import MultiHeadAttention as JMHA
@@ -348,6 +348,26 @@ _SM90_LOG = "\n".join(
      f"ptxas info    : Compile time = {ms} ms" for d, ms in (
          (128, "217.520"), (64, "271.990"))])
 
+# ptxas's -Xptxas -v report for flash_bwd_sm90.cu on sm_90a, as nvcc 12
+# printed it for its two kernels (named in a named namespace, so the names
+# do not change from build to build)
+_SM90_BWD_FN = {
+    "flash_bwd_dkv_sm90_kernel":
+        "_ZN19dl4j_flash_bwd_sm9025flash_bwd_dkv_sm90_kernelILi64EEEv14"
+        "CUtensorMap_stS1_S1_S1_PKfS3_PKiPKaP13__nv_bfloat16S9_iiffii",
+    "flash_bwd_dq_sm90_kernel":
+        "_ZN19dl4j_flash_bwd_sm9024flash_bwd_dq_sm90_kernelILi64EEEv14"
+        "CUtensorMap_stS1_S1_S1_PKfS3_PKiPKaP13__nv_bfloat16iiiffii",
+}
+_SM90_BWD_LOG = "\n".join(
+    [f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+     f"ptxas info    : Function properties for {fn}\n"
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+     "ptxas info    : Used 168 registers, used 1 barriers\n"
+     f"ptxas info    : Compile time = {ms} ms" for fn, ms in (
+         (_SM90_BWD_FN["flash_bwd_dkv_sm90_kernel"], "92.674"),
+         (_SM90_BWD_FN["flash_bwd_dq_sm90_kernel"], "73.710"))])
+
 
 class TestBuild:
     def test_targets_hopper_sm90a(self):
@@ -409,6 +429,67 @@ class TestBuild:
                    f"{_SM90_FN.format(64)}\n{tail}")
         assert chip_smoke.sm90_spills(log, d) == want
 
+    def test_hopper_backward_source_is_listed_and_hashed_apart(self):
+        """K2/K3's Hopper source is a kernel of its own beside v2's, and
+        its hash covers the header it shares with K1's Hopper source."""
+        assert "flash_bwd_sm90" in _build.KERNELS
+        assert (_build.CSRC / "flash_bwd_sm90.cu").is_file()
+        sm90 = _build.library_path("flash_bwd_sm90")
+        assert sm90.name.startswith("libflash_bwd_sm90-")
+        assert sm90 != _build.library_path("flash_bwd")
+        header = _build.CSRC / "sm90_common.cuh"
+        for name in ("flash_fwd_sm90", "flash_bwd_sm90"):
+            assert _build.sources(name) == [_build.CSRC / f"{name}.cu", header]
+        assert _build.sources("flash_bwd") == [_build.CSRC / "flash_bwd.cu"]
+
+    @pytest.mark.parametrize("edited", ["flash_bwd_sm90.cu", "sm90_common.cuh",
+                                        "flash_bwd.cu"])
+    def test_an_edited_source_or_header_changes_the_hash(self, monkeypatch,
+                                                         tmp_path, edited):
+        """An edit to a shared header rebuilds every source that includes
+        it, and only those; an edit to a source rebuilds that source."""
+        import shutil
+
+        for f in _build.CSRC.iterdir():
+            shutil.copy(f, tmp_path / f.name)
+        monkeypatch.setattr(_build, "CSRC", tmp_path)
+        before = {n: _build.library_path(n) for n in _build.KERNELS}
+        with open(tmp_path / edited, "a") as f:
+            f.write("\n// edited\n")
+        after = {n: _build.library_path(n) for n in _build.KERNELS}
+        changed = {n for n in _build.KERNELS if before[n] != after[n]}
+        want = ({"flash_fwd_sm90", "flash_bwd_sm90"}
+                if edited == "sm90_common.cuh" else {edited[:-3]})
+        assert changed == want
+
+    @pytest.mark.parametrize("kernel, spilling", [
+        ("flash_bwd_dq_sm90_kernel", False), ("flash_bwd_dkv_sm90_kernel", False),
+        ("flash_bwd_dq_sm90_kernel", True), ("flash_bwd_dkv_sm90_kernel", True)])
+    def test_chip_smoke_reads_the_hopper_backward_spills(self, kernel,
+                                                         spilling):
+        """chip_smoke gates K2's and K3's Hopper kernels at D 64 on ptxas's
+        report, each by its own name; the spilling cases replace one
+        kernel's real line with a made-up one, which must not leak into the
+        other's reading."""
+        import chip_smoke
+
+        log = _SM90_BWD_LOG
+        if spilling:
+            name = _SM90_BWD_FN[kernel]
+            head, tail = log.split(f"Function properties for {name}\n")
+            tail = tail.replace(
+                "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads", "8 bytes stack frame, 8 bytes spill stores, 8 bytes "
+                "spill loads", 1)
+            log = f"{head}Function properties for {name}\n{tail}"
+        for other in _SM90_BWD_FN:
+            want = ("8 bytes spill stores, 8 bytes spill loads"
+                    if spilling and other == kernel
+                    else "0 bytes spill stores, 0 bytes spill loads")
+            assert chip_smoke.sm90_spills(log, 64, other) == want
+        assert chip_smoke.sm90_spills(log, 128, kernel) == ""
+        assert ("flash_bwd_sm90", kernel) in chip_smoke.SM90_GATED
+
     def test_missing_nvcc_raises(self, monkeypatch, tmp_path):
         monkeypatch.setenv("PATH", str(tmp_path))
         monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -436,6 +517,26 @@ def test_fwd_route(dtype, D):
 def test_fwd_route_refuses(dtype, D, match):
     with pytest.raises(ValueError, match=match):
         _fwd_route(dtype, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_bwd_route(dtype, D):
+    """bf16 at head dim 64 goes to the Hopper backward kernels; f32 at
+    every head dim and bf16 at 16, 32 and 128 stay on flash_bwd.cu (the
+    Hopper dK/dV kernel spilled at 128)."""
+    want = ("flash_bwd_sm90" if dtype == torch.bfloat16 and D == 64
+            else "flash_bwd")
+    assert _bwd_route(dtype, D) == want
+
+
+@pytest.mark.parametrize("dtype, D, match", [
+    (torch.bfloat16, 48, "head dim"), (torch.bfloat16, 256, "head dim"),
+    (torch.float32, 8, "head dim"), (torch.float16, 64, "float32 or bfloat16"),
+])
+def test_bwd_route_refuses(dtype, D, match):
+    with pytest.raises(ValueError, match=match):
+        _bwd_route(dtype, D)
 
 
 @pytest.fixture
@@ -474,6 +575,46 @@ FWD_CASES = KERNEL_CASES + [
     (torch.bfloat16, 3, 400, 128, True, 200, [400, 130, 7], False),
     (torch.bfloat16, 4, 200, 32, True, 0, [200, 0, 99, 150], False),
 ]
+# K2 and K3's edges: their Hopper kernels (bf16 at D 64; dK/dV 128 keys a
+# CTA and query tiles of 64; dQ 128 queries a CTA and key tiles of 64) at
+# T = 1 and below a tile, T off the tile grid, BH 1, lengths 0, 1 and
+# either side of 64 and 128, a key-mask hole, windows of 1, 64 and 200,
+# causal and not; bf16 at D 32 and 128 stays on flash_bwd.cu
+BWD_CASES = KERNEL_CASES + [
+    (torch.bfloat16, 3, 1, 64, True, 0, None, False),
+    (torch.bfloat16, 2, 1, 128, False, 0, None, False),
+    (torch.bfloat16, 3, 100, 64, False, 0, None, False),
+    (torch.bfloat16, 2, 333, 64, True, 0, None, False),
+    (torch.bfloat16, 1, 257, 128, True, 0, None, False),
+    (torch.bfloat16, 8, 300, 64, True, 0, [0, 1, 63, 64, 65, 127, 128, 129],
+     False),
+    (torch.bfloat16, 8, 300, 128, False, 0, [0, 1, 63, 64, 65, 127, 128, 129],
+     False),
+    (torch.bfloat16, 3, 300, 64, True, 0, None, True),
+    (torch.bfloat16, 3, 400, 64, True, 1, None, False),
+    (torch.bfloat16, 3, 400, 64, True, 64, None, False),
+    (torch.bfloat16, 3, 400, 128, True, 200, [400, 130, 7], False),
+    (torch.bfloat16, 4, 200, 32, True, 0, [200, 0, 99, 150], False),
+]
+
+
+def _bwd_inputs(device, case, seed, scale=None):
+    """q, k, v, do, lse, delta, lens, kmask and the keyword arguments of
+    backward case ``case``, with lse and delta from the plain forward."""
+    dt, BH, T, D, causal, window, lens, hole = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = (torch.randn((BH, T, D), generator=gen,
+                               device=device).to(dt) for _ in range(4))
+    lens_t = None if lens is None else torch.tensor(lens, device=device)
+    kmask = None
+    if hole:
+        kmask = torch.ones((BH, T), dtype=torch.int8, device=device)
+        kmask[:, T // 3:T // 2] = 0
+    kw = dict(scale=D ** -0.5 if scale is None else scale, causal=causal,
+              window=window)
+    o, lse = flash_attention_reference(q, k, v, lens_t, kmask, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    return (q, k, v, do, lse, delta, lens_t, kmask), kw
 
 
 @pytest.mark.gpu
@@ -519,32 +660,42 @@ class TestKernelOnCard:
                                    atol=KERNEL_BF16_ATOL)
         torch.testing.assert_close(lse, lse_ref, rtol=F32_TOL, atol=1e-4)
 
-    @pytest.mark.parametrize("case", range(len(KERNEL_CASES)))
+    @pytest.mark.parametrize("case", range(len(BWD_CASES)))
     def test_backward_kernels_match_plain(self, cuda, case):
-        dt, BH, T, D, causal, window, lens, hole = KERNEL_CASES[case]
-        gen = torch.Generator(device=cuda).manual_seed(100 + case)
-        q, k, v, do = (torch.randn((BH, T, D), generator=gen,
-                                   device=cuda).to(dt) for _ in range(4))
-        lens_t = None if lens is None else torch.tensor(lens, device=cuda)
-        kmask = None
-        if hole:
-            kmask = torch.ones((BH, T), dtype=torch.int8, device=cuda)
-            kmask[:, T // 3:T // 2] = 0
-        kw = dict(scale=D ** -0.5, causal=causal, window=window)
-        o, lse = flash_attention_reference(q, k, v, lens_t, kmask, **kw)
-        delta = (do.float() * o.float()).sum(-1)
+        dt, lens = BWD_CASES[case][0], BWD_CASES[case][6]
+        args, kw = _bwd_inputs(cuda, BWD_CASES[case], 100 + case)
         before = (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches)
-        got = flash_bwd_cuda(q, k, v, do, lse, delta, lens_t, kmask, **kw)
+        got = flash_bwd_cuda(*args, **kw)
         assert (flash_bwd_dq_cuda.launches, flash_bwd_dkv_cuda.launches) == \
             (before[0] + 1, before[1] + 1)
-        want = flash_attention_backward_reference(q, k, v, do, lse, delta,
-                                                  lens_t, kmask, **kw)
+        want = flash_attention_backward_reference(*args, **kw)
         atol, rtol = ((F32_TOL, F32_TOL) if dt == torch.float32
                       else (KERNEL_BWD_BF16_ATOL, KERNEL_BWD_BF16_RTOL))
         for a, b in zip(got, want):
             assert a.dtype == dt
             torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
                                        atol=atol)
+        for b, n in enumerate(lens or []):
+            assert torch.all(got[1][b, n:] == 0) and torch.all(got[2][b, n:] == 0)
+
+    @pytest.mark.parametrize("scale", [-0.125, 0.0])
+    def test_backward_kernels_take_any_scale(self, cuda, scale):
+        """A scale <= 0 sends every tile of the Hopper backward kernels down
+        their masked path, as it does K1's."""
+        args, kw = _bwd_inputs(cuda, (torch.bfloat16, 2, 300, 64, True, 0,
+                                      None, False), 7, scale)
+        for a, b in zip(flash_bwd_cuda(*args, **kw),
+                        flash_attention_backward_reference(*args, **kw)):
+            torch.testing.assert_close(a.float(), b.float(),
+                                       rtol=KERNEL_BWD_BF16_RTOL,
+                                       atol=KERNEL_BWD_BF16_ATOL)
+
+    @pytest.mark.parametrize("case", [4, 11, 16])
+    def test_backward_kernels_are_deterministic(self, cuda, case):
+        """No float atomics: two launches give the same bits."""
+        args, kw = _bwd_inputs(cuda, BWD_CASES[case], 300 + case)
+        for a, b in zip(flash_bwd_cuda(*args, **kw), flash_bwd_cuda(*args, **kw)):
+            assert torch.equal(a, b)
 
     def test_gradient_runs_the_backward_kernels(self, cuda):
         q = torch.randn((2, 64, 2, 16), device=cuda, requires_grad=True)

@@ -9,7 +9,8 @@ last line):
 1. build — compile every CUDA kernel of the port from ``deeplearning4j_torch/
    kernels/csrc`` with nvcc for sm_90a, one nvcc per source side by side,
    print each kernel's registers and spills (gated: none for the Hopper
-   kernels of K1, K2 and K3 at D 64) and the card.
+   kernels of K1, K2 and K3 at D 64, none in any BatchNorm kernel) and the
+   card.
 2. kernels — each kernel against its plain PyTorch version on the card:
    the flash forward (K1) and the flash backward's dQ (K2) and dK/dV (K3)
    passes in f32 and bf16, several head dims, ragged T, causal, windows,
@@ -45,22 +46,29 @@ last line):
    2 x 1024 batch: in f32 every param's gradient within 1e-3 of the dense
    path's, relative to its largest entry (gated); bf16 reported.
 7. bn kernels — BatchNorm's backward kernels, K4a (per-channel Σdy and
-   Σdy·x) and K4b (dx), and their composition ``bn_bwd`` against the plain
-   versions over a case list (f32 and bf16, C from 5 to 2048, M not a
-   multiple of any block, a constant channel), then at the microbench's
-   shape (bf16, M = 128·56·56, C = 256, seed 0), timed beside the plain
-   versions and the library's BatchNorm backward.
+   Σdy·x, on each of its routes) and K4b (dx), K4a's fused mode (its
+   per-channel outputs bit-equal to ``bn_backward_coeffs_reference``) and
+   their composition ``bn_bwd`` against the plain versions over a case
+   list (f32 and bf16, C from 5 to 2048, M from 1 and not a multiple of any
+   block, a constant channel; two launches bit-identical; the first case
+   again after the others), then at the microbench's shape (bf16, M =
+   128·56·56, C = 256, seed 0), timed one call at a time and back to back
+   beside the plain versions, the whole BatchNorm backward as a step runs
+   it and the library's BatchNorm backward, with the device operations of
+   one BatchNorm backward counted under torch.profiler.
 8. resnet — ``ResNet50(num_classes=1000, seed=0, input_shape=(224, 224,
    3))`` (bf16 compute, f32 params, adam 1e-3) trained by
    ``Trainer(model).fit`` on ``BenchmarkIterator`` batches of 128 for 12
    steps: 2 warm-up steps in one fit, 10 in a second fit timed as one
    window. Launch counts are zeroed before and read after: every step
-   launches K4a and K4b once per BatchNorm (53). Gated: losses finite and
-   the last below the first; every running mean and var finite and
-   changed. Printed: step time, images/s, model FLOP and MFU, peak memory,
-   where a step's time goes (forward, backward, K4a + K4b at every
-   BatchNorm's shape, adam), a step with the batch already on the card,
-   and the card's busy share over 3 steps under torch.profiler.
+   launches the fused K4a and K4b once per BatchNorm (53). Gated: losses
+   finite and the last below the first; every running mean and var finite
+   and changed. Printed: step time, images/s, model FLOP and MFU, peak
+   memory, where a step's time goes (forward, backward, K4a, K4b and the
+   whole BatchNorm backward at every BatchNorm's shape, one call at a time
+   and back to back, adam), a step with the batch already on the card, and
+   the card's busy share and device operations a step over 3 steps under
+   torch.profiler.
 9. resnet gradients — the same model in f32 on one batch of 8: every
    param's gradient through K4a/K4b within 1e-3 of the plain BN
    backward's, relative to the largest entry of its node (gated).
@@ -169,6 +177,11 @@ def phase_build():
         spills = sm90_spills(_build.build_log(source), 64, kernel)
         check(spills == "0 bytes spill stores, 0 bytes spill loads",
               f"{kernel} at D 64 spills: {spills!r}")
+    for kernel in BN_GATED:
+        spills = kernel_spills(_build.build_log("bn_bwd"), kernel)
+        check(bool(spills) and all(
+            v == "0 bytes spill stores, 0 bytes spill loads" for v in spills),
+            f"{kernel} spills (or was not reported): {spills!r}")
     print(f"[build] card: {card()}")
 
 
@@ -176,6 +189,24 @@ def phase_build():
 SM90_GATED = (("flash_fwd_sm90", "flash_fwd_sm90_kernel"),
               ("flash_bwd_sm90", "flash_bwd_dq_sm90_kernel"),
               ("flash_bwd_sm90", "flash_bwd_dkv_sm90_kernel"))
+
+
+# the BatchNorm kernels of bn_bwd.cu whose builds (every instantiation)
+# must not spill
+BN_GATED = ("bn_reduce_bulk_kernel", "bn_reduce_scalar_kernel",
+            "bn_dx_kernel")
+
+
+def kernel_spills(log: str, kernel: str) -> list:
+    """The spill counts that ``-Xptxas -v`` reports in ``log`` for every
+    function whose mangled name holds ``kernel``."""
+    out, fn = [], None
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+        elif "spill" in line and fn and kernel in fn:
+            out.append(line.split(",", 1)[1].strip())
+    return out
 
 
 def sm90_spills(log: str, d: int, kernel: str = "flash_fwd_sm90_kernel") -> str:
@@ -587,8 +618,8 @@ def phase_bwd_kernels():
 
 
 # K4a/K4b case list: (dtype, M, C, constant channel); M not a multiple of
-# any block, C from the stem's 64 to stage 4's 2048, and C that takes the
-# one-element path (5, 12 in bf16)
+# any block, C from the stem's 64 to stage 4's 2048 (several channel
+# chunks), C that takes only the scalar route (5, 12 in bf16), one row
 BN_CASES = [
     (torch.float32, 1000, 64, False),
     (torch.float32, 4099, 256, True),
@@ -598,60 +629,147 @@ BN_CASES = [
     (torch.bfloat16, 1003, 256, False),
     (torch.bfloat16, 301, 2048, False),
     (torch.bfloat16, 999, 12, False),
+    (torch.bfloat16, 1, 64, False),
+    (torch.bfloat16, 20011, 1024, False),
 ]
 # K4a vs plain, per channel: both sum in f32 in different orders; the
 # error is held to this share of the sum of the terms' magnitudes
 BN_SUM_RTOL = 2e-5
 
 
-def _bn_compare(x, dy, a, c1, c2, what):
-    """K4a, K4b and their composition against the plain versions on one
-    (M, C) case; returns the largest abs error of the composed dx."""
-    from deeplearning4j_torch.ops.batch_norm import (
-        bn_bwd, bn_bwd_reference, bn_dx, bn_dx_reference, bn_reduce,
-        bn_reduce_reference)
+def _bn_sums_check(got, x, dy, what):
+    from deeplearning4j_torch.ops.batch_norm import bn_reduce_reference
 
-    s = bn_reduce(x, dy)
-    dx = bn_dx(x, dy, a, c1, c2)
-    composed = bn_bwd(x, dy, a)
-    torch.cuda.synchronize()
     xf, dyf = x.float(), dy.float()
-    for name, got, want, terms in zip(
-            ("sum dy", "sum dy*x"), s, bn_reduce_reference(x, dy),
+    for name, g, want, terms in zip(
+            ("sum dy", "sum dy*x"), got, bn_reduce_reference(x, dy),
             (dyf, dyf * xf)):
-        err = (got - want).abs()
+        err = (g - want).abs()
         bound = BN_SUM_RTOL * terms.abs().sum(0) + 1e-6
-        check(bool(torch.isfinite(got).all() and (err <= bound).all()),
+        check(bool(torch.isfinite(g).all() and (err <= bound).all()),
               f"{what}: K4a {name} differs from the plain version (max abs "
               f"err {err.max().item():.3g})")
-    want = bn_dx_reference(x, dy, a, c1, c2)
-    check(bool(torch.equal(dx, want)), f"{what}: K4b differs from the plain "
-          f"version (max abs err {(dx.float() - want.float()).abs().max().item():.3g}; "
-          f"both round the same ops in the same order)")
-    # the composition: a summation-order difference in K4a can move c1 or
-    # c2 by one rounding in x's dtype, and dx by one rounding of its own
-    ref = bn_bwd_reference(x, dy, a)
-    M = x.shape[0]
-    c1r = (bn_reduce_reference(x, dy)[0] * (1.0 / M)).abs()
-    c2r = (bn_reduce_reference(x, dy)[1] * (2.0 / M)).abs()
-    r = 1e-5 if x.dtype == torch.float32 else 2.0 ** -7
-    bound = r * (ref.float().abs() + c1r + xf.abs() * c2r) + 1e-30
-    err = (composed.float() - ref.float()).abs()
-    check(bool((err <= bound).all()), f"{what}: bn_bwd differs from the "
-          f"plain composition (max abs err {err.max().item():.3g})")
-    return err.max().item()
+
+
+def _bn_offset(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary: the scalar routes' input at any width."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bn_inputs(x, dy):
+    """(x, dy, K4a's route) for each route these operands reach: as they
+    are (bulk where a row is whole 16-byte vectors, fresh tensors being
+    aligned), and, where that is bulk, an offset copy (scalar)."""
+    fits = x.shape[1] * x.element_size() % 16 == 0
+    out = [(x, dy, "bulk" if fits else "scalar")]
+    if fits:
+        out.append((_bn_offset(x), _bn_offset(dy), "scalar"))
+    return out
+
+
+def _bn_compare(x, dy, a, c1, c2, what):
+    """K4a and K4b on every route the case reaches, and their composition,
+    against the plain versions on one (M, C) case; returns the largest abs
+    error of the composed dx against the plain composition."""
+    from deeplearning4j_torch.ops import batch_norm
+    from deeplearning4j_torch.ops.batch_norm import (
+        bn_bwd, bn_bwd_reference, bn_dx, bn_dx_reference, bn_reduce)
+
+    for xi, dyi, route in _bn_inputs(x, dy):
+        before = bn_reduce.routes[route]
+        s = bn_reduce(xi, dyi)
+        dx = bn_dx(xi, dyi, a, c1, c2)
+        torch.cuda.synchronize()
+        check(bn_reduce.routes[route] == before + 1,
+              f"{what}: K4a's route {route} was not the one launched")
+        _bn_sums_check(s, xi, dyi, f"{what} route {route}")
+        want = bn_dx_reference(xi, dyi, a, c1, c2)
+        check(bool(torch.equal(dx, want)), f"{what}: K4b differs from the "
+              f"plain version with K4a on route {route} (max abs err "
+              f"{(dx.float() - want.float()).abs().max().item():.3g}; both "
+              f"round the same ops in the same order)")
+    s = torch.stack(bn_reduce(x, dy))
+    again = torch.stack(bn_reduce(x, dy))
+    composed = bn_bwd(x, dy, a)
+    torch.cuda.synchronize()
+    check(torch.equal(s, again), f"{what}: two K4a launches differ")
+    # the composition, bit for bit: the plain composition fed K4a's own
+    # sums computes c1 and c2 by the same ops from the same bits, and K4b
+    # is bit-equal to its plain version
+    own = batch_norm._bwd(x, dy, a, lambda *_: s, bn_dx_reference)
+    err_own = (composed.float() - own.float()).abs().max().item()
+    check(bool(torch.equal(composed, own)), f"{what}: bn_bwd differs from "
+          f"the plain composition fed K4a's own sums (max abs err "
+          f"{err_own:.3g})")
+    # against the fully plain composition: K4a's sums are held above, this
+    # is reported
+    return (composed.float() - bn_bwd_reference(x, dy, a).float()).abs() \
+        .max().item()
+
+
+def _bn_saved(x, gamma):
+    """The per-channel tensors that the training forward saves for x."""
+    xf = x.float()
+    mean = xf.mean(0)
+    gap = (xf * xf).mean(0) - mean * mean
+    var = torch.clamp(gap, min=0.0)
+    inv = torch.rsqrt(var + 1e-5)
+    a = inv if gamma is None else inv * gamma.float()
+    return mean, var, inv, a, gap
+
+
+def _bn_fused_compare(x, dy, gamma, what):
+    """K4a's fused mode on every route the case reaches: the coefficients
+    (K4b's a, c1, c2; dgamma, dbeta) bit for bit against
+    bn_backward_coeffs_reference on K4a's own sums (the sums mode on the
+    same inputs runs the same grid), two launches bit-identical, and
+    bn_backward's dx against the plain K4b on those coefficients."""
+    from deeplearning4j_torch.ops.batch_norm import (
+        bn_backward, bn_backward_coeffs_reference, bn_dx_reference,
+        bn_reduce, bn_reduce_coeffs)
+
+    stats = _bn_saved(x, gamma)
+    for xi, dyi, route in _bn_inputs(x, dy):
+        before = bn_reduce_coeffs.routes[route]
+        got = bn_reduce_coeffs(xi, dyi, *stats, gamma, 1e-5)
+        again = bn_reduce_coeffs(xi, dyi, *stats, gamma, 1e-5)
+        s1, s2 = bn_reduce(xi, dyi)
+        torch.cuda.synchronize()
+        check(bn_reduce_coeffs.routes[route] == before + 2,
+              f"{what}: fused K4a's route {route} was not the one launched")
+        want = bn_backward_coeffs_reference(s1, s2, *stats, gamma, 1e-5,
+                                            x.shape[0], x.dtype)
+        for name, g, w, g2 in zip(("a, c1, c2", "dgamma", "dbeta"), got,
+                                  want, again):
+            check((g is None) == (w is None) and (g is None or (
+                torch.equal(g, w) and torch.equal(g, g2))),
+                f"{what} route {route}: fused K4a's {name} differ from the "
+                f"plain coefficient function on K4a's sums, or between two "
+                f"launches")
+        dx, _, _ = bn_backward(xi, dyi, gamma, *stats, 1e-5)
+        torch.cuda.synchronize()
+        check(torch.equal(dx, bn_dx_reference(xi, dyi, *got[0])),
+              f"{what} route {route}: bn_backward's dx differs from the "
+              f"plain K4b")
 
 
 def phase_bn_kernels():
-    """K4a and K4b against their plain versions over BN_CASES, then at the
-    microbench's shape (bf16, M = 128*56*56, C = 256, seed 0 as
+    """K4a on each of its routes, its fused mode, K4b and their composition
+    against the plain versions over BN_CASES (two launches bit-identical;
+    the first case again at the end, after other shapes' tickets), then at
+    the microbench's shape (bf16, M = 128*56*56, C = 256, seed 0 as
     scripts/bn_reduce_bench.py draws it), timed beside the plain versions
     and the library's BatchNorm backward."""
     from deeplearning4j_torch.ops.batch_norm import (
-        bn_dx, bn_dx_reference, bn_reduce, bn_reduce_reference)
+        bn_dx_reference, bn_reduce, bn_reduce_coeffs, bn_reduce_reference)
 
     gen = torch.Generator(device="cuda")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    first = None
     for i, (dt, M, C, const) in enumerate(BN_CASES):
         gen.manual_seed(400 + i)
         x, dy = (torch.randn((M, C), generator=gen, device="cuda").to(dt)
@@ -661,10 +779,27 @@ def phase_bn_kernels():
         a = torch.randn((C,), generator=gen, device="cuda").to(dt)
         c1, c2 = (1e-2 * torch.randn((C,), generator=gen, device="cuda")
                   for _ in range(2))
+        gamma = (None, torch.bfloat16, torch.float32)[i % 3]
+        if gamma is not None:
+            gamma = (1 + 0.1 * torch.randn((C,), generator=gen,
+                                           device="cuda")).to(gamma)
         what = f"{str(dt)[6:]} M={M} C={C} constant channel={const}"
         err = _bn_compare(x, dy, a, c1, c2, what)
+        _bn_fused_compare(x, dy, gamma, f"{what} gamma="
+                          f"{None if gamma is None else str(gamma.dtype)[6:]}")
         worst[dt] = max(worst[dt], err)
-        print(f"[bn] ok {what}: composed dx max abs err {err:.3g}")
+        if first is None:
+            first = (x, dy, torch.stack(bn_reduce(x, dy)))
+        print(f"[bn] ok {what}: routes "
+              f"{'/'.join(r for _, _, r in _bn_inputs(x, dy))}, fused "
+              f"coefficients bit-equal, two launches bit-identical, composed "
+              f"dx bit-equal on K4a's sums; max abs err against the plain "
+              f"composition {err:.3g}")
+    x, dy, s = first
+    check(torch.equal(torch.stack(bn_reduce(x, dy)), s), "K4a's first case "
+          "gives other bits after the other shapes' calls (tickets not reset)")
+    print(f"[bn] K4a routes launched: {bn_reduce.routes}; fused "
+          f"{bn_reduce_coeffs.routes}")
 
     M, C = 128 * 56 * 56, 256
     rng = np.random.RandomState(0)
@@ -676,26 +811,26 @@ def phase_bn_kernels():
     c1 = (s_dy * (1.0 / M)).to(x.dtype)
     c2 = (s_dyx * (2.0 / M)).to(x.dtype)
     err = _bn_compare(x, dy, a, c1, c2, "microbench shape")
-    k4a_ms = time_ms(lambda: bn_reduce(x, dy))
-    k4b_ms = time_ms(lambda: bn_dx(x, dy, a, c1, c2))
-    k4a_plain = time_ms(lambda: bn_reduce_reference(x, dy), reps=5, warmup=1)
-    k4b_plain = time_ms(lambda: bn_dx_reference(x, dy, a, c1, c2), reps=5,
-                        warmup=1)
-    # the library's BN backward (dx, dgamma, dbeta of a standard BN in one
-    # call) on the same tensors viewed as channels_last NCHW: it stands for
-    # K4a + K4b together
-    x4, dy4 = (t.view(128, 56, 56, C).permute(0, 3, 1, 2) for t in (x, dy))
-    mean = x.float().mean(0)
-    invstd = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
-    w = torch.ones(C, device="cuda")
-    library_ms = time_ms(lambda: torch.ops.aten.native_batch_norm_backward(
-        dy4, x4, w, None, None, mean, invstd, True, 1e-5, [True, True, True]))
+    t = bn_timing(x, dy, a, c1, c2, nhw=(128, 56, 56))
+    # K4a's fused mode, as the backward runs it, at the same shape
+    gamma = (1 + 0.1 * torch.from_numpy(rng.randn(C).astype(np.float32))
+             ).cuda().to(torch.bfloat16)
+    _bn_fused_compare(x, dy, gamma, "microbench shape")
+    stats = _bn_saved(x, gamma)
+
+    def fused():
+        bn_reduce_coeffs(x, dy, *stats, gamma, 1e-5)
+
+    t["k4a_fused"] = time_ms(fused)
+    t["k4a_fused_b2b"] = time_b2b_ms(fused)
+    t["k4a_plain"] = time_ms(lambda: bn_reduce_reference(x, dy), reps=5,
+                             warmup=1)
+    t["k4b_plain"] = time_ms(lambda: bn_dx_reference(x, dy, a, c1, c2),
+                             reps=5, warmup=1)
     rows = []
-    for name, ms, plain_ms, n_io, replaces in (
-            ("bn_reduce", k4a_ms, k4a_plain, 2,
-             "scripts/bn_reduce_bench.py:41"),
-            ("bn_dx", k4b_ms, k4b_plain, 3,
-             "scripts/bn_reduce_bench.py:68")):
+    for name, key, n_io, replaces in (
+            ("bn_reduce", "k4a", 2, "scripts/bn_reduce_bench.py:41"),
+            ("bn_dx", "k4b", 3, "scripts/bn_reduce_bench.py:68")):
         # least work: x and dy read once (and dx written once); a few f32
         # FLOP per element on the CUDA cores
         nbytes = n_io * M * C * x.element_size() + (2 if n_io == 2 else 3) \
@@ -706,19 +841,205 @@ def phase_bn_kernels():
             "name": name, "route": "cuda",
             "source": "deeplearning4j_torch/kernels/csrc/bn_bwd.cu",
             "replaces": replaces, "launches": None, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "ms": t[key], "plain_ms": t[key + "_plain"],
+            "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
+            "library_ms": t["library"], "ms_b2b": t[key + "_b2b"],
+            "library_ms_b2b": t["library_b2b"],
+            "whole_bn_backward_ms": t["bwd"],
+            "whole_bn_backward_ms_b2b": t["bwd_b2b"],
             "library": "native_batch_norm_backward (dx, dgamma, dbeta), "
                        "K4a + K4b together"})
         print(f"[bn] microbench shape M={M} C={C} bf16, {name}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{t[key]:.4f} ms, back to back {t[key + '_b2b']:.4f} ms, "
+              f"plain {t[key + '_plain']:.4f} ms, bound "
               f"{rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}, "
-              f"{nbytes / 1e6:.1f} MB); library BN backward {library_ms:.4f} "
-              f"ms; composed dx max abs err {err:.3g}")
+              f"{nbytes / 1e6:.1f} MB); composed dx max abs err {err:.3g}")
+    rows[0]["ms_fused"] = t["k4a_fused"]
+    rows[0]["ms_fused_b2b"] = t["k4a_fused_b2b"]
+    print(f"[bn] microbench shape, K4a fused (sums and per-channel algebra, "
+          f"as the backward runs it): {t['k4a_fused']:.4f} ms, back to back "
+          f"{t['k4a_fused_b2b']:.4f} ms")
+    print(f"[bn] microbench shape: K4a + K4b {t['k4a'] + t['k4b']:.4f} ms, "
+          f"back to back {t['k4a_b2b'] + t['k4b_b2b']:.4f} ms; BatchNorm "
+          f"backward as the step runs it (autograd.grad of batch_norm_train's"
+          f" y: dx, dgamma, dbeta) {t['bwd']:.4f} ms, back to back "
+          f"{t['bwd_b2b']:.4f} ms; library (native_batch_norm_backward) "
+          f"{t['library']:.4f} ms, back to back {t['library_b2b']:.4f} ms")
+    ops = _device_ops(t["bwd_fn"])
+    print(f"[bn] device operations in one BatchNorm backward at the "
+          f"microbench shape: {ops}")
     print(f"[bn] composed dx largest abs err: f32 {worst[torch.float32]:.3g}, "
           f"bf16 {worst[torch.bfloat16]:.3g}")
     return rows
+
+
+def bn_backward_fn(x, dy):
+    """One training-mode BatchNorm backward as a ResNet-50 step runs it:
+    ``torch.autograd.grad`` of ``batch_norm_train``'s y over (x, gamma,
+    beta), gamma and beta in x's dtype as the bf16 Graph casts them; the
+    graph is kept, so each call runs the backward alone."""
+    from deeplearning4j_torch.ops.batch_norm import batch_norm_train
+
+    C = x.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    g = (1 + 0.1 * torch.randn((C,), generator=gen, device="cuda")).to(
+        x.dtype).requires_grad_()
+    b = (0.1 * torch.randn((C,), generator=gen, device="cuda")).to(
+        x.dtype).requires_grad_()
+    xr = x.detach().requires_grad_()
+    y, _, _ = batch_norm_train(xr, g, b, 1e-5)
+    return lambda: torch.autograd.grad(y, (xr, g, b), dy, retain_graph=True)
+
+
+def bn_library_fn(x, dy, nhw=None):
+    """The library's BN backward (dx, dgamma, dbeta of a standard BN in one
+    call) on (M, C) x and dy viewed as channels_last NCHW, (N, H, W) =
+    ``nhw`` (default (1, M, 1))."""
+    M, C = x.shape
+    n, h, w = nhw or (1, M, 1)
+    x4, dy4 = (t.view(n, h, w, C).permute(0, 3, 1, 2) for t in (x, dy))
+    mean = x.float().mean(0)
+    invstd = torch.rsqrt(x.float().var(0, unbiased=False) + 1e-5)
+    weight = torch.ones(C, device="cuda")
+    return lambda: torch.ops.aten.native_batch_norm_backward(
+        dy4, x4, weight, None, None, mean, invstd, True, 1e-5, [True, True, True])
+
+
+def bn_timing(x, dy, a, c1, c2, reps=20, nhw=None):
+    """K4a, K4b, the whole BatchNorm backward and the library's, each one
+    call at a time (``time_ms``) and back to back (``time_b2b_ms``), on
+    (M, C) x, dy. Uses only ``bn_reduce``, ``bn_dx`` and
+    ``batch_norm_train``, so it times an older tree's kernels too."""
+    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce
+
+    out = {}
+    for key, fn in (("k4a", lambda: bn_reduce(x, dy)),
+                    ("k4b", lambda: bn_dx(x, dy, a, c1, c2)),
+                    ("bwd", bn_backward_fn(x, dy)),
+                    ("library", bn_library_fn(x, dy, nhw))):
+        out[key] = time_ms(fn, reps=reps)
+        out[key + "_b2b"] = time_b2b_ms(fn, reps=reps)
+        out[key + "_fn"] = fn
+    return out
+
+
+def device_ms(fn, reps: int = 10):
+    """(ms, operations) of device work per call of ``fn``: the summed
+    durations of the device events that torch.profiler's CUDA activity
+    records over ``reps`` calls back to back, and their count, each over
+    ``reps``; host work is left out. (nan, 0) where it records none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ev:
+        return float("nan"), 0.0
+    us = sum(e.time_range.end - e.time_range.start for e in ev)
+    return us / 1e3 / reps, len(ev) / reps
+
+
+def bn_shape_times(shapes, reps=10):
+    """``bn_timing`` and ``device_ms`` of K4a, K4b, the whole BatchNorm
+    backward and the library's at every distinct (M, C) of ``shapes``
+    (bf16, random inputs), as {(M, C): {key: ms}}. Uses only
+    ``bn_reduce``, ``bn_dx`` and ``batch_norm_train``, so it times an older
+    tree's kernels too."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for M, C in shapes:
+        if (M, C) in out:
+            continue
+        xb, dyb = (torch.randn((M, C), generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(2))
+        cv = torch.randn((C,), generator=gen, device="cuda")
+        tm = bn_timing(xb, dyb, cv, cv, cv, reps=reps)
+        row = {k: v for k, v in tm.items() if not k.endswith("_fn")}
+        for key in ("k4a", "k4b", "bwd", "library"):
+            row[key + "_dev"], row[key + "_ops"] = device_ms(tm[key + "_fn"])
+        out[(M, C)] = row
+        del xb, dyb, tm
+    return out
+
+
+def print_bn_shapes(shapes, per_shape, tag):
+    """The per-shape table of ``bn_shape_times`` and its sums over
+    ``shapes`` (one entry per BatchNorm)."""
+    tot = {k: sum(per_shape[sh][k] for sh in shapes)
+           for k in next(iter(per_shape.values()))}
+    elems = sum(M * C for M, C in shapes)
+    # K4a reads x and dy, K4b reads them and writes dx: 5 bf16 tensors of
+    # (M, C) a BatchNorm; the function itself needs only 3 (x, dy read once,
+    # dx written once)
+    bound = 5 * 2 * elems / PEAK_BYTES_PER_S * 1e3
+    bound_fn = 3 * 2 * elems / PEAK_BYTES_PER_S * 1e3
+    print(f"[{tag}] over the {len(shapes)} BatchNorms, back to back: K4a "
+          f"{tot['k4a_b2b']:.2f} ms, K4b {tot['k4b_b2b']:.2f}, K4a + K4b "
+          f"{tot['k4a_b2b'] + tot['k4b_b2b']:.2f} (bound {bound:.2f}); on the "
+          f"device (profiler) K4a {tot['k4a_dev']:.2f}, K4b "
+          f"{tot['k4b_dev']:.2f}, K4a + K4b "
+          f"{tot['k4a_dev'] + tot['k4b_dev']:.2f}; whole BatchNorm backward "
+          f"{tot['bwd']:.2f} ms, back to back {tot['bwd_b2b']:.2f}, on the "
+          f"device {tot['bwd_dev']:.2f} in {tot['bwd_ops']:.0f} device "
+          f"operations (the function's bound {bound_fn:.2f}); library BN "
+          f"backward {tot['library']:.2f}, back to back "
+          f"{tot['library_b2b']:.2f}, on the device {tot['library_dev']:.2f}")
+    print(f"[{tag}] per (M, C) x count, ms one call / back to back / on the "
+          f"device: K4a; K4b; whole BN backward (device operations); "
+          f"library; bytes bounds of K4a, K4b -- " + "; ".join(
+              f"{M}x{C} x{shapes.count((M, C))} "
+              f"{v['k4a']:.4f}/{v['k4a_b2b']:.4f}/{v['k4a_dev']:.4f}, "
+              f"{v['k4b']:.4f}/{v['k4b_b2b']:.4f}/{v['k4b_dev']:.4f}, "
+              f"{v['bwd']:.4f}/{v['bwd_b2b']:.4f}/{v['bwd_dev']:.4f} "
+              f"({v['bwd_ops']:.0f}), "
+              f"{v['library']:.4f}/{v['library_b2b']:.4f}/"
+              f"{v['library_dev']:.4f}, "
+              f"{4 * M * C / PEAK_BYTES_PER_S * 1e3:.4f}, "
+              f"{6 * M * C / PEAK_BYTES_PER_S * 1e3:.4f}"
+              for (M, C), v in per_shape.items()))
+    return tot, bound
+
+
+def phase_bn_shapes():
+    """K4a, K4b and the whole BatchNorm backward at the (M, C) of every
+    BatchNorm of the bf16 ResNet-50 at batch 128, timed alone, without
+    training: the per-shape reading that an A/B of two trees compares in
+    one call (``python3 -c "import chip_smoke as c; c.phase_bn_shapes()"``
+    in each tree's root)."""
+    shapes = [(M, C) for _, M, C in _bn_nodes(_resnet50("bfloat16"),
+                                               RN_BATCH)]
+    print_bn_shapes(shapes, bn_shape_times(shapes), "bn shapes")
+    print(card())
+
+
+def _device_ops(fn):
+    """The device operations (kernels, copies, sets) that torch.profiler's
+    CUDA activity records in one call of ``fn``, as 'N: name, name, ...';
+    where it records none, the top-level aten calls on the host instead,
+    said so."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    if dev:
+        return f"{len(dev)} on the card: " + ", ".join(n[:48] for n in dev)
+    host = [e.name for e in events if e.device_type == DeviceType.CPU
+            and e.name.startswith("aten::") and e.cpu_parent is None]
+    return (f"profiler recorded no device events; {len(host)} top-level aten "
+            f"calls on the host: " + ", ".join(host))
 
 
 def _lm(flash: bool):
@@ -1055,7 +1376,8 @@ def phase_resnet_train():
     as one window. Launch counts of K4a and K4b are zeroed before the first
     fit and read after the second: 53 each per step."""
     from deeplearning4j_torch.data import BenchmarkIterator
-    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce
+    from deeplearning4j_torch.ops.batch_norm import (
+        bn_dx, bn_reduce, bn_reduce_coeffs)
     from deeplearning4j_torch.train import CollectScoresListener, Trainer
 
     t0 = time.perf_counter()
@@ -1077,7 +1399,10 @@ def phase_resnet_train():
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bn_reduce.launches = bn_dx.launches = 0
+    wrappers = (bn_reduce_coeffs, bn_dx, bn_reduce)
+    for w in wrappers:
+        w.launches = 0
+        w.routes = dict.fromkeys(w.routes, 0)
     t0 = time.perf_counter()
     trainer.fit(batches(RN_WARMUP), listeners=[scores])
     torch.cuda.synchronize()
@@ -1085,16 +1410,18 @@ def phase_resnet_train():
     trainer.fit(batches(timed), listeners=[scores])
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    counts = (bn_reduce.launches, bn_dx.launches)
+    counts = (bn_reduce_coeffs.launches, bn_dx.launches)
+    routes = {"K4a": dict(bn_reduce_coeffs.routes), "K4b": dict(bn_dx.routes)}
     peak = torch.cuda.max_memory_allocated()
     losses = [loss for _, loss in scores.scores]
     check(len(losses) == RN_STEPS, f"{len(losses)} losses for {RN_STEPS} "
           f"steps")
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    check(counts == (n_bn * RN_STEPS,) * 2,
-          f"launches K4a, K4b {counts}: want {n_bn} each per step over "
-          f"{RN_STEPS} steps")
+    check(counts == (n_bn * RN_STEPS,) * 2 and bn_reduce.launches == 0,
+          f"launches fused K4a, K4b {counts} (K4a's sums mode "
+          f"{bn_reduce.launches}): want {n_bn} each per step over "
+          f"{RN_STEPS} steps, all K4a in the fused mode")
     moved = 0
     for k, v in trainer.state.items():
         for n, t in v.items():
@@ -1108,8 +1435,8 @@ def phase_resnet_train():
     print(f"[resnet] {RN_STEPS} steps of Trainer.fit (adam 1e-3, bf16 "
           f"compute, f32 params), BenchmarkIterator batch {RN_BATCH} at "
           f"224x224x3: losses " + " ".join(f"{l:.4f}" for l in losses))
-    print(f"[resnet] launches K4a {counts[0]}, K4b {counts[1]} ({n_bn} each "
-          f"per step); running mean and var of all {n_bn} BatchNorms finite "
+    print(f"[resnet] launches K4a (fused) {counts[0]}, K4b {counts[1]} "
+          f"({n_bn} each per step); routes {routes}; running mean and var of all {n_bn} BatchNorms finite "
           f"and changed; warm-up fit of {RN_WARMUP} steps {t1 - t0:.2f} s")
     print(f"[resnet] step ms (one fit of {timed} steps after the warm-up, "
           f"synchronized at both ends, window / steps): {step_ms:.2f} ms "
@@ -1118,7 +1445,7 @@ def phase_resnet_train():
     print(f"[resnet] model FLOP/step = 6 x conv and dense multiply-adds x "
           f"batch = {flop:.4g}; MFU {flop / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.4f}"
           f" of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
-    return counts, trainer
+    return counts, routes, trainer
 
 
 def resnet_breakdown(trainer):
@@ -1127,7 +1454,6 @@ def resnet_breakdown(trainer):
     backward, the adam update; and K4a + K4b at every BatchNorm's shape,
     summed over the 53 BatchNorms."""
     from deeplearning4j_torch.data import BenchmarkIterator
-    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce
     from deeplearning4j_torch.ops.updaters import tree_leaves
 
     model, params, state = trainer.model, trainer.params, trainer.state
@@ -1153,32 +1479,16 @@ def resnet_breakdown(trainer):
     t = {name: time_ms(fn, reps=5, warmup=1) for name, fn in (
         ("fwd", fwd), ("fwd_bwd", fwd_bwd), ("update", update))}
     del grads
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    per_shape = {}
-    bn_total = 0.0
-    shapes = _bn_nodes(model, RN_BATCH)
-    for _, M, C in shapes:
-        if (M, C) not in per_shape:
-            xb, dyb = (torch.randn((M, C), generator=gen, device="cuda")
-                       .to(torch.bfloat16) for _ in range(2))
-            cv = torch.randn((C,), generator=gen, device="cuda")
-            per_shape[(M, C)] = (time_ms(lambda: bn_reduce(xb, dyb), reps=10),
-                                 time_ms(lambda: bn_dx(xb, dyb, cv, cv, cv),
-                                         reps=10))
-            del xb, dyb
-        bn_total += sum(per_shape[(M, C)])
-    k4a = sum(per_shape[(M, C)][0] for _, M, C in shapes)
-    elems = sum(M * C for _, M, C in shapes)
-    bound = sum((2 + 3) * M * C * 2 for _, M, C in shapes) \
-        / PEAK_BYTES_PER_S * 1e3
+    shapes = [(M, C) for _, M, C in _bn_nodes(model, RN_BATCH)]
+    tot, bound = print_bn_shapes(shapes, bn_shape_times(shapes), "resnet")
+    elems = sum(M * C for M, C in shapes)
+    bn_total = tot["k4a"] + tot["k4b"]
     print(f"[resnet] step breakdown (CUDA events, median of 5, each part "
           f"alone): forward + loss {t['fwd']:.2f} ms; backward "
           f"{t['fwd_bwd'] - t['fwd']:.2f} ms (K4a + K4b over the {len(shapes)} "
-          f"BatchNorms {bn_total:.2f} ms: K4a {k4a:.2f}, K4b "
-          f"{bn_total - k4a:.2f}; their bytes bound {bound:.2f} ms over "
+          f"BatchNorms {bn_total:.2f} ms: K4a {tot['k4a']:.2f}, K4b "
+          f"{tot['k4b']:.2f}; their bytes bound {bound:.2f} ms over "
           f"{elems / 1e9:.3f} G elements); adam update {t['update']:.2f} ms")
-    print("[resnet] K4a, K4b ms per (M, C): " + "; ".join(
-        f"{M}x{C} {a:.4f}, {b:.4f}" for (M, C), (a, b) in per_shape.items()))
     return t, bn_total
 
 
@@ -1237,7 +1547,8 @@ def resnet_step_anatomy(trainer):
     top = sorted(prof.key_averages(), key=lambda a: -a.device_time_total)[:6]
     print(f"[resnet] profiler, 3 fit steps: card busy {busy / 1e3:.2f} ms "
           f"of a {span / 1e3:.2f} ms trace, idle share "
-          f"{1 - busy / span:.4f}; {len(kernels)} device events; top by "
+          f"{1 - busy / span:.4f}; {len(kernels)} device events "
+          f"({len(kernels) / 3:.0f} a step); top by "
           f"device time: " + "; ".join(
               f"{a.key[:60]} {a.device_time_total / 1e3:.2f} ms" for a in top))
     return 1 - busy / span
@@ -1264,16 +1575,15 @@ def phase_resnet_grad_gate():
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     loss, _ = model.score(params, state, x, y)
     got = torch.autograd.grad(loss, leaves)
-    # the BatchNorm Function's backward calls the module's bn_reduce and
-    # bn_dx: point them at the plain versions for the reference gradients
-    kernels = batch_norm.bn_reduce, batch_norm.bn_dx
-    batch_norm.bn_reduce = batch_norm.bn_reduce_reference
-    batch_norm.bn_dx = batch_norm.bn_dx_reference
+    # the BatchNorm Function's backward calls the module's bn_backward:
+    # point it at the plain version for the reference gradients
+    kernels = batch_norm.bn_backward
+    batch_norm.bn_backward = batch_norm.bn_backward_reference
     try:
         loss_p, _ = model.score(params, state, x, y)
         want = torch.autograd.grad(loss_p, leaves)
     finally:
-        batch_norm.bn_reduce, batch_norm.bn_dx = kernels
+        batch_norm.bn_backward = kernels
     scale = {}
     for n, w in zip(names, want):
         scale[n] = max(scale.get(n, 0.0), w.abs().max().item())
@@ -1315,7 +1625,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_grad_flash_vs_dense()
     bn_rows = phase_bn_kernels()
-    (k4a_train, k4b_train), trainer = phase_resnet_train()
+    (k4a_train, k4b_train), bn_routes, trainer = phase_resnet_train()
     resnet_breakdown(trainer)
     resnet_step_anatomy(trainer)
     del trainer
@@ -1326,9 +1636,10 @@ def main() -> int:
     bwd_rows[0]["launches"] = k2_train
     bwd_rows[1]["launches"] = k3_train
     bwd_rows[2]["launches"] = k5_train
-    for row, n in zip(bn_rows, (k4a_train, k4b_train)):
+    for row, n, key in zip(bn_rows, (k4a_train, k4b_train), ("K4a", "K4b")):
         row["launches"] = n
         row["launches_by_path"] = {"train": n}
+        row["routes_on_path"] = bn_routes[key]
     print(json.dumps({"kernels": [k1] + bwd_rows + bn_rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {

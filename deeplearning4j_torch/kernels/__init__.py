@@ -13,6 +13,9 @@ version and its launch count:
   bf16 at 16, 32 and 128, and the column broadcast probe (K5); wrapped by
   ``ops.flash_attention.flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda`` and
   ``column_broadcast_cuda``; the Hopper sources share ``sm90_common.cuh``;
-- ``bn_bwd`` — BatchNorm's backward reductions (K4a) and dx (K4b), wrapped
-  by ``ops.batch_norm.bn_reduce`` and ``bn_dx``.
+- ``bn_bwd`` — BatchNorm's backward reductions (K4a, one launch, with a
+  fused mode that also computes the per-channel algebra; it streams rows
+  through a bulk-copy ring, so it includes ``sm90_common.cuh`` too) and dx
+  (K4b), wrapped by ``ops.batch_norm.bn_reduce``, ``bn_reduce_coeffs`` and
+  ``bn_dx``.
 """

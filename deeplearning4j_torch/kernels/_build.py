@@ -151,7 +151,9 @@ def launch(lib: ctypes.CDLL, fn: str, args, what: str, wrapper) -> None:
     argument's device; raise on a CUDA error (the launch was refused and
     never ran), else add one to ``wrapper.launches``."""
     with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
+        # the raw stream handle; torch.cuda.current_stream() builds a
+        # Stream object, several microseconds a launch
+        stream = torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
         rc = getattr(lib, fn)(*[_arg(a) for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed: "

@@ -1,5 +1,6 @@
-// Helpers shared by the port's Hopper (sm_90a) kernels, flash_fwd_sm90.cu and
-// flash_bwd_sm90.cu: mbarriers, TMA loads and their tensor maps, wgmma with
+// Helpers shared by the port's Hopper (sm_90a) kernels, flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu and bn_bwd.cu: mbarriers, TMA loads (tiled by tensor map,
+// and 1-D bulk copies) and the tensor maps, wgmma with
 // its shared-memory descriptors, the special-function exp2/log2, bf16
 // packing, and the per-tile key ranges and key-mask bits of the flash
 // kernels. Every function is inline in an anonymous namespace, so each
@@ -72,6 +73,18 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes from global src into shared
+// memory at dst (both 16-byte aligned, bytes a multiple of 16); completion
+// is counted on barrier bar. No tensor map is needed.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -458,7 +458,7 @@ class TestBuild:
             f.write("\n// edited\n")
         after = {n: _build.library_path(n) for n in _build.KERNELS}
         changed = {n for n in _build.KERNELS if before[n] != after[n]}
-        want = ({"flash_fwd_sm90", "flash_bwd_sm90"}
+        want = ({"flash_fwd_sm90", "flash_bwd_sm90", "bn_bwd"}
                 if edited == "sm90_common.cuh" else {edited[:-3]})
         assert changed == want
 

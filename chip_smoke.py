@@ -30,10 +30,37 @@ last line):
    requests from 4 threads. Launch counts are zeroed just before and read
    just after: every engine batch must launch the flash kernel once per
    layer.
-4. flash vs dense — the same params through the dense attention path on one
+4. generate — the same model through ``nn.generation.decode_forward``, the
+   continuous batcher and the HTTP server. Gated in f32 compute (TF32
+   off): two prompts (200 and 333 tokens) prefilled in chunks of 64 then
+   32 single-token steps, every log-prob within GEN_LOGP_TOL of one full
+   forward (K1) over the same tokens, through dense and through paged
+   caches, the paged ``cache_read`` bit-equal to the dense one; the paged
+   batcher (4 slots, capacity 1024, block 16, chunks of 64, prefix cache)
+   serving 6 greedy requests of 64-700 prompt tokens, 32 new each, every
+   token the argmax of a full forward teacher-forced on its row unless the
+   top-two gap there is at most GEN_GAP_TOL (a random-weight model's
+   argmax has near-ties: such steps are counted and skipped); a prefix
+   adopted; a fork's tokens equal to the parent's tail; the dense
+   batcher's tokens under the same rule against their own rows' forwards.
+   Measured in bf16, a smoke load with no published source: the paged
+   batcher at 8 slots serving 32 requests (prompts 64-768, 64 new tokens,
+   8 sharing a 256-token prefix, half sampled at temperature 0.8, top_k
+   40) from 4 client threads: tokens/s, time to first token and
+   inter-token p50/p99 read by the clients, decode tick on the host clock
+   (the batcher's histogram) and replayed on the device (torch.profiler,
+   CUDA events) beside its bound, prefill chunk times, KV blocks, prefix
+   hits, shapes run, peak memory. Then a ``ModelServer``
+   on 127.0.0.1: SSE and buffered ``/generate`` (tokens equal to the
+   batcher's under the gap rule, gap from a bf16 full forward),
+   ``/predict``, ``/health``, ``/ready``, ``/metrics``, and a drain that
+   answers 503 on ``/ready`` while an admitted stream finishes. The
+   batcher launches no kernel (its attention is the reference's dense
+   einsums); K1 launches in the checks' full forwards are counted.
+5. flash vs dense — the same params through the dense attention path on one
    4 x 1024 batch: in bf16 (the served precision; reported) and in f32
    (gated: top-1 agreement at least 99%).
-5. train — the same model trained by ``Trainer(model).fit`` (adamw, bf16
+6. train — the same model trained by ``Trainer(model).fit`` (adamw, bf16
    compute, f32 head) for 12 steps on one repeated 4 x 1024 batch of
    random tokens and labels: 2 warm-up steps in one fit, the other 10 in
    a second fit timed as one window. Launch counts are zeroed just before
@@ -42,10 +69,10 @@ last line):
    (window / steps), tokens/s, model FLOP per step, MFU and peak memory,
    and where a step's time goes (forward, backward, the f32 head, the
    updater, each timed alone).
-6. flash vs dense gradients — a 2-layer model of the same width, one
+7. flash vs dense gradients — a 2-layer model of the same width, one
    2 x 1024 batch: in f32 every param's gradient within 1e-3 of the dense
    path's, relative to its largest entry (gated); bf16 reported.
-7. bn kernels — BatchNorm's backward kernels, K4a (per-channel Σdy and
+8. bn kernels — BatchNorm's backward kernels, K4a (per-channel Σdy and
    Σdy·x, on each of its routes) and K4b (dx), K4a's fused mode (its
    per-channel outputs bit-equal to ``bn_backward_coeffs_reference``) and
    their composition ``bn_bwd`` against the plain versions over a case
@@ -56,7 +83,7 @@ last line):
    beside the plain versions, the whole BatchNorm backward as a step runs
    it and the library's BatchNorm backward, with the device operations of
    one BatchNorm backward counted under torch.profiler.
-8. resnet — ``ResNet50(num_classes=1000, seed=0, input_shape=(224, 224,
+9. resnet — ``ResNet50(num_classes=1000, seed=0, input_shape=(224, 224,
    3))`` (bf16 compute, f32 params, adam 1e-3) trained by
    ``Trainer(model).fit`` on ``BenchmarkIterator`` batches of 128 for 12
    steps: 2 warm-up steps in one fit, 10 in a second fit timed as one
@@ -69,7 +96,7 @@ last line):
    and back to back, adam), a step with the batch already on the card, and
    the card's busy share and device operations a step over 3 steps under
    torch.profiler.
-9. resnet gradients — the same model in f32 on one batch of 8: every
+10. resnet gradients — the same model in f32 on one batch of 8: every
    param's gradient through K4a/K4b within 1e-3 of the plain BN
    backward's, relative to the largest entry of its node (gated).
 
@@ -79,6 +106,7 @@ limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -929,16 +957,9 @@ def device_ms(fn, reps: int = 10):
     durations of the device events that torch.profiler's CUDA activity
     records over ``reps`` calls back to back, and their count, each over
     ``reps``; host work is left out. (nan, 0) where it records none."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ev = _on_card(_profiled(fn, [ProfilerActivity.CUDA], reps))
     if not ev:
         return float("nan"), 0.0
     us = sum(e.time_range.end - e.time_range.start for e in ev)
@@ -1018,26 +1039,55 @@ def phase_bn_shapes():
     print(card())
 
 
+def _profiled(fn, activities, reps: int = 1):
+    """torch.profiler over ``reps`` calls of ``fn``: the profile of the
+    active step of a session that first traces one warm-up step and drops
+    it (a session that is not the process's first was seen to lose the
+    first kernels it should record)."""
+    from torch.profiler import profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return prof
+
+
+def _on_card(prof):
+    """The device events of a profile, without the step's own annotation
+    (``ProfilerStep*``, which spans the whole step on the card's timeline
+    when CPU activity is traced)."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA
+            and not e.name.startswith("ProfilerStep")]
+
+
 def _device_ops(fn):
     """The device operations (kernels, copies, sets) that torch.profiler's
     CUDA activity records in one call of ``fn``, as 'N: name, name, ...';
     where it records none, the top-level aten calls on the host instead,
     said so."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    prof = _profiled(fn, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    dev = [e.name for e in _on_card(prof)]
     events = list(prof.events())
-    dev = [e.name for e in events if e.device_type == DeviceType.CUDA]
     if dev:
         return f"{len(dev)} on the card: " + ", ".join(n[:48] for n in dev)
     host = [e.name for e in events if e.device_type == DeviceType.CPU
-            and e.name.startswith("aten::") and e.cpu_parent is None]
+            and e.name.startswith("aten::")
+            and (e.cpu_parent is None
+                 or e.cpu_parent.name.startswith("ProfilerStep"))]
     return (f"profiler recorded no device events; {len(host)} top-level aten "
             f"calls on the host: " + ", ".join(host))
 
@@ -1162,6 +1212,587 @@ def phase_flash_vs_dense(model):
     check(rel <= FLASH_DENSE_RTOL, f"f32 flash vs dense max rel diff "
           f"{rel:.3g}")
     check(top1 >= 0.99, f"f32 top-1 agreement {top1:.4f} < 0.99")
+
+
+# --------------------------------------------------------------------------
+# [generate]: KV-cache decode, the continuous batcher and the HTTP server
+# on the served model. Gates run in f32 compute (TF32 off); a random-weight
+# model's 32000-way argmax has near-ties, so a token gate applies the gap
+# rule: a decoded token must be the argmax of a teacher-forced full forward
+# over the row's own tokens unless the top-two log-prob gap there is at
+# most the gap tolerance (such steps are counted and skipped, and the
+# comparison goes on). Two token sequences compared with each other stop
+# at their first difference, which must sit at such a near-tie.
+GEN_LOGP_TOL = 1e-3     # f32 decode vs the full forward (K1, f32) per log-prob
+GEN_GAP_TOL = 2e-3      # f32 token gates: 2 x GEN_LOGP_TOL
+GEN_GAP_TOL_BF16 = 0.05  # bf16 HTTP tokens vs the batcher's (two decode shapes)
+GEN_SLOTS, GEN_CAPACITY, GEN_BLOCK, GEN_CHUNK = 8, 1024, 16, 64
+
+
+def _teacher_logp(model, seq):
+    """Log-probs (T, V) of one full forward over ``seq`` through the flash
+    path (K1), in the model's current compute dtype."""
+    with torch.inference_mode():
+        probs = model.output(np.asarray(seq, np.int32)[None])[0]
+    return torch.log(probs.float())
+
+
+def _top2(logp, rows):
+    top = torch.topk(logp[rows], 2, dim=-1)
+    vals = top.values.cpu().numpy()
+    return top.indices[:, 0].cpu().numpy(), vals[:, 0] - vals[:, 1]
+
+
+def _gap_rule(tokens, logp, tp, what, tol):
+    """``tokens`` decoded after a prompt of ``tp`` against the log-probs of
+    a forward teacher-forced on them: each the argmax of its row, except
+    where the top-two gap there is <= ``tol`` (skipped). Returns (tokens
+    compared, near-ties skipped)."""
+    n = len(tokens)
+    best, gap = _top2(logp, slice(tp - 1, tp - 1 + n))
+    ties = int((gap <= tol).sum())
+    for i, tok in enumerate(tokens):
+        check(gap[i] <= tol or int(tok) == int(best[i]),
+              f"{what}: token {i} is {int(tok)}, the reference's argmax is "
+              f"{int(best[i])} by a top-two gap of {gap[i]:.3g} > {tol}")
+    return n - ties, ties
+
+
+def _teacher_gate(model, prompts, outs, what):
+    """The gap rule over every row, each against its own teacher-forced
+    f32 forward. Returns (forwards run, tokens compared, near-ties, the
+    forwards' log-probs)."""
+    compared, ties, logps = 0, 0, []
+    for i, (p, o) in enumerate(zip(prompts, outs)):
+        check(o.shape == (32,), f"{what} request {i} returned {o.shape}")
+        lp = _teacher_logp(model, np.concatenate([p, o[:-1]]))
+        logps.append(lp)
+        c, t = _gap_rule(o, lp, len(p), f"{what} request {i}", GEN_GAP_TOL)
+        compared, ties = compared + c, ties + t
+    return len(logps), compared, ties, logps
+
+
+def _same_tokens(got, want, logp, tp, what, tol):
+    """``got`` equals ``want`` up to the first position where the teacher's
+    top-two gap (``logp`` over prompt + want) is <= ``tol``."""
+    got, want = [int(t) for t in got], [int(t) for t in want]
+    check(len(got) == len(want), f"{what}: {len(got)} tokens, want "
+          f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            _, gap = _top2(logp, slice(tp - 1 + i, tp + i))
+            check(gap[0] <= tol, f"{what}: token {i} is {a}, want {b}, at a "
+                  f"top-two gap of {gap[0]:.3g} > {tol}")
+            return i, 1
+    return len(got), 0
+
+
+def _decode_run(model, prompt, caches, n_steps, feed=None, chunk=GEN_CHUNK):
+    """``decode_forward`` over ``prompt`` in chunks of ``chunk``, then
+    ``n_steps`` single-token steps feeding the argmax (or ``feed``).
+    Returns (tokens fed, log-probs (len(prompt) + n_steps, V))."""
+    from deeplearning4j_torch.nn.generation import decode_forward
+
+    ids = torch.as_tensor(np.asarray(prompt), device="cuda")[None].long()
+    tp, rows, fed = len(prompt), [], []
+    with torch.inference_mode():
+        for off in range(0, tp, chunk):
+            lg, caches = decode_forward(model, model.params, model.state,
+                                        ids[:, off:off + chunk], caches, off)
+            rows.append(lg[0])
+        last = rows[-1][-1]
+        for i in range(n_steps):
+            tok = last.argmax() if feed is None else feed[i]
+            fed.append(tok)
+            lg, caches = decode_forward(model, model.params, model.state,
+                                        tok.view(1, 1), caches, tp + i)
+            rows.append(lg[0])
+            last = lg[0, -1]
+        return torch.stack(fed), torch.log_softmax(torch.cat(rows), dim=-1)
+
+
+def _paged_row(model, tokens, seed):
+    """Paged caches for one row: pools of just its blocks (+ trash), the
+    table a permutation of them."""
+    from deeplearning4j_torch.serve.paged import blocks_needed, build_pools
+
+    maxb = blocks_needed(tokens, GEN_BLOCK)
+    pools = build_pools(model, maxb + 1, GEN_BLOCK, model.dtype)
+    table = torch.from_numpy(
+        1 + np.random.RandomState(seed).permutation(maxb)).cuda()[None]
+    return {lk: {"k_pool": p["k"], "v_pool": p["v"], "tables": table}
+            for lk, p in pools.items()}, maxb * GEN_BLOCK
+
+
+def gen_decode_equivalence(model):
+    """f32: two prompts (200 and 333 tokens) prefilled in chunks of 64,
+    then 32 single-token steps, through dense and through paged caches,
+    each position's log-probs against one full forward (K1) over the same
+    tokens. Returns the full forwards' count."""
+    from deeplearning4j_torch.nn.generation import cache_read, init_caches
+
+    rng = np.random.RandomState(11)
+    teachers = 0
+    for n, tp in enumerate((200, 333)):
+        prompt = rng.randint(0, 32000, tp).astype(np.int32)
+        paged, cap = _paged_row(model, tp + 32, seed=n)
+        dense = init_caches(model, 1, cap, model.dtype)
+        fed, lp_dense = _decode_run(model, prompt, dense, 32)
+        _, lp_paged = _decode_run(model, prompt, paged, 32, feed=fed)
+        seq = np.concatenate([prompt, fed.cpu().numpy().astype(np.int32)])
+        want = _teacher_logp(model, seq)
+        teachers += 1
+        d_dense = (lp_dense - want).abs().max().item()
+        d_paged = (lp_paged - want).abs().max().item()
+        control = (lp_dense[1:] - want[:-1]).abs().max().item()
+        same_read = all(
+            torch.equal(a, b) for lk in dense
+            for a, b in zip(cache_read(dense[lk]), cache_read(paged[lk])))
+        print(f"[generate] decode equivalence, f32, prompt {tp} (chunks of "
+              f"{GEN_CHUNK}) + 32 steps: max |d log-prob| against the full "
+              f"forward: dense {d_dense:.3g}, paged {d_paged:.3g} (gate "
+              f"{GEN_LOGP_TOL}); dense vs paged logits "
+              f"{(lp_dense - lp_paged).abs().max().item():.3g}; paged "
+              f"cache_read bit-equal to dense: {same_read}; control (one "
+              f"position off) {control:.3g}")
+        check(max(d_dense, d_paged) <= GEN_LOGP_TOL,
+              f"decode log-probs differ from the full forward by "
+              f"{max(d_dense, d_paged):.3g}")
+        check(control > GEN_LOGP_TOL, "the decode limit accepts log-probs "
+              "one position off")
+        check(same_read, "paged cache_read differs from the dense one")
+        del paged, dense
+    return teachers
+
+
+def _gen_prompts(rng, lens, shared, sharers):
+    out = []
+    for i, n in enumerate(lens):
+        p = rng.randint(0, 32000, n).astype(np.int32)
+        if i in sharers:
+            p[:len(shared)] = shared
+        out.append(p)
+    return out
+
+
+def _fork_mid_decode(cb, req, timeout=120.0):
+    from deeplearning4j_torch.serve import ServeError
+
+    deadline = time.monotonic() + timeout
+    while not req.event.is_set() and time.monotonic() < deadline:
+        try:
+            return cb.fork(req)
+        except ServeError:
+            time.sleep(0.0005)  # still queued or prefilling
+    return None
+
+
+def gen_batcher_tokens(model):
+    """f32: the paged batcher (4 slots, capacity 1024, block 16, chunks of
+    64, prefix cache) serves 6 greedy requests of 64-700 prompt tokens, 32
+    new each; two share a 256-token prefix (the second adopts it); one is
+    forked mid-decode. Every token of the paged and of the dense batcher
+    against a full forward teacher-forced on its own row, under the gap
+    rule; the child's tokens against the parent's tail. Returns the full
+    forwards' count."""
+    from deeplearning4j_torch.serve import ContinuousBatcher
+
+    rng = np.random.RandomState(12)
+    shared = rng.randint(0, 32000, 256).astype(np.int32)
+    prompts = _gen_prompts(rng, (64, 700, 321, 450, 300, 512), shared,
+                           sharers=(2, 4))
+    cb = ContinuousBatcher(model, kv="paged", slots=4, capacity=1024,
+                           block_size=GEN_BLOCK, prefill_chunk=GEN_CHUNK,
+                           prefix_cache=True, seed=0)
+    try:
+        first = [cb.submit(p, 32, temperature=0.0) for p in prompts[:4]]
+        outs = [r.wait() for r in first]
+        second = [cb.submit(p, 32, temperature=0.0) for p in prompts[4:]]
+        child = _fork_mid_decode(cb, second[1])
+        outs += [r.wait() for r in second]
+        check(child is not None, "no fork landed while the parent decoded")
+        cout = child.wait()
+        stats = cb.kv_block_stats()
+        sigs = cb.compile_signatures
+    finally:
+        cb.shutdown()
+    px = stats["prefix_cache"]
+    check(px["hits"] >= 1, f"the second prefix sharer adopted nothing: {px}")
+    teachers, compared, ties, logps = _teacher_gate(model, prompts, outs,
+                                                    "paged batcher")
+    tail = outs[5][-len(cout):]
+    c, t = _same_tokens(cout, tail, logps[5], len(prompts[5]) + 32 - len(cout),
+                        "forked child vs the parent's tail", GEN_GAP_TOL)
+    print(f"[generate] batcher, f32, paged (4 slots, capacity 1024, block "
+          f"{GEN_BLOCK}, chunks of {GEN_CHUNK}, prefix cache): 6 greedy "
+          f"requests of {[len(p) for p in prompts]} prompt tokens, 32 new "
+          f"each: {compared} of {6 * 32} tokens equal the teacher-forced "
+          f"full forward's argmax, {ties} near-ties (gap <= {GEN_GAP_TOL}) "
+          f"skipped; prefix hits {px['hits']} misses "
+          f"{px['misses']}; fork: child {len(cout)} tokens, {c} equal the "
+          f"parent's tail (near-ties {t}), cow copies {stats['cow_copies']}; "
+          f"signatures {sorted(sigs)}")
+    dense = ContinuousBatcher(model, kv="dense", slots=4, capacity=1024,
+                              seed=0)
+    try:
+        douts = [r.wait() for r in [dense.submit(p, 32, temperature=0.0)
+                                    for p in prompts]]
+    finally:
+        dense.shutdown()
+    n, compared, ties, _ = _teacher_gate(model, prompts, douts,
+                                         "dense batcher")
+    same = sum(int(np.array_equal(d, o)) for d, o in zip(douts, outs))
+    print(f"[generate] batcher, f32, dense (4 slots): {compared} of {6 * 32} "
+          f"tokens equal the argmax of their own teacher-forced full "
+          f"forward, {ties} near-ties skipped; {same} of 6 rows equal the "
+          f"paged batcher's")
+    return teachers + n
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def gen_measured(model):
+    """bf16: the paged batcher at 8 slots, capacity 1024, block 16, chunks
+    of 64, prefix cache on, serves 32 requests from 4 client threads (a
+    burst: each thread submits its 8 at once), prompts uniform in 64-768
+    tokens (seed 0), 64 new tokens each, 8 sharing a 256-token prefix; half
+    greedy, half sampled (temperature 0.8, top_k 40). A smoke load with no
+    published source. Token stamps are taken on the client side, one
+    reader a request on its ``stream()``; tick and chunk host times come
+    from the batcher's own histograms; device times from ``step_probe``
+    replays. Returns what the HTTP check and the records need."""
+    from deeplearning4j_torch.nn.generation import cache_read, cache_spec
+    from deeplearning4j_torch.ops.flash_attention import flash_fwd_cuda
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.serve import ContinuousBatcher
+    from deeplearning4j_torch.serve.paged import block_bytes, build_pools
+
+    rng = np.random.RandomState(0)
+    lens = rng.randint(64, 769, 32)
+    shared = rng.randint(0, 32000, 256).astype(np.int32)
+    sharers = [i for i in range(32) if lens[i] > 272][:8]
+    prompts = _gen_prompts(rng, lens, shared, sharers)
+    sampled = set(range(1, 32, 2))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cb = ContinuousBatcher(model, kv="paged", slots=GEN_SLOTS,
+                           capacity=GEN_CAPACITY, block_size=GEN_BLOCK,
+                           prefill_chunk=GEN_CHUNK, prefix_cache=True,
+                           seed=0)
+    S, buckets = GEN_SLOTS, list(cb.chunk_buckets)
+    submitted, stamps, reqs = {}, {i: [] for i in range(32)}, [None] * 32
+    readers = []
+
+    def read(i):
+        for _ in reqs[i].stream():
+            stamps[i].append(time.perf_counter())
+
+    def client(ids):
+        for i in ids:
+            kw = dict(temperature=0.8, top_k=40) if i in sampled \
+                else dict(temperature=0.0)
+            submitted[i] = time.perf_counter()
+            reqs[i] = cb.submit(prompts[i], 64, **kw)
+            th = threading.Thread(target=read, args=(i,))
+            th.start()
+            readers.append(th)
+
+    try:
+        # warm the decode tick and every chunk bucket (and the params'
+        # compute copies) on the trash block, outside the batcher's metrics
+        tick = cb.step_probe("decode", sampled=S // 2, temperature=0.8,
+                             top_k=40)
+        prefill = {b: cb.step_probe("prefill", b) for b in buckets}
+        for _ in range(2):
+            tick()
+            for f in prefill.values():
+                f()
+        torch.cuda.synchronize()
+        flash_fwd_cuda.launches = 0
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(range(c, 32, 4),))
+                   for c in range(4)]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(900)
+        for th in readers:
+            th.join(900)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in clients + readers),
+              "clients hung")
+        k1_generate = flash_fwd_cuda.launches
+        outs = [r.wait() for r in reqs]
+        stats = cb.kv_block_stats()
+        sigs = cb.compile_signatures
+        peak_mem = torch.cuda.max_memory_allocated()
+        memo = cb.cast_bytes()
+        dec_h = cb.metrics.histogram("serve_gen_decode_seconds")
+        pre_h = cb.metrics.histogram("serve_gen_prefill_seconds")
+        # one tick of 4 greedy and 4 sampled slots, and one chunk of each
+        # bucket, replayed alone (the batcher is idle: nothing in flight)
+        tick_dev_ms, tick_ops = device_ms(tick, reps=5)
+        # each tick ends in its host sync, so back to back they overlap no
+        # host work with device work
+        tick_b2b = time_b2b_ms(tick, reps=5, rounds=3)
+        chunk_ms = {b: time_ms(f, reps=10) for b, f in prefill.items()}
+    finally:
+        cb.shutdown()
+    # the gathered views of a tick: every table row zero, so one pool
+    # block (the trash) serves the gather of all S x maxb entries
+    maxb = GEN_CAPACITY // GEN_BLOCK
+    zero = torch.zeros((S, maxb), dtype=torch.long, device="cuda")
+    views = [{"k_pool": p["k"], "v_pool": p["v"], "tables": zero}
+             for p in build_pools(model, 1, GEN_BLOCK, model.dtype).values()]
+
+    def gather():
+        for c in views:
+            cache_read(c)
+
+    gather_ms = time_ms(gather, reps=10)
+    del views
+    params = model.params
+    cast_ms = time_ms(lambda: [t.to(torch.bfloat16)
+                               for t in tree_leaves(params)], reps=5)
+    for i, o in enumerate(outs):
+        check(o.shape == (64,), f"request {i} returned {o.shape}")
+        check(int(o.min()) >= 0 and int(o.max()) < 32000,
+              f"request {i}: ids outside [0, 32000)")
+        check(len(stamps[i]) == 64, f"request {i}: the client read "
+              f"{len(stamps[i])} tokens of 64")
+    check(len(sigs) <= len(buckets) + 1,
+          f"{len(sigs)} shapes run, more than {len(buckets)} chunk buckets "
+          f"+ 1: {sorted(sigs)}")
+    check(k1_generate == 0, f"the batcher launched K1 {k1_generate} times")
+    ttft = [1e3 * (stamps[i][0] - submitted[i]) for i in range(32)]
+    itl = [1e3 * (b - a) for i in range(32)
+           for a, b in zip(stamps[i], stamps[i][1:])]
+    tokens = 32 * 64
+    # bound of one tick at 8 slots: the function's own traffic, the bf16
+    # weights and the live KV of a full tick (8 x the mean live length)
+    # read once; the gathered views (written and read once) are the port's
+    # cost, printed beside it
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    blk_bytes = block_bytes(model, GEN_BLOCK, model.dtype)
+    kv_bytes_token = blk_bytes // GEN_BLOCK
+    mean_live = float(np.mean(lens)) + 32
+    view_bytes = 2 * S * maxb * GEN_BLOCK * kv_bytes_token
+    w_bytes = 2 * n_params
+    live_bytes = S * mean_live * kv_bytes_token
+    bound_ms = 1e3 * (w_bytes + live_bytes) / PEAK_BYTES_PER_S
+    views_ms = 1e3 * view_bytes / PEAK_BYTES_PER_S
+    print(f"[generate] measured, bf16 compute (f32 KV, the model's param "
+          f"dtype, as the reference keeps it), paged, {GEN_SLOTS} slots, "
+          f"capacity {GEN_CAPACITY}, block {GEN_BLOCK}, chunks of "
+          f"{GEN_CHUNK}, prefix cache: a smoke load with no published "
+          f"source, 32 requests (prompts {int(lens.min())}-{int(lens.max())}, "
+          f"mean {lens.mean():.1f}; 8 share 256 tokens; 16 greedy, 16 at "
+          f"temperature 0.8 top_k 40), 64 new each, 4 client threads: "
+          f"{tokens} tokens in {wall:.3f} s, {tokens / wall:.1f} generated "
+          f"tokens/s")
+    print(f"[generate] client side: time to first token p50 "
+          f"{_pct(ttft, 50):.1f} ms p99 {_pct(ttft, 99):.1f} ms (burst: queue "
+          f"wait included); inter-token p50 {_pct(itl, 50):.2f} ms p99 "
+          f"{_pct(itl, 99):.2f} ms")
+    print(f"[generate] decode tick (serve_gen_decode_seconds, host clock, "
+          f"{dec_h.count} ticks): mean {1e3 * dec_h.mean:.3f} ms, p50 "
+          f"{1e3 * dec_h.quantile(0.5):.3f} ms p99 "
+          f"{1e3 * dec_h.quantile(0.99):.3f} ms (bucket-interpolated); one "
+          f"tick replayed (4 greedy + 4 sampled slots): on the device "
+          f"(torch.profiler) {tick_dev_ms:.3f} ms in {tick_ops:.0f} device "
+          f"operations, back to back {tick_b2b:.3f} ms a tick (CUDA "
+          f"events); bound {bound_ms:.3f} ms (bf16 weights "
+          f"{w_bytes / 1e9:.3f} GB + live KV {live_bytes / 1e9:.3f} GB over "
+          f"3.35 TB/s); the port's gathered views add "
+          f"{view_bytes / 1e9:.3f} GB written and read, {views_ms:.3f} ms at "
+          f"that rate")
+    print(f"[generate] prefill chunks (serve_gen_prefill_seconds, host "
+          f"clock, {pre_h.count} chunks): mean {1e3 * pre_h.mean:.3f} ms p50 "
+          f"{1e3 * pre_h.quantile(0.5):.3f} ms p99 "
+          f"{1e3 * pre_h.quantile(0.99):.3f} ms; one chunk replayed, ms by "
+          f"bucket (CUDA events): "
+          + "; ".join(f"{b}: {v:.3f}" for b, v in sorted(chunk_ms.items())))
+    print(f"[generate] KV: peak {stats['blocks_peak']} blocks of "
+          f"{stats['blocks_total']} "
+          f"({stats['blocks_peak'] * blk_bytes / 2**20:.1f} MiB, "
+          f"{blk_bytes} bytes a block); prefix hits "
+          f"{stats['prefix_cache']['hits']} misses "
+          f"{stats['prefix_cache']['misses']}; {len(sigs)} shapes run "
+          f"{sorted(sigs)} (chunk buckets {buckets}); K1 launches in the "
+          f"batcher 0 (decode and prefill attention are the reference's "
+          f"dense einsums, no kernel); peak memory "
+          f"{peak_mem / 2**30:.2f} GiB; the params' compute copies held for "
+          f"the generation (bf16, and f32 of the bf16 values where the "
+          f"reference promotes) {memo / 2**30:.3f} GiB")
+    print(f"[generate] the port's own costs: one bf16 cast of the f32 params "
+          f"(what decode_forward does every call without the per-generation "
+          f"copies) {cast_ms:.3f} ms; the gathered paged views of the "
+          f"{len(cache_spec(model))} layers at {S} slots x {maxb * GEN_BLOCK} "
+          f"positions {gather_ms:.3f} ms")
+    greedy = [i for i in range(32) if i not in sampled]
+    return {"prompts": prompts, "outs": outs, "greedy": greedy,
+            "k1_generate": k1_generate}
+
+
+def _http(port, path, body=None, timeout=300):
+    """An open response from the server on 127.0.0.1 (GET, or POST of
+    ``body`` as JSON); raises urllib's HTTPError on a non-2xx answer."""
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"})
+    return urllib.request.urlopen(req, timeout=timeout)
+
+
+def _http_json(port, path, body=None):
+    with _http(port, path, body) as r:
+        return json.loads(r.read())
+
+
+def gen_http(model, measured):
+    """bf16: a ModelServer on 127.0.0.1 (port 0, 4 generation slots): one
+    SSE /generate and one buffered /generate of greedy prompts the batcher
+    answered, one /predict, /health, /ready, /metrics; the greedy tokens
+    against the batcher's under the gap rule (gap from a teacher-forced
+    bf16 full forward); then stop(drain=True) flips /ready to 503 while an
+    admitted stream finishes. Returns the full forwards' count."""
+    import urllib.error
+
+    from deeplearning4j_torch.serve import ModelServer
+
+    srv = ModelServer(model, port=0, input_dtype=np.int32, gen_slots=4,
+                      gen_capacity=GEN_CAPACITY).start()
+    teachers = 0
+    try:
+        a, b = measured["greedy"][:2]
+        pa, pb = measured["prompts"][a], measured["prompts"][b]
+        with _http(srv.port, "/generate",
+                   {"prompt": pa.tolist(), "max_new_tokens": 64,
+                    "temperature": 0.0}) as r:
+            check(r.headers["Content-Type"] == "text/event-stream",
+                  "SSE /generate did not stream")
+            events = [json.loads(line[6:]) for line in r
+                      if line.startswith(b"data: ")]
+        check(events and events[-1].get("done") is True,
+              f"SSE stream ended without done: {events[-1:]}")
+        sse = [e["token"] for e in events[:-1]]
+        check(events[-1]["tokens"] == sse, "SSE done event disagrees")
+        buffered = _http_json(srv.port, "/generate?stream=false",
+                              {"prompt": pb.tolist(), "max_new_tokens": 64,
+                               "temperature": 0.0})["tokens"]
+        res = []
+        for what, p, got, i in (("SSE", pa, sse, a),
+                                ("buffered", pb, buffered, b)):
+            want = measured["outs"][i]
+            lp = _teacher_logp(model, np.concatenate([p, want[:-1]]))
+            teachers += 1
+            res.append(_same_tokens(got, want, lp, len(p),
+                                    f"HTTP {what} vs the batcher",
+                                    GEN_GAP_TOL_BF16))
+        x = np.random.RandomState(3).randint(0, 32000, (1, 16))
+        y = np.asarray(_http_json(srv.port, "/predict",
+                                  {"ndarray": x.tolist()})["output"],
+                       np.float32)
+        direct = model.output(x.astype(np.int32)).cpu().numpy()
+        rel = float((np.abs(y - direct) / direct).max())
+        check(y.shape == (1, 16, 32000) and np.isfinite(y).all(),
+              f"/predict answered {y.shape}")
+        check(rel <= ENGINE_RTOL, f"/predict differs from model.output by "
+              f"{rel:.3g}")
+        health = _http_json(srv.port, "/health")
+        ready = _http_json(srv.port, "/ready")
+        time.sleep(0.05)  # request metrics land after the reply
+        with _http(srv.port, "/metrics") as r:
+            scrape = r.read().decode()
+        check(health["status"] == "ok" and ready["status"] == "ready",
+              f"/health {health}, /ready {ready}")
+        for name in ("serve_gen_tokens_total", "serve_kv_live_bytes",
+                     "serve_prefix_cache_misses_total", "http_request_seconds",
+                     "serve_batches_total"):
+            check(name in scrape, f"{name} missing from /metrics")
+        # drain: an admitted stream finishes while /ready answers 503
+        got, codes = [], set()
+
+        def stream():
+            with _http(srv.port, "/generate",
+                       {"prompt": pa[:128].tolist(), "max_new_tokens": 64,
+                        "temperature": 0.0}) as r:
+                for line in r:
+                    if line.startswith(b"data: "):
+                        got.append(json.loads(line[6:]))
+
+        th = threading.Thread(target=stream)
+        th.start()
+        deadline = time.monotonic() + 120
+        while not got and time.monotonic() < deadline:
+            time.sleep(0.001)
+        stopper = threading.Thread(target=srv.stop)
+        stopper.start()
+        while srv.ready() and time.monotonic() < deadline:
+            time.sleep(0.001)
+        while stopper.is_alive() and time.monotonic() < deadline:
+            try:
+                _http_json(srv.port, "/ready")
+                codes.add(200)
+            except urllib.error.HTTPError as e:
+                codes.add(e.code)
+            except OSError:
+                break  # the listener closed after the drain
+            time.sleep(0.005)
+        stopper.join(120)
+        th.join(120)
+        check(503 in codes and 200 not in codes,
+              f"/ready during the drain answered {sorted(codes)}")
+        check(got and got[-1].get("done") is True and
+              len(got[-1]["tokens"]) == 64,
+              "the admitted stream did not finish through the drain")
+    finally:
+        srv.stop()
+    print(f"[generate] HTTP (bf16, 4 generation slots): SSE /generate "
+          f"{len(sse)} tokens, {res[0][0]} equal the batcher's before a "
+          f"near-tie ({res[0][1]} met, gap <= {GEN_GAP_TOL_BF16}); buffered "
+          f"{len(buffered)} tokens, {res[1][0]} equal ({res[1][1]} met); "
+          f"/predict max rel diff {rel:.3g} against model.output; /health "
+          f"{health['status']}, /ready {ready['status']}; drain: /ready "
+          f"answered {sorted(codes)}, the admitted stream finished with "
+          f"{len(got[-1]['tokens'])} tokens")
+    return teachers
+
+
+def phase_generate(model):
+    """Generation on the served model: f32 gates (decode equivalence,
+    batcher tokens, prefix adoption, fork, paged vs dense), then the bf16
+    measured run and the HTTP server. Returns K1's launches in the
+    teacher-forced full forwards and in the batcher."""
+    from deeplearning4j_torch.ops.flash_attention import flash_fwd_cuda
+
+    flash_fwd_cuda.launches = 0
+    model.config.compute_dtype = None
+    t0 = time.perf_counter()
+    teachers = gen_decode_equivalence(model)
+    teachers += gen_batcher_tokens(model)
+    check_launches = flash_fwd_cuda.launches
+    model.config.compute_dtype = "bfloat16"
+    t1 = time.perf_counter()
+    measured = gen_measured(model)
+    flash_fwd_cuda.launches = 0
+    teachers += gen_http(model, measured)
+    check_launches += flash_fwd_cuda.launches
+    gc.collect()  # free the batchers: pools and cast copies
+    torch.cuda.empty_cache()
+    # the checks' full forwards: the teachers, /predict and its direct twin
+    check(check_launches == 12 * (teachers + 2),
+          f"K1 launched {check_launches} times in {teachers + 2} full "
+          f"forwards of a 12-layer model")
+    print(f"[generate] phase: f32 gates {t1 - t0:.1f} s, measured run and "
+          f"HTTP {time.perf_counter() - t1:.1f} s; K1 launches in the checks' "
+          f"{teachers + 2} full forwards {check_launches} (12 each), in the "
+          f"batcher {measured['k1_generate']}")
+    return {"generate_check": check_launches,
+            "generate": measured["k1_generate"]}
 
 
 def phase_train(model):
@@ -1616,6 +2247,7 @@ def main() -> int:
     print(f"[serve] CausalLM with {model.param_count()} params initialized "
           f"in {time.perf_counter() - t0:.2f} s")
     serve_launches = phase_serve(model)
+    gen_launches = phase_generate(model)
     phase_flash_vs_dense(model)
     (k1_train, k2_train, k3_train, k5_train), trainer, x, y = \
         phase_train(model)
@@ -1632,7 +2264,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resnet_grad_gate()
     k1["launches"] = serve_launches
-    k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train}
+    k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
+                              **gen_launches}
     bwd_rows[0]["launches"] = k2_train
     bwd_rows[1]["launches"] = k3_train
     bwd_rows[2]["launches"] = k5_train

@@ -75,11 +75,14 @@ def layer_norm(x, gamma, beta, eps: float = 1e-6):
     """Normalize over the last axis with the biased variance:
     (x - mean) * rsqrt(var + eps) * gamma + beta, as the reference writes
     it: mean and var accumulated in f32 and stored in x's dtype, then one
-    rounding per op (``F.layer_norm`` would round once)."""
+    rounding per op (``F.layer_norm`` would round once). The rsqrt runs in
+    f32 and rounds once, as XLA's does: torch's CPU bf16 rsqrt is off by
+    an ulp on some inputs."""
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True).to(x.dtype)
     var = xf.var(dim=-1, unbiased=False, keepdim=True).to(x.dtype)
-    y = (x - mean) * torch.rsqrt(var + weak_scalar(eps, x.dtype)) * gamma
+    inv = torch.rsqrt((var + weak_scalar(eps, x.dtype)).float()).to(x.dtype)
+    y = (x - mean) * inv * gamma
     return y if beta is None else y + beta
 
 

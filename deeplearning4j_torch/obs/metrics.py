@@ -76,9 +76,13 @@ class Gauge:
 
 
 class Histogram:
-    """Fixed-bucket streaming histogram (cumulative buckets, sum, count)."""
+    """Fixed-bucket streaming histogram (cumulative buckets, sum, count)
+    with quantile estimation: linear interpolation inside the target
+    bucket, the tracked min/max tightening the first and overflow bucket
+    edges (Prometheus histogram_quantile makes the same estimate)."""
 
-    __slots__ = ("_bounds", "_counts", "_sum", "_count", "_lock")
+    __slots__ = ("_bounds", "_counts", "_sum", "_count", "_min", "_max",
+                 "_lock")
 
     def __init__(self, buckets: Sequence[float] = DEFAULT_BUCKETS):
         bounds = sorted(float(b) for b in buckets)
@@ -88,6 +92,8 @@ class Histogram:
         self._counts = [0] * (len(bounds) + 1)  # +1: overflow (+Inf) bucket
         self._sum = 0.0
         self._count = 0
+        self._min = math.inf
+        self._max = -math.inf
         self._lock = threading.Lock()
 
     def observe(self, value: float) -> None:
@@ -97,6 +103,8 @@ class Histogram:
             self._counts[i] += 1
             self._sum += v
             self._count += 1
+            self._min = min(self._min, v)
+            self._max = max(self._max, v)
 
     @property
     def count(self) -> int:
@@ -107,6 +115,32 @@ class Histogram:
     def sum(self) -> float:
         with self._lock:
             return self._sum
+
+    @property
+    def mean(self) -> float:
+        with self._lock:
+            return self._sum / self._count if self._count else 0.0
+
+    def quantile(self, q: float) -> float:
+        """Estimated q-quantile (0 <= q <= 1); 0.0 when empty."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        with self._lock:
+            if not self._count:
+                return 0.0
+            target = q * self._count
+            cum = 0
+            for i, c in enumerate(self._counts):
+                if c and cum + c >= target:
+                    lower = self._bounds[i - 1] if i > 0 else self._min
+                    upper = (self._bounds[i] if i < len(self._bounds)
+                             else self._max)
+                    # no observation lies outside [min, max]
+                    lower = max(lower, self._min)
+                    upper = max(min(upper, self._max), lower)
+                    return lower + (upper - lower) * ((target - cum) / c)
+                cum += c
+            return self._max
 
     def _cumulative(self) -> Tuple[List[Tuple[float, int]], float, int]:
         with self._lock:

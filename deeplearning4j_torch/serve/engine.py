@@ -15,15 +15,21 @@ reference.
 
 The default forward runs ``model.forward`` on the model's device under
 ``torch.inference_mode()``, entered inside the dispatcher thread (the mode
-is thread-local). The reference's prebuilt-executable store, fault
-injection, profiler and request-trace hooks come in later slices.
+is thread-local). ``queue_depth`` (the Retry-After input) and the
+watchdog's ``heartbeat`` / ``worker_alive`` are the reference's. Not
+ported yet: the prebuilt-executable store (``aot_store``, ``strict_aot``,
+``from_tuned``, ``warm``; ROADMAP.md, Queue 1, item 13) and the fault
+injection, profiler and request-trace hooks (item 15).
+
+:class:`PrefillScheduler` (the continuous batcher's chunked-prefill
+policy) lives here, as in the reference.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -84,6 +90,35 @@ class _Request:
         if self.error is not None:
             raise self.error
         return self.result
+
+
+class PrefillScheduler:
+    """Decides how prompt-prefill chunks interleave with decode ticks in the
+    continuous batcher (chunked prefill, ``serve/continuous.py``).
+
+    Each engine tick runs at most ``decode_chunks`` prefill chunks while
+    decodes are active (in-flight tokens keep flowing), and up to
+    ``idle_chunks`` when no decode is running. Among runnable jobs,
+    earliest-deadline-first, then FIFO. A job that adopted a cached prefix
+    enters with only its suffix chunks, so it takes a smaller slice of the
+    budget with no special casing here.
+    """
+
+    def __init__(self, decode_chunks: int = 1, idle_chunks: int = 4):
+        if decode_chunks < 1 or idle_chunks < 1:
+            raise ValueError("chunk budgets must be >= 1")
+        self.decode_chunks = int(decode_chunks)
+        self.idle_chunks = int(idle_chunks)
+
+    def plan(self, jobs: Sequence[Any], decoding: bool) -> List[Any]:
+        """Pick and order the prefill jobs to advance one chunk this tick.
+        ``jobs`` expose ``.deadline`` (optional) and ``.enq_t``."""
+        if not jobs:
+            return []
+        budget = self.decode_chunks if decoding else self.idle_chunks
+        order = sorted(jobs, key=lambda j: (
+            j.deadline if j.deadline is not None else float("inf"), j.enq_t))
+        return order[:budget]
 
 
 class ServeEngine:
@@ -154,6 +189,7 @@ class ServeEngine:
         # typed errors, and spawns a fresh thread — a stale thread notices
         # its epoch and exits without touching shared state
         self._epoch = 0
+        self._hb = time.monotonic()
         self._inflight: List[_Request] = []
 
         m = self.metrics
@@ -179,6 +215,7 @@ class ServeEngine:
         self._spawn_worker()
 
     def _spawn_worker(self) -> None:
+        self._hb = time.monotonic()
         self._thread = threading.Thread(
             target=self._loop, args=(self._epoch,), daemon=True,
             name=f"serve-engine-dispatch-{self._epoch}")
@@ -195,6 +232,11 @@ class ServeEngine:
         return self.metrics.counter(
             "serve_shed_total", self._lbl({"cause": cause}),
             help="requests refused at admission, by cause")
+
+    def queue_depth(self) -> int:
+        """Rows currently waiting for a device batch (Retry-After input)."""
+        with self._cond:
+            return self._depth_rows
 
     def _bucket_length(self, t: int) -> int:
         for b in self.length_buckets:
@@ -281,9 +323,11 @@ class ServeEngine:
             while not self._pending:
                 if self._closing or self._epoch != epoch:
                     return None
+                self._hb = time.monotonic()
                 self._cond.wait(0.05)
             if self._epoch != epoch:
                 return None
+            self._hb = time.monotonic()
             first = self._pending.pop(0)
             self._inflight.append(first)
             batch, rows = [first], first.rows
@@ -315,6 +359,7 @@ class ServeEngine:
 
     def _run_batch(self, batch: List[_Request], epoch: int) -> None:
         try:
+            self._hb = time.monotonic()
             now = time.perf_counter()
             live: List[_Request] = []
             for r in batch:
@@ -424,7 +469,14 @@ class ServeEngine:
                 r.error = err
                 r.event.set()
 
-    # ------------------------------------------------------------ crash-only
+    # ------------------------------------------------- watchdog + crash-only
+    def heartbeat(self) -> float:
+        """Monotonic timestamp of the dispatcher's last liveness beat."""
+        return self._hb
+
+    def worker_alive(self) -> bool:
+        return self._thread.is_alive()
+
     def restart_worker(self, reason: str = "watchdog") -> bool:
         """Crash-only dispatcher restart: stale the current worker by epoch,
         answer its abandoned in-flight batch with typed

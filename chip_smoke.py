@@ -100,19 +100,50 @@ last line):
    param's gradient through K4a/K4b within 1e-3 of the plain BN
    backward's, relative to the largest entry of its node (gated).
 
+11. breadth — the non-recurrent training configs of ``bench.py:_breadth``
+   at full width. BERT-base (``BertBase(num_classes=2, input_shape=(128,),
+   flash=True)``, adamw 1e-4, bf16) on one batch of 64 random token ids,
+   right-padded to lengths uniform in 16-128 (seed 0), 12 fit steps:
+   K1, K2, K3 launch 12 times each a step, every attention call on the
+   lengths route; losses finite and falling; step time, device time and
+   operations, MFU. f32 gradients flash against dense on 8 padded
+   examples within GRAD_RTOL; ``Trainer(grad_accum=2)`` against one step
+   of 64 (loss, the gradients the updater gets, params after the update;
+   ACCUM_* tolerances); K1-K3 at BERT's shape (BH 768, T 128, D 64,
+   lengths) against their plain versions, timed beside SDPA's forward and
+   backward and their bounds; BERT at steps_per_execution=2 with 1 GiB of
+   other allocations made between its replays, bit-equal to eager steps.
+   LeNet (batch 1024) at steps_per_execution=16: 16 graphed steps
+   bit-equal to 16 eager ones in f32 and in bf16; host step time at spe=1
+   and 16, device operations and device time of an eager step and of a
+   replay. VGG16 (batch 64, bf16, dropout 0.5): two replays at lr 0 draw
+   new masks; 12 fit steps, losses finite; step time, images/s, MFU, peak
+   memory; each Dense input keeps a fraction within 4 sigma of 0.5, kept
+   values exactly x / 0.5. ResNet-50 at steps_per_execution=4 (K4a and
+   K4b inside a graph): 8 graphed steps bit-equal to 8 eager ones
+   (losses, params, updater state, running statistics); step time and
+   device time, eager against graphed. The bit-equality gates run with
+   deterministic cuDNN and PyTorch's deterministic mode (warn-only); an
+   op with no deterministic version would turn a gate into a comparison
+   with two eager runs' spread, and say so. Launch counts under a graph
+   are the launches captured times the replays.
+
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -1090,6 +1121,27 @@ def _device_ops(fn):
                  or e.cpu_parent.name.startswith("ProfilerStep"))]
     return (f"profiler recorded no device events; {len(host)} top-level aten "
             f"calls on the host: " + ", ".join(host))
+
+
+def _op_counts(fn, per: int = 1):
+    """Device operations by name that torch.profiler records in one call
+    of ``fn``, divided by ``per`` (the steps the call runs)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity
+
+    names = Counter(e.name[:60] for e in _on_card(
+        _profiled(fn, [ProfilerActivity.CUDA])))
+    return {k: v / per for k, v in names.items()}
+
+
+def _op_diff(a, b, top=6):
+    """The names whose per-step counts differ most between two
+    ``_op_counts``, as 'name a->b'."""
+    keys = sorted(set(a) | set(b), key=lambda k: -abs(a.get(k, 0)
+                                                      - b.get(k, 0)))
+    return "; ".join(f"{k} {a.get(k, 0):g}->{b.get(k, 0):g}"
+                     for k in keys[:top])
 
 
 def _lm(flash: bool):
@@ -2231,6 +2283,781 @@ def phase_resnet_grad_gate():
           f"plain BN backward, rel diff {rel_node:.3g}")
 
 
+# ----------------------------------------------------------------- breadth
+BERT_B, BERT_T, BERT_L, BERT_H = 64, 128, 12, 12
+BERT_STEPS, BERT_WARMUP = 12, 2
+BERT_GRAD_B = 8
+LENET_B, LENET_SPE = 1024, 16
+VGG_B, VGG_STEPS, VGG_WARMUP = 64, 12, 2
+RN_SPE = 4
+# grad_accum against one step of the whole batch, f32: the reference's
+# own tolerance for the same comparison (tests/test_train.py), the
+# gradients relative to each param's largest entry, and adam's eps
+ACCUM_RTOL, ACCUM_ATOL = 2e-5, 1e-6
+ACCUM_GRAD_RTOL = 1e-5
+ADAM_EPS = 1e-8
+KEEP_SIGMAS = 4.0
+
+
+def _release():
+    """Return what the caller has dropped (``del``) to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """The bit-equality gates' settings: cuDNN's deterministic algorithms
+    (benchmark off, so eager and capture pick the same ones) and PyTorch's
+    deterministic mode in warn-only form, whose warnings the caller reads
+    to learn whether an op on the path has no deterministic version. The
+    cuBLAS workspace variable is what that mode asks for; it is read at
+    each check, while the workspace size was fixed at cuBLAS's first use.
+    The mode's filling of every new allocation (a kernel per ``empty``,
+    for finding reads of unwritten memory) is left off: it adds device
+    work that eager and captured steps would not otherwise run, and
+    nothing here reads unwritten memory (the gates compare full results).
+    Everything is put back after."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cudnn = torch.backends.cudnn
+    det = torch.utils.deterministic
+    saved = (cudnn.deterministic, cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             det.fill_uninitialized_memory)
+    cudnn.deterministic, cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            yield caught
+        finally:
+            cudnn.deterministic, cudnn.benchmark = saved[:2]
+            torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+            det.fill_uninitialized_memory = saved[4]
+
+
+def _nondeterministic(caught):
+    return sorted({str(w.message)[:160] for w in caught
+                   if "deterministic" in str(w.message)})
+
+
+def _trees(trainer):
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    return tree_leaves((trainer.params, trainer.opt_state, trainer.state))
+
+
+def _max_diff(a, b):
+    return max(((x.float() - y.float()).abs().max().item() if x.numel()
+                else 0.0) for x, y in zip(a, b))
+
+
+def _graph_vs_eager(build, batches, n, spe, what, between=None,
+                    wrappers=()):
+    """From one start (``build()`` twice: the same seed), 1 + ``n`` eager
+    steps against iteration 0 alone then ``n`` steps at
+    ``steps_per_execution=spe`` (``n // spe`` windows of one captured
+    graph); ``between`` (if given) runs after the first window, before
+    the others. Gated: every loss and every leaf of the params, updater
+    state and net state bit-equal, under ``_deterministic``; where an op
+    of the path has no deterministic version, within the spread of two
+    eager runs instead (and said so). Returns (eager trainer, graphed
+    trainer, eager losses, graphed losses)."""
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    def run(mode):
+        rec = CollectScoresListener()
+        t = Trainer(build())
+        t.fit(batches(1), listeners=[rec])
+        if mode == "eager":
+            t.fit(batches(n), listeners=[rec])
+        else:
+            t.fit(batches(spe), listeners=[rec], steps_per_execution=spe)
+            if between is not None:
+                between()
+            t.fit(batches(n - spe), listeners=[rec], steps_per_execution=spe)
+        torch.cuda.synchronize()
+        return t, [l for _, l in rec.scores]
+
+    with _deterministic() as caught:
+        eager, le = run("eager")
+        for w in wrappers:
+            w.launches = 0
+        graphed, lg = run("graph")
+        launches = tuple(w.launches for w in wrappers)
+        nondet = _nondeterministic(caught)
+        spread = None
+        if nondet:
+            again, la = run("eager")
+            spread = max(_max_diff(_trees(eager), _trees(again)),
+                         max(abs(a - b) for a, b in zip(le, la)))
+            del again
+            _release()
+    check(graphed.captures == 1 and graphed.windows == n // spe,
+          f"{what}: {graphed.captures} captures and {graphed.windows} "
+          f"windows, want 1 and {n // spe}")
+    check(len(le) == len(lg) == n + 1, f"{what}: {len(le)} eager and "
+          f"{len(lg)} graphed losses for {n + 1} steps")
+    check(all(np.isfinite(le)), f"{what}: non-finite loss {le}")
+    diff = max(_max_diff(_trees(eager), _trees(graphed)),
+               max(abs(a - b) for a, b in zip(le, lg)))
+    if spread is None:
+        check(le == lg and diff == 0.0, f"{what}: graphed steps differ from "
+              f"eager ones (max diff {diff:.3g})")
+        how = "bit-equal"
+    else:
+        check(diff <= spread, f"{what}: graphed steps differ from eager by "
+              f"{diff:.3g}, beyond two eager runs' spread {spread:.3g} "
+              f"(ops without a deterministic version: {nondet})")
+        how = (f"within two eager runs' spread {spread:.3g} (max diff "
+               f"{diff:.3g}; ops without a deterministic version: {nondet})")
+    print(f"[breadth] {what}: {n} steps as {n // spe} replays of one graph "
+          f"(steps_per_execution={spe}) against {n} eager steps from the "
+          f"same start: losses, params, updater and net state {how}; "
+          f"losses " + " ".join(f"{l:.5f}" for l in lg))
+    return eager, graphed, launches
+
+
+def _seq_flop(model, batch):
+    """Model FLOP of one training step of a Sequential: 2 FLOP per
+    multiply-add of every conv and dense layer's forward (the input and
+    weight gradients make it x 3)."""
+    from deeplearning4j_torch.nn.layers import Conv2D, Dense, Output
+
+    macs = 0
+    for i, layer in enumerate(model.layers):
+        shape_in, shape_out = model._shapes[i], model._shapes[i + 1]
+        if isinstance(layer, Conv2D):
+            kh, kw = layer.kernel
+            macs += (shape_out[0] * shape_out[1] * shape_out[2] * kh * kw
+                     * shape_in[-1] // layer.groups)
+        elif isinstance(layer, (Dense, Output)):
+            macs += int(np.prod(shape_in)) * layer.n_out
+    return 6 * macs * batch
+
+
+def _bert_batch(n, seed=0):
+    """n padded BERT-base examples: lengths uniform in 16-128, token ids in
+    [1, 30522) up to the length and 0 after, a (n, T) f32 mask, one-hot
+    labels of 2 classes (numpy, seed ``seed``)."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, BERT_T + 1, n)
+    mask = (np.arange(BERT_T)[None] < lens[:, None]).astype(np.float32)
+    x = np.where(mask > 0, rng.integers(1, 30522, (n, BERT_T)),
+                 0).astype(np.int32)
+    y = np.eye(2, dtype=np.float32)[rng.integers(0, 2, n)]
+    return x, y, mask, lens
+
+
+def _bert(compute_dtype, flash=True):
+    from deeplearning4j_torch.models import BertBase
+
+    model = BertBase(num_classes=2, seed=0, input_shape=(BERT_T,),
+                     flash=flash).build()
+    model.config.compute_dtype = compute_dtype
+    return model
+
+
+def _bert_iter(x, y, mask, n):
+    from deeplearning4j_torch.data import ArrayIterator
+
+    return ArrayIterator(np.tile(x, (n, 1)), np.tile(y, (n, 1)),
+                         batch_size=x.shape[0],
+                         features_mask=np.tile(mask, (n, 1)))
+
+
+def phase_bert():
+    """BERT-base (12 layers, d_model 768, 12 heads, vocab 30522, adamw
+    1e-4, bf16 compute, flash) trained by ``Trainer.fit`` on one padded
+    batch of 64 (lengths 16-128) for 12 steps: 2 warm-up steps in one fit,
+    10 timed in a second. Gated: K1, K2 and K3 launch 12 times each a step,
+    on the lengths route (every K1 launch there gets a lengths vector);
+    losses finite, the last below the first. Returns the launches of K1,
+    K2, K3, the step time, the per-step device ms and the lengths."""
+    from deeplearning4j_torch.nn.layers import attention
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    x, y, mask, lens = _bert_batch(BERT_B)
+    t0 = time.perf_counter()
+    model = _bert("bfloat16")
+    model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"[breadth] BERT-base with {model.param_count()} params "
+          f"initialized in {time.perf_counter() - t0:.2f} s; batch "
+          f"{BERT_B} x {BERT_T}, lengths uniform in 16-128 (seed 0): mean "
+          f"{lens.mean():.1f}, {int(lens.sum())} real tokens of "
+          f"{BERT_B * BERT_T}")
+    wrappers = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda,
+                fa.flash_bwd_dkv_cuda)
+    # every attention call of the fit, on the lengths route or not
+    lens_seen = []
+    attn = attention.flash_attention
+
+    def attn_spy(q, k, v, **kw):
+        lens_seen.append(kw.get("lengths") is not None
+                         and kw.get("key_mask") is None)
+        return attn(q, k, v, **kw)
+
+    trainer = Trainer(model)
+    scores = CollectScoresListener()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    attention.flash_attention = attn_spy
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(_bert_iter(x, y, mask, BERT_WARMUP), listeners=[scores])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trainer.fit(_bert_iter(x, y, mask, BERT_STEPS - BERT_WARMUP),
+                    listeners=[scores])
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    finally:
+        attention.flash_attention = attn
+    counts = tuple(w.launches for w in wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in scores.scores]
+    check(len(losses) == BERT_STEPS, f"BERT: {len(losses)} losses for "
+          f"{BERT_STEPS} steps")
+    check(all(np.isfinite(losses)), f"BERT: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"BERT: loss did not fall: {losses}")
+    check(counts == (BERT_L * BERT_STEPS,) * 3,
+          f"BERT: launches K1, K2, K3 {counts}: want {BERT_L} each per step "
+          f"over {BERT_STEPS} steps")
+    check(len(lens_seen) == BERT_L * BERT_STEPS and all(lens_seen),
+          f"BERT: {len(lens_seen)} attention calls, not all on the lengths "
+          f"route")
+    step_ms = 1e3 * (t2 - t1) / (BERT_STEPS - BERT_WARMUP)
+    xs, ys, ms = (torch.from_numpy(a).cuda() for a in (x, y, mask))
+    p, o, s = trainer.params, trainer.opt_state, trainer.state
+    dev_ms, dev_ops = device_ms(lambda: trainer.step(p, o, s, xs, ys,
+                                                     mask=ms), reps=3)
+    d, L, B, T = 768, BERT_L, BERT_B, BERT_T
+    pairs = T * int(lens.sum())  # every query row, the keys up to its length
+    f_blocks = 6 * B * T * 12 * L * d * d
+    f_attn = 12 * (d // BERT_H) * pairs * BERT_H * L
+    flops = f_blocks + f_attn
+    print(f"[breadth] BERT {BERT_STEPS} steps of Trainer.fit (adamw 1e-4, "
+          f"bf16 compute, flash, padded): losses "
+          + " ".join(f"{l:.4f}" for l in losses))
+    print(f"[breadth] BERT launches K1 {counts[0]}, K2 {counts[1]}, K3 "
+          f"{counts[2]} ({BERT_L} each per step, every K1 on the lengths "
+          f"route); step {step_ms:.2f} ms (one fit of "
+          f"{BERT_STEPS - BERT_WARMUP} steps after {BERT_WARMUP} warm-up, "
+          f"window / steps), {B / step_ms * 1e3:.1f} sequences/s, "
+          f"{lens.sum() / step_ms * 1e3:.0f} real tokens/s; one step on the "
+          f"device {dev_ms:.2f} ms in {dev_ops:.0f} device operations "
+          f"(profiler), idle share {1 - dev_ms / step_ms:.4f}; model "
+          f"FLOP/step 6*B*T*12*L*d^2 {f_blocks:.4g} + 12*D*pairs*H*L "
+          f"{f_attn:.4g}; MFU {flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.4f}"
+          f" of 989 TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
+    del trainer, model
+    _release()
+    return counts, step_ms, dev_ms, lens
+
+
+def bert_grad_flash_vs_dense():
+    """f32 gradients of every BERT-base param on 8 padded examples: the
+    flash path (K1, K2, K3 on lengths) against the dense path's, each
+    within GRAD_RTOL of the dense gradient's largest entry."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    x, y, mask, _ = _bert_batch(BERT_GRAD_B, seed=1)
+    flash, dense = _bert(None, True), _bert(None, False)
+    params, _ = flash.init(seed=0)
+    xs, ys, ms = (torch.from_numpy(a).cuda() for a in (x, y, mask))
+    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    grads = []
+    for m in (flash, dense):
+        loss, _ = m.score(params, {}, xs, ys, mask=ms)
+        grads.append(torch.autograd.grad(loss, leaves))
+    rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(*grads))
+    print(f"[breadth] BERT grad flash-vs-dense, f32, {BERT_GRAD_B} padded "
+          f"examples: max over params of max |flash - dense| / max |dense| "
+          f"= {rel:.3g} (gate {GRAD_RTOL})")
+    check(rel <= GRAD_RTOL, f"BERT f32 flash vs dense gradient rel diff "
+          f"{rel:.3g}")
+    del grads, leaves, params, flash, dense
+    _release()
+
+
+def bert_grad_accum():
+    """``Trainer(grad_accum=2)`` on the padded batch of 64 against one
+    step of the whole batch, f32 BERT-base from one start. Gated: the loss
+    within 1e-5; the gradient each trainer hands its updater within
+    ACCUM_GRAD_RTOL of the param's largest gradient entry (f32 sums in
+    another order); every param after the update within ACCUM_ATOL +
+    ACCUM_RTOL x |param| + (lr / eps) x |that gradient difference|: adam's
+    first step maps g to lr x g / (|g| + eps), whose slope is at most
+    lr / eps (1e4 here), so an entry below eps carries its f32 rounding
+    difference into the param 1e4 times larger. The accumulating trainer
+    ran K1 twice a layer (two microbatches)."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.ops.updaters import Transform, tree_leaves
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    x, y, mask, _ = _bert_batch(BERT_B)
+    out = []
+    for n in (1, 2):
+        model = _bert(None)
+        model.init(seed=0)
+        rec = CollectScoresListener()
+        fa.flash_fwd_cuda.launches = 0
+        t = Trainer(model, grad_accum=n)
+        seen = []
+        update = t.tx.update
+
+        def spy(grads, state, params=None, update=update, seen=seen):
+            seen.append([g.detach().clone() for g in grads])
+            return update(grads, state, params)
+
+        t.tx = Transform(t.tx.init, spy)
+        t.fit(_bert_iter(x, y, mask, 1), listeners=[rec])
+        torch.cuda.synchronize()
+        out.append((rec.scores[0][1], [p.detach().clone() for p in
+                                       tree_leaves(t.params)],
+                    seen[0], fa.flash_fwd_cuda.launches))
+        cfg = model.config.updater
+        del t, model
+        _release()
+    (l1, p1, g1, k1), (l2, p2, g2, k2) = out
+    check(k1 == BERT_L and k2 == 2 * BERT_L, f"BERT grad_accum: K1 launches "
+          f"{k1} (one step) and {k2} (accum 2): want {BERT_L} and "
+          f"{2 * BERT_L}")
+    slope = cfg["learning_rate"] / ADAM_EPS
+    g_rel = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                .item() for a, b in zip(g2, g1))
+    excess = max(((a - b).abs() - ACCUM_RTOL * b.abs()
+                  - slope * (ga - gb).abs()).max().item()
+                 for a, b, ga, gb in zip(p2, p1, g2, g1))
+    dmax = max((a - b).abs().max().item() for a, b in zip(p2, p1))
+    print(f"[breadth] BERT grad_accum=2 vs one step of {BERT_B}, f32: loss "
+          f"{l2:.7f} vs {l1:.7f} (rel {abs(l2 - l1) / abs(l1):.3g}); "
+          f"gradients max over params of max |accum - one| / max |one| "
+          f"{g_rel:.3g} (gate {ACCUM_GRAD_RTOL}); params max abs diff "
+          f"{dmax:.3g}, largest excess over {ACCUM_ATOL} + {ACCUM_RTOL} x "
+          f"|param| + {slope:.0f} x |gradient diff|: {excess:.3g} (gate <= "
+          f"{ACCUM_ATOL})")
+    check(abs(l2 - l1) <= 1e-5 * abs(l1), f"BERT grad_accum loss {l2} vs "
+          f"{l1}")
+    check(g_rel <= ACCUM_GRAD_RTOL, f"BERT grad_accum gradients differ by "
+          f"{g_rel:.3g} of their largest entry")
+    check(excess <= ACCUM_ATOL, f"BERT grad_accum params differ by "
+          f"{dmax:.3g} beyond what the gradient difference explains")
+
+
+def bert_kernels(lens):
+    """K1, K2 and K3 at BERT-base's shape: BH = 64 x 12 = 768, T 128, D 64,
+    bf16, non-causal, the fit batch's lengths repeated over each example's
+    12 heads. Each against its plain version, then timed (one call, back
+    to back) beside the plain version and SDPA's forward and backward on
+    the same inputs with the same lengths as a boolean key mask. Bounds
+    from the shape and this run's lengths: bytes read and written once,
+    and 4 (forward), 6 (dQ), 8 (dK, dV) x D FLOP per (query, key) pair
+    whose key is within the length."""
+    from deeplearning4j_torch.ops.flash_attention import (
+        flash_attention_backward_reference, flash_attention_reference,
+        flash_bwd_dkv_cuda, flash_bwd_dq_cuda, flash_bwd_cuda,
+        flash_fwd_cuda)
+
+    bh, t, d = BERT_B * BERT_H, BERT_T, 64
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(102)
+    q, k, v, do = _qkv(gen, bh, t, d, bf16, n=4)
+    lens_t = torch.as_tensor(lens, dtype=torch.int32,
+                             device="cuda").repeat_interleave(BERT_H)
+    kw = dict(scale=1.0 / d ** 0.5, causal=False)
+    o, lse = flash_fwd_cuda(q, k, v, lens_t, **kw)
+    o_ref, lse_ref = flash_attention_reference(q, k, v, lens_t, **kw)
+    err_f = _compare(o, lse, o_ref, lse_ref, "BERT shape forward")
+    delta = (do.float() * o_ref.float()).sum(-1)
+    got = flash_bwd_cuda(q, k, v, do, lse_ref, delta, lens_t, **kw)
+    want = flash_attention_backward_reference(q, k, v, do, lse_ref, delta,
+                                              lens_t, **kw)
+    err_b = _bwd_compare(got, want, "BERT shape backward")
+    del got, want, o_ref
+    plain_f = time_ms(lambda: flash_attention_reference(q, k, v, lens_t,
+                                                        **kw), reps=5,
+                      warmup=1)
+    plain_b = time_ms(lambda: flash_attention_backward_reference(
+        q, k, v, do, lse_ref, delta, lens_t, **kw), reps=5, warmup=1)
+    keymask = (torch.arange(t, device="cuda")[None] < lens_t[:, None])
+    am = keymask.view(1, bh, 1, t)
+    q4, k4, v4 = (a.view(1, bh, t, d).detach().requires_grad_()
+                  for a in (q, k, v))
+    do4 = do.view(1, bh, t, d)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q4, k4, v4, attn_mask=am,
+                                           scale=kw["scale"])
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(q4, k4, v4, attn_mask=am,
+                                       scale=kw["scale"]).backward(do4)
+
+    lib_f, lib_f_b2b = time_ms(sdpa_fwd), time_b2b_ms(sdpa_fwd)
+    lib_b = time_ms(sdpa_fwd_bwd) - lib_f
+    lib_b_b2b = time_b2b_ms(sdpa_fwd_bwd) - lib_f_b2b
+    pairs = t * int(lens_t.sum().item())
+    esize = q.element_size()
+    out = {}
+    for key, fn, n_in, n_out, per_pair, plain, lib, lib_b2b in (
+            ("K1", lambda: flash_fwd_cuda(q, k, v, lens_t, **kw), 3, 1, 4,
+             plain_f, lib_f, lib_f_b2b),
+            ("K2", lambda: flash_bwd_dq_cuda(q, k, v, do, lse_ref, delta,
+                                             lens_t, **kw), 4, 1, 6,
+             plain_b, lib_b, lib_b_b2b),
+            ("K3", lambda: flash_bwd_dkv_cuda(q, k, v, do, lse_ref, delta,
+                                              lens_t, **kw), 4, 2, 8,
+             plain_b, lib_b, lib_b_b2b)):
+        # K1 also writes lse; K2, K3 read lse and delta; all read lengths
+        nbytes = (n_in + n_out) * bh * t * d * esize + bh * 4 + (
+            bh * t * 4 if key == "K1" else 2 * bh * t * 4)
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = per_pair * d * pairs / PEAK_BF16_FLOPS * 1e3
+        ms, ms_b2b = time_ms(fn), time_b2b_ms(fn)
+        out[key] = {"shape": f"BH={bh} T={t} D={d} bf16 non-causal lengths",
+                    "ms": ms, "ms_b2b": ms_b2b, "plain_ms": plain,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                    "library_ms": lib, "library_ms_b2b": lib_b2b,
+                    "max_abs_err": err_f if key == "K1" else err_b}
+        print(f"[breadth] BERT shape BH={bh} T={t} D={d} bf16 non-causal "
+              f"lengths (mean {float(np.mean(lens)):.1f}), {key}: kernel "
+              f"{ms:.4f} ms, back to back {ms_b2b:.4f}; bound "
+              f"{out[key]['bound_ms']:.4f} ms ({out[key]['bound_by']}); "
+              f"plain {plain:.4f}; sdpa {'forward' if key == 'K1' else 'backward (dq, dk, dv)'} "
+              f"{lib:.4f}, back to back {lib_b2b:.4f}")
+    return out
+
+
+def bert_graph_check():
+    """BERT-base (bf16, flash, padded batch) at steps_per_execution=2:
+    iteration 0, one window, then 1 GiB of other allocations filled with
+    NaN and held, then a second window, against 5 eager steps from the
+    same start, bit for bit: the graph replays K1-K3 with the TMA
+    descriptors of its capture, right only while its buffers stay its
+    own."""
+    x, y, mask, _ = _bert_batch(BERT_B)
+    junk = []
+
+    def between():
+        junk.extend(torch.full((1 << 26,), float("nan"), device="cuda")
+                    for _ in range(4))
+
+    def build():
+        m = _bert("bfloat16")
+        m.init(seed=0)
+        return m
+
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    wrappers = (fa.flash_fwd_cuda, fa.flash_bwd_dq_cuda,
+                fa.flash_bwd_dkv_cuda)
+    eager, graphed, launches = _graph_vs_eager(
+        build, lambda n: _bert_iter(x, y, mask, n), 4, 2,
+        "BERT-base bf16 flash, 1 GiB allocated between replays",
+        between=between, wrappers=wrappers)
+    want = BERT_L * (1 + 1 + 2)
+    check(launches == (want,) * 3, f"BERT graph: K1, K2, K3 launches "
+          f"{launches}: want {want} each (iteration 0, the warm-up step, 2 "
+          f"captured steps)")
+    print(f"[breadth] BERT graph: K1, K2, K3 {BERT_L * 2} launches each "
+          f"captured, replayed {graphed.windows} times = "
+          f"{BERT_L * 2 * graphed.windows} each")
+    replayed = BERT_L * 2 * graphed.windows
+    del eager, graphed, junk
+    _release()
+    return replayed
+
+
+def _lenet(compute_dtype):
+    from deeplearning4j_torch.models import LeNet
+
+    model = LeNet(num_classes=10, seed=0, input_shape=(28, 28, 1)).build()
+    model.config.compute_dtype = compute_dtype
+    model.init(seed=0)
+    return model
+
+
+def phase_lenet():
+    """LeNet (batch 1024, adam 1e-3) with steps_per_execution=16. Gated,
+    in f32 and in bf16 compute: 16 graphed steps from one start equal 16
+    eager steps bit for bit (losses, params, updater state). Then in bf16:
+    the host step time at spe=1 and spe=16 (64 steps of a repeated batch,
+    eager, graphed, graphed, eager), the device operations and device
+    time of one eager step and of one replay (16 steps) under
+    torch.profiler."""
+    from deeplearning4j_torch.data import ArrayIterator, BenchmarkIterator
+
+    rng = np.random.default_rng(0)
+    n = 1 + LENET_SPE
+    xs = rng.standard_normal((n * LENET_B, 28, 28, 1)).astype(np.float32)
+    ys = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n * LENET_B)]
+    for cdt in (None, "bfloat16"):
+        pos = [0]
+
+        def batches(k):
+            it = ArrayIterator(xs[pos[0] * LENET_B:(pos[0] + k) * LENET_B],
+                               ys[pos[0] * LENET_B:(pos[0] + k) * LENET_B],
+                               batch_size=LENET_B)
+            pos[0] = (pos[0] + k) % n
+            return it
+
+        eager, graphed, _ = _graph_vs_eager(
+            lambda: _lenet(cdt), batches, LENET_SPE, LENET_SPE,
+            f"LeNet {cdt or 'float32'} batch {LENET_B}")
+    times = {"eager": [], "graph": []}
+    steps = 4 * LENET_SPE
+    ds = next(iter(BenchmarkIterator((28, 28, 1), 10, LENET_B, 1, seed=0)))
+    xb, yb = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    p, o, s = eager.params, eager.opt_state, eager.state
+    window = [(xb, yb, None, None)] * LENET_SPE
+    # the settings the graph was captured under (its cuDNN algorithms)
+    with _deterministic():
+        for which in ("eager", "graph", "graph", "eager"):
+            t = eager if which == "eager" else graphed
+            it = BenchmarkIterator((28, 28, 1), 10, LENET_B, steps, seed=0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit(it, steps_per_execution=1 if which == "eager"
+                  else LENET_SPE)
+            torch.cuda.synchronize()
+            times[which].append(1e3 * (time.perf_counter() - t0) / steps)
+        step_dev, step_ops = device_ms(lambda: eager.step(p, o, s, xb, yb),
+                                       reps=5)
+        rep_dev, rep_ops = device_ms(lambda: graphed._replay(window), reps=3)
+        diff = _op_diff(_op_counts(lambda: eager.step(p, o, s, xb, yb)),
+                        _op_counts(lambda: graphed._replay(window),
+                                   LENET_SPE))
+    check(graphed.captures == 1, f"LeNet: {graphed.captures} captures")
+    flop = _seq_flop(eager.model, LENET_B)
+    print(f"[breadth] LeNet bf16 batch {LENET_B}, deterministic cuDNN, host "
+          f"step time over {steps} steps (eager, graph, graph, eager): spe=1 "
+          + ", ".join(f"{v:.3f}" for v in times["eager"]) + " ms; spe="
+          f"{LENET_SPE} " + ", ".join(f"{v:.3f}" for v in times["graph"])
+          + f" ms; one eager step on the device {step_dev:.3f} ms in "
+          f"{step_ops:.0f} device operations; one replay ({LENET_SPE} steps)"
+          f" {rep_dev:.3f} ms in {rep_ops:.0f} ({rep_dev / LENET_SPE:.3f} ms"
+          f", {rep_ops / LENET_SPE:.1f} operations a step; the replay's "
+          f"slot copies included); model FLOP/step {flop:.4g}")
+    print(f"[breadth] LeNet device operations a step, eager -> graphed, "
+          f"the names that differ most: {diff}")
+    del eager, graphed
+    _release()
+    return {"eager_ms": times["eager"], "graph_ms": times["graph"],
+            "step_dev_ms": step_dev, "step_ops": step_ops,
+            "replay_dev_ms": rep_dev, "replay_ops": rep_ops}
+
+
+def phase_vgg():
+    """VGG16 (batch 64, bf16 compute, adam 1e-3, dropout 0.5 on the inputs
+    of its two 4096-wide Dense layers) trained by ``Trainer.fit`` for 12
+    steps (2 warm-up, 10 timed). Gated: losses finite; on the card each
+    Dense input keeps a fraction within 4 sigma of 0.5, kept values exactly
+    x / 0.5; at steps_per_execution=2 with the learning rate at 0 (the
+    loss then moves only with the masks) two replays' losses differ, and
+    so do a window's two."""
+    from deeplearning4j_torch.data import BenchmarkIterator
+    from deeplearning4j_torch.models import VGG16
+    from deeplearning4j_torch.nn.api import apply_input_dropout
+    from deeplearning4j_torch.nn.layers import Dense
+    from deeplearning4j_torch.ops import updaters as upd
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    t0 = time.perf_counter()
+    model = VGG16(num_classes=1000, seed=0, input_shape=(224, 224, 3)).build()
+    model.config.compute_dtype = "bfloat16"
+    model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"[breadth] VGG16 with {model.param_count()} params initialized "
+          f"in {time.perf_counter() - t0:.2f} s")
+
+    def batches(k):
+        return BenchmarkIterator((224, 224, 3), 1000, VGG_B, k, seed=0)
+
+    # the masks first, from the initial params (a trained model's loss
+    # may round to the same value under two masks)
+    frozen = Trainer(model, updater=upd.sgd(learning_rate=0.0))
+    rec = CollectScoresListener()
+    frozen.fit(batches(1), listeners=[rec])
+    frozen.fit(batches(4), listeners=[rec], steps_per_execution=2)
+    torch.cuda.synchronize()
+    lz = [l for _, l in rec.scores]
+    check(frozen.captures == 1 and frozen.windows == 2,
+          f"VGG16 spe=2: {frozen.captures} captures, {frozen.windows} "
+          f"windows")
+    check(all(np.isfinite(lz)) and lz[1:3] != lz[3:5] and lz[1] != lz[2],
+          f"VGG16 spe=2 at lr 0: replays repeated their dropout masks: {lz}")
+    print(f"[breadth] VGG16 steps_per_execution=2 at lr 0, 2 replays of one "
+          f"graph: losses {lz[1]:.6f} {lz[2]:.6f} | {lz[3]:.6f} "
+          f"{lz[4]:.6f} (iteration 0 alone {lz[0]:.6f}): every step drew "
+          f"new masks")
+    del frozen
+    _release()
+    trainer = Trainer(model)
+    scores = CollectScoresListener()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer.fit(batches(VGG_WARMUP), listeners=[scores])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.fit(batches(VGG_STEPS - VGG_WARMUP), listeners=[scores])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in scores.scores]
+    check(len(losses) == VGG_STEPS and all(np.isfinite(losses)),
+          f"VGG16: losses {losses}")
+    step_ms = 1e3 * (t2 - t1) / (VGG_STEPS - VGG_WARMUP)
+    flop = _seq_flop(model, VGG_B)
+    ds = next(iter(batches(1)))
+    xb, yb = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    p, o, s = trainer.params, trainer.opt_state, trainer.state
+    dev_ms, dev_ops = device_ms(lambda: trainer.step(p, o, s, xb, yb,
+                                                     trainer._gen), reps=3)
+    print(f"[breadth] VGG16 {VGG_STEPS} steps of Trainer.fit (adam 1e-3, "
+          f"bf16 compute, dropout 0.5), batch {VGG_B} at 224x224x3: losses "
+          + " ".join(f"{l:.4f}" for l in losses))
+    print(f"[breadth] VGG16 step {step_ms:.2f} ms (one fit of "
+          f"{VGG_STEPS - VGG_WARMUP} steps after {VGG_WARMUP} warm-up), "
+          f"{VGG_B / step_ms * 1e3:.1f} images/s; one step on the device "
+          f"{dev_ms:.2f} ms in {dev_ops:.0f} device operations (profiler), "
+          f"idle share {1 - dev_ms / step_ms:.4f}; model FLOP/step {flop:.4g}"
+          f"; MFU {flop / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.4f} of 989 "
+          f"TFLOP/s; peak memory {peak / 2**30:.2f} GiB")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        for i, layer in enumerate(model.layers):
+            if not (isinstance(layer, Dense) and layer.dropout):
+                continue
+            feats, _ = model.forward(p, s, xb, up_to=i)
+            feats = feats.to(torch.bfloat16)  # the dtype the step feeds it
+            dropped = apply_input_dropout(layer, feats, gen, True)
+            kept = dropped != 0
+            live = feats != 0  # a 0 input stays 0 either way
+            n_live = int(live.sum())
+            n_kept = int((kept & live).sum())
+            sigma = (n_live * 0.25) ** 0.5
+            exact = torch.equal(dropped[kept], feats[kept] / 0.5)
+            print(f"[breadth] VGG16 layer {i} (Dense {layer.n_out}) input "
+                  f"{tuple(feats.shape)} bf16: kept {n_kept} of {n_live} "
+                  f"nonzero ({n_kept / n_live:.5f}; 0.5 +- 4 sigma = "
+                  f"{KEEP_SIGMAS * sigma / n_live:.5f}); kept values x / 0.5"
+                  f" exactly: {exact}")
+            check(abs(n_kept - 0.5 * n_live) <= KEEP_SIGMAS * sigma,
+                  f"VGG16 layer {i}: kept {n_kept} of {n_live}")
+            check(exact, f"VGG16 layer {i}: a kept value is not x / 0.5")
+    del trainer, model
+    _release()
+    return step_ms
+
+
+def phase_resnet_graph():
+    """ResNet-50 (the [resnet] config, batch 128) at steps_per_execution=4:
+    iteration 0 alone, then 8 steps as 2 replays of one graph, against 9
+    eager steps from the same start: losses, params, updater state and the
+    BatchNorm running statistics bit-equal (``_graph_vs_eager``). K4a and
+    K4b launch 53 times each for iteration 0, the warm-up step and each
+    of the 4 captured steps; a replay runs the captured 4 x 53 again.
+    Then the step time, eager against graphed, over 8 steps (eager,
+    graphed, graphed, eager) under the same deterministic settings."""
+    from deeplearning4j_torch.data import BenchmarkIterator, DataSet
+    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce_coeffs
+
+    n_bn = len(_bn_nodes(_resnet50("bfloat16"), RN_BATCH))
+
+    def build():
+        m = _resnet50("bfloat16")
+        m.init(seed=0)
+        return m
+
+    def batches(k):
+        return BenchmarkIterator((224, 224, 3), 1000, RN_BATCH, k, seed=0)
+
+    eager, graphed, total = _graph_vs_eager(
+        build, batches, 2 * RN_SPE, RN_SPE, f"ResNet-50 bf16 batch {RN_BATCH}",
+        wrappers=(bn_reduce_coeffs, bn_dx))
+    # iteration 0, the warm-up step and the 4 captured steps launch
+    want = n_bn * (1 + 1 + RN_SPE)
+    check(total == (want, want), f"ResNet-50 graph: K4a, K4b launches "
+          f"{total}: want {want} each (iteration 0, the warm-up step, "
+          f"{RN_SPE} captured steps)")
+    counts = {"captured": n_bn * RN_SPE, "replays": graphed.windows}
+    ds = next(iter(batches(1)))
+    xb, yb = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    p, o, s = eager.params, eager.opt_state, eager.state
+    with _deterministic():
+        step_dev, step_ops = device_ms(lambda: eager.step(p, o, s, xb, yb),
+                                       reps=2)
+        window = [(xb, yb, None, None)] * RN_SPE
+        rep_dev, rep_ops = device_ms(lambda: graphed._replay(window), reps=2)
+    print(f"[breadth] ResNet-50 on the device (profiler, deterministic "
+          f"cuDNN): one eager step {step_dev:.2f} ms in {step_ops:.0f} "
+          f"device operations; one replay ({RN_SPE} steps) {rep_dev:.2f} ms "
+          f"in {rep_ops:.0f} ({rep_dev / RN_SPE:.2f} ms, "
+          f"{rep_ops / RN_SPE:.0f} operations a step)")
+    del p, o, s
+    times = {"eager": [], "graph": [], "eager_on_card": [],
+             "graph_on_card": []}
+    steps = 2 * RN_SPE
+    on_card = [DataSet(xb, yb)] * steps
+    with _deterministic():
+        for which in ("eager", "graph", "graph", "eager", "eager_on_card",
+                      "graph_on_card", "graph_on_card", "eager_on_card"):
+            t = eager if which.startswith("eager") else graphed
+            it = on_card if which.endswith("on_card") else batches(steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit(it, steps_per_execution=1 if t is eager else RN_SPE)
+            torch.cuda.synchronize()
+            times[which].append(1e3 * (time.perf_counter() - t0) / steps)
+    check(graphed.captures == 1, f"ResNet-50: {graphed.captures} captures")
+    print(f"[breadth] ResNet-50 graph: K4a and K4b {n_bn * RN_SPE} launches "
+          f"captured ({n_bn} x {RN_SPE} steps), replayed {counts['replays']} "
+          f"times = {n_bn * RN_SPE * counts['replays']} each in the gate; "
+          f"step time over "
+          f"{steps} steps, deterministic cuDNN (eager, graphed, graphed, "
+          f"eager): eager " + ", ".join(f"{v:.2f}" for v in times["eager"])
+          + " ms; graphed " + ", ".join(f"{v:.2f}" for v in times["graph"])
+          + f" ms at steps_per_execution={RN_SPE}; with the batch already on "
+          f"the card: eager " + ", ".join(
+              f"{v:.2f}" for v in times["eager_on_card"]) + " ms, graphed "
+          + ", ".join(f"{v:.2f}" for v in times["graph_on_card"]) + " ms")
+    del eager, graphed
+    _release()
+    return counts, times
+
+
+def phase_breadth():
+    """[breadth]: BERT-base, LeNet, VGG16 and ResNet-50 under a captured
+    step. Returns what the kernels line needs."""
+    bert_counts, bert_step_ms, bert_dev_ms, lens = phase_bert()
+    bert_grad_flash_vs_dense()
+    bert_grad_accum()
+    bert_rows = bert_kernels(lens)
+    share = BERT_L * sum(bert_rows[k]["ms_b2b"] for k in ("K1", "K2", "K3"))
+    print(f"[breadth] BERT: K1 + K2 + K3 back to back x {BERT_L} layers = "
+          f"{share:.2f} ms of a {bert_step_ms:.2f} ms step "
+          f"({share / bert_step_ms:.4f}; of the device's {bert_dev_ms:.2f} "
+          f"ms, {share / bert_dev_ms:.4f})")
+    bert_graph = bert_graph_check()
+    lenet = phase_lenet()
+    vgg_ms = phase_vgg()
+    rn_counts, rn_times = phase_resnet_graph()
+    return {"bert_launches": bert_counts, "bert_rows": bert_rows,
+            "bert_graph": bert_graph,
+            "lenet": lenet, "vgg_ms": vgg_ms, "resnet_graph": rn_counts,
+            "resnet_graph_ms": rn_times}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2263,15 +3090,26 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     phase_resnet_grad_gate()
+    breadth = phase_breadth()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
     bwd_rows[0]["launches"] = k2_train
     bwd_rows[1]["launches"] = k3_train
     bwd_rows[2]["launches"] = k5_train
+    for row, key, n in zip((k1, bwd_rows[0], bwd_rows[1]), ("K1", "K2", "K3"),
+                           breadth["bert_launches"]):
+        row.setdefault("launches_by_path", {"train": row["launches"]})
+        # bert: the 12-step fit; bert_graph: captured launches x replays
+        row["launches_by_path"]["bert"] = n
+        row["launches_by_path"]["bert_graph"] = breadth["bert_graph"]
+        row["bert_shape"] = breadth["bert_rows"][key]
+    rg = breadth["resnet_graph"]
     for row, n, key in zip(bn_rows, (k4a_train, k4b_train), ("K4a", "K4b")):
         row["launches"] = n
-        row["launches_by_path"] = {"train": n}
+        # resnet_graph: the launches captured (53 x 4 steps) x the replays
+        row["launches_by_path"] = {"train": n, "resnet_graph":
+                                   rg["captured"] * rg["replays"]}
         row["routes_on_path"] = bn_routes[key]
     print(json.dumps({"kernels": [k1] + bwd_rows + bn_rows}))
     print(card())

@@ -1,12 +1,62 @@
-"""Transformer models — counterpart of ``CausalLM`` in
-``deeplearning4j_tpu/models/transformer.py`` (``BertBase`` needs
-``GlobalPooling`` and comes later)."""
+"""Transformer models — counterpart of ``BertBase`` and ``CausalLM`` in
+``deeplearning4j_tpu/models/transformer.py``: the same layer stacks and
+updaters, so params, configs and zips cross between the packages."""
 
 from __future__ import annotations
 
 from ..nn import layers as L
 from ..nn.model import NetConfig, Sequential, SequentialBuilder
 from .zoo import ZooModel, register_model
+
+
+@register_model
+class BertBase(ZooModel):
+    """BERT-base-uncased shape: 12 layers, d_model 768, 12 heads, vocab
+    30522, learned positions up to 512, non-causal pre-LN blocks, a final
+    LayerNorm, masked average pooling and a softmax classification head
+    (adamw 1e-4). ``small=True`` is the test-sized variant (2 layers,
+    d_model 64, 4 heads, vocab 1000, max_len 128). ``ragged=True`` (the
+    default) declares (B, T) masks right-padded, as BERT tokenizers pad:
+    the flash path then takes per-example lengths; ``ragged=False`` keeps
+    the exact key mask for gappy masks."""
+
+    num_layers = 12
+    d_model = 768
+    num_heads = 12
+    vocab = 30522
+    max_len = 512
+    input_shape = (128,)
+    num_classes = 2
+
+    def __init__(self, num_classes=None, seed=12345, input_shape=None, *,
+                 small=False, flash=False, remat=False, ragged=True,
+                 device=None, **kw):
+        super().__init__(num_classes, seed, input_shape, device=device, **kw)
+        self.flash = flash
+        self.remat = remat
+        self.ragged = ragged
+        if small:
+            (self.num_layers, self.d_model, self.num_heads, self.vocab,
+             self.max_len) = 2, 64, 4, 1000, 128
+
+    def build(self) -> Sequential:
+        T = self.input_shape[0]
+        b = (SequentialBuilder(NetConfig(seed=self.seed,
+                                         updater={"type": "adamw",
+                                                  "learning_rate": 1e-4}),
+                               device=self.device)
+             .input_shape(T)
+             .layer(L.EmbeddingSequence(n_in=self.vocab, n_out=self.d_model))
+             .layer(L.PositionalEmbedding(max_len=self.max_len)))
+        for _ in range(self.num_layers):
+            b.layer(L.TransformerEncoderBlock(
+                num_heads=self.num_heads, causal=False, flash=self.flash,
+                remat=self.remat, ragged=self.ragged))
+        return (b.layer(L.LayerNorm())
+                .layer(L.GlobalPooling(mode="avg"))
+                .layer(L.Output(n_out=self.num_classes, activation="softmax",
+                                loss="mcxent"))
+                .build())
 
 
 @register_model

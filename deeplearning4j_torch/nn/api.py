@@ -6,8 +6,9 @@ fields, and the two functions of the contract:
 - ``init(gen, input_shape, dtype, device)`` returns ``(params, state)``,
   dicts of tensors drawn from the ``torch.Generator`` ``gen``;
 - ``apply(params, state, x, *, training, rng, mask)`` returns
-  ``(y, new_state, out_mask)``; ``rng`` is a ``torch.Generator`` or None
-  (training-time dropout is not ported yet and raises).
+  ``(y, new_state, out_mask)``; ``rng`` is a ``torch.Generator`` or None.
+  A layer's ``dropout`` acts on its input, in training only
+  (:func:`apply_input_dropout`).
 
 ``to_dict``/``layer_from_dict`` write and read the reference's ``"@type"``
 JSON: a layer config written by either package loads in the other.
@@ -20,6 +21,8 @@ from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Type
 
 import torch
+
+from ..ops.regularization import apply_dropout_config
 
 Params = Dict[str, Any]
 State = Dict[str, Any]
@@ -90,10 +93,49 @@ def layer_from_dict(d: dict) -> Layer:
     return LAYER_REGISTRY[kind].from_dict(d)
 
 
-def no_training_dropout(layer: Layer, rate, training: bool) -> None:
-    """Training-time dropout is not ported yet (ROADMAP.md, Queue 1):
-    refuse it rather than run a training forward that skips it."""
-    if training and rate:
-        raise NotImplementedError(
-            f"{layer.name or type(layer).__name__}: training-time dropout is "
-            f"not ported yet")
+def apply_input_dropout(layer: Layer, x: torch.Tensor,
+                        rng: Optional[torch.Generator],
+                        training: bool) -> torch.Tensor:
+    """The layer's ``dropout`` config applied to its *input*, in training
+    only, as DL4J applies it; a layer with dropout and no generator
+    raises."""
+    if layer.dropout is None or not training:
+        return x
+    if rng is None:
+        raise ValueError(f"Layer {layer.name or type(layer).__name__} has "
+                         f"dropout but no rng was provided")
+    return apply_dropout_config(rng, x, layer.dropout, training)
+
+
+def draws_random(layer: Layer) -> bool:
+    """Whether the layer draws from ``rng`` in training: a dropout config,
+    a noise layer's rate or stddev, a block's dropout rates."""
+    return bool(layer.dropout) or any(
+        getattr(layer, f, 0) for f in ("rate", "stddev", "dropout_rate",
+                                       "attn_dropout"))
+
+
+def rewinding(fn, rng: Optional[torch.Generator]):
+    """``fn`` for ``torch.utils.checkpoint``: its recompute in the
+    backward draws what the first call drew (the generator is rewound to
+    where the first call found it, then put back), so the gradient sees
+    the forward's dropout masks, as the reference's recompute from the
+    same key does. A generator's state cannot be read inside a CUDA graph
+    capture, so callers wrap only layers that draw."""
+    if rng is None:
+        return fn
+    saved = rng.get_state()
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        now = rng.get_state()
+        rng.set_state(saved)
+        try:
+            return fn(*args)
+        finally:
+            rng.set_state(now)
+
+    return run

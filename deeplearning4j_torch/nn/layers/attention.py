@@ -6,8 +6,10 @@ Same params (one fused QKV projection, (in, out) weights), same routing:
 ``ops.flash_attention`` (on the card: the hand-written CUDA kernel);
 everything else takes the dense path, with f32 scores whatever the input
 dtype. Both paths are differentiable (on the card the flash gradient runs
-the hand-written backward kernels). Training-time dropout (which the
-reference routes to the dense path) is not ported yet and raises.
+the hand-written backward kernels). Attention dropout in training routes
+to the dense path, as in the reference, which drops attention weights
+there; the block's ``dropout_rate`` drops its MLP branch. The kernels
+never see dropout.
 ``ring=True`` behaves as the reference does outside a sequence-parallel
 trace: flash or dense.
 """
@@ -22,15 +24,17 @@ from typing import Optional
 import torch
 import torch.utils.checkpoint
 
-from ...ops import activations, initializers
+from ...ops import activations, initializers, regularization
 from ...ops.flash_attention import flash_attention
-from ..api import Layer, no_training_dropout, register_layer
+from ..api import Layer, register_layer, rewinding
 from .norm import layer_norm
 
 
-def dot_product_attention(q, k, v, *, mask=None, scale=None):
+def dot_product_attention(q, k, v, *, mask=None, scale=None,
+                          dropout_rate: float = 0.0, dropout_rng=None):
     """(B, T, H, D) attention with f32 scores. mask: (B, 1|H, Tq, Tk),
-    bool (True = attend) or additive."""
+    bool (True = attend) or additive. ``dropout_rate`` > 0 with a
+    generator drops attention weights (inverted dropout) in v's dtype."""
     D = q.shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -40,6 +44,8 @@ def dot_product_attention(q, k, v, *, mask=None, scale=None):
         else:
             scores = scores + mask
     w = torch.softmax(scores, dim=-1).to(v.dtype)
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        w = regularization.dropout(dropout_rng, w, dropout_rate)
     return torch.einsum("bhqk,bkhd->bqhd", w, v)
 
 
@@ -134,13 +140,13 @@ class MultiHeadAttention(Layer):
             # each KV head serves H // Hkv consecutive query heads
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
-        no_training_dropout(self, self.attn_dropout, training)
+        drop = self.attn_dropout if (training and rng is not None) else 0.0
         if self.ring and self.window is not None:
             warnings.warn(
                 "ring=True is disabled because window= is set: ring "
                 "attention computes full causal attention, so the window "
                 "routes through flash/dense instead.", stacklevel=2)
-        if self.flash and (mask is None or mask.ndim == 2):
+        if self.flash and drop == 0.0 and (mask is None or mask.ndim == 2):
             if mask is not None and self.ragged:
                 y = flash_attention(q, k, v, causal=self.causal,
                                     lengths=mask.to(torch.int32).sum(dim=-1),
@@ -159,7 +165,8 @@ class MultiHeadAttention(Layer):
             if mask is not None:
                 key_mask = mask[:, None, None, :].to(torch.bool)
                 attn_mask = key_mask if attn_mask is None else attn_mask & key_mask
-            y = dot_product_attention(q, k, v, mask=attn_mask)
+            y = dot_product_attention(q, k, v, mask=attn_mask,
+                                      dropout_rate=drop, dropout_rng=rng)
         y = y.reshape(B, T, D) @ params["w_o"] + params["b_o"]
         return y, state, mask
 
@@ -186,6 +193,8 @@ class TransformerEncoderBlock(Layer):
     ragged: bool = False
 
     def _mha(self) -> MultiHeadAttention:
+        # attention dropout is MultiHeadAttention's own field: the block's
+        # dropout_rate acts on the MLP branch only, as in the reference
         return MultiHeadAttention(num_heads=self.num_heads, causal=self.causal,
                                   flash=self.flash, ring=self.ring,
                                   rope=self.rope, rope_base=self.rope_base,
@@ -213,11 +222,12 @@ class TransformerEncoderBlock(Layer):
         }, {}
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
-        no_training_dropout(self, self.dropout_rate, training)
         if self.remat and torch.is_grad_enabled():
-            y = torch.utils.checkpoint.checkpoint(
-                lambda p, x_: self._body(p, x_, rng, mask, training),
-                params, x, use_reentrant=False)
+            body = lambda p, x_: self._body(p, x_, rng, mask, training)
+            if training and self.dropout_rate > 0:
+                body = rewinding(body, rng)
+            y = torch.utils.checkpoint.checkpoint(body, params, x,
+                                                  use_reentrant=False)
         else:
             y = self._body(params, x, rng, mask, training)
         return y, state, mask
@@ -231,6 +241,8 @@ class TransformerEncoderBlock(Layer):
         act = activations.get(self.activation)
         m = act(h @ params["w_up"] + params["b_up"]) @ params["w_down"] \
             + params["b_down"]
+        if training and self.dropout_rate > 0 and rng is not None:
+            m = regularization.dropout(rng, m, self.dropout_rate)
         return x + m
 
 

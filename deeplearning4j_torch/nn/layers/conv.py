@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops import activations, initializers
-from ..api import Layer, Shape, no_training_dropout, register_layer
+from ..api import Layer, Shape, apply_input_dropout, register_layer
 
 IntPair = Union[int, Sequence[int]]
 
@@ -122,7 +122,7 @@ class Conv2D(Layer):
         return params, {}
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
-        no_training_dropout(self, self.dropout, training)
+        x = apply_input_dropout(self, x, rng, training)
         kernel, stride = _pair(self.kernel), _pair(self.stride)
         dilation = _pair(self.dilation)
         (ph_lo, ph_hi), (pw_lo, pw_hi) = _pads(x.shape[1:3], kernel, stride,

@@ -1,6 +1,10 @@
 """Core layers — counterpart of ``deeplearning4j_tpu/nn/layers/core.py``
-(Dense, ActivationLayer, EmbeddingSequence, Output, RnnOutput). Dense weights are (in, out),
-as in the reference, so params cross between the packages unchanged.
+(Dense, ActivationLayer, DropoutLayer, GaussianNoise, GaussianDropout,
+AlphaDropout, EmbeddingSequence, Output, RnnOutput). Dense weights are
+(in, out), as in the reference, so params cross between the packages
+unchanged. Dense and Output apply their ``dropout`` to their input in
+training; the noise layers draw from the ``rng`` generator in training and
+are the identity otherwise.
 Output layers score with the reference's fusion: softmax + MCXENT becomes
 ``mcxent_logits`` on the preactivation.
 """
@@ -11,8 +15,9 @@ from dataclasses import dataclass
 
 import torch
 
-from ...ops import activations, initializers, losses
-from ..api import Layer, Shape, no_training_dropout, register_layer
+from ...ops import activations, initializers, losses, regularization
+from ...ops.activations import weak_scalar
+from ..api import Layer, Shape, apply_input_dropout, register_layer
 
 
 def _dense_params(layer, gen, n_in, n_out, use_bias, dtype, device):
@@ -41,7 +46,7 @@ class Dense(Layer):
                              self.use_bias, dtype, device), {}
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
-        no_training_dropout(self, self.dropout, training)
+        x = apply_input_dropout(self, x, rng, training)
         y = x @ params["w"]
         if self.use_bias:
             y = y + params["b"]
@@ -57,6 +62,89 @@ class ActivationLayer(Layer):
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
         return activations.get(self.activation)(x), state, mask
+
+
+def _needs_rng(layer, rng, training: bool) -> None:
+    if training and rng is None:
+        raise ValueError(f"{type(layer).__name__} needs rng in training mode")
+
+
+def _check_rate(layer_name: str, rate: float):
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"{layer_name} rate must be in [0, 1), got {rate}")
+
+
+@register_layer
+@dataclass(frozen=True)
+class DropoutLayer(Layer):
+    """A standalone dropout layer (DropoutLayer.java); ``rate`` is the
+    drop probability."""
+
+    rate: float = 0.5
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        _needs_rng(self, rng, training)
+        return regularization.dropout(rng, x, self.rate, training), state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class GaussianNoise(Layer):
+    """Additive zero-mean Gaussian noise in training
+    (conf/dropout/GaussianNoise.java)."""
+
+    stddev: float = 0.1
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        if training:
+            _needs_rng(self, rng, training)
+            x = regularization.gaussian_noise(rng, x, self.stddev)
+        return x, state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class GaussianDropout(Layer):
+    """Multiplicative 1-mean Gaussian noise of stddev
+    sqrt(rate / (1 - rate)) (conf/dropout/GaussianDropout.java)."""
+
+    rate: float = 0.5
+
+    def __post_init__(self):
+        _check_rate("GaussianDropout", self.rate)
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        if training and self.rate > 0.0:
+            _needs_rng(self, rng, training)
+            std = weak_scalar((self.rate / (1.0 - self.rate)) ** 0.5, x.dtype)
+            x = x * (1.0 + std * regularization.normal_like(rng, x))
+        return x, state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class AlphaDropout(Layer):
+    """SELU-preserving dropout (conf/dropout/AlphaDropout.java): dropped
+    units take alpha' and the output is rescaled affinely, with the
+    reference layer's constants."""
+
+    rate: float = 0.5
+
+    def __post_init__(self):
+        _check_rate("AlphaDropout", self.rate)
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        if training and self.rate > 0.0:
+            _needs_rng(self, rng, training)
+            alpha_p = -1.7580993408473766  # -alpha*lambda of SELU
+            q = 1.0 - self.rate
+            a = float((q + alpha_p ** 2 * q * self.rate) ** -0.5)
+            b = float(-a * alpha_p * self.rate)
+            kept = regularization.uniform(rng, x.shape, x.device) < q
+            dt = x.dtype
+            x = weak_scalar(a, dt) * torch.where(kept, x, torch.full(
+                (), alpha_p, dtype=dt, device=x.device)) + weak_scalar(b, dt)
+        return x, state, mask
 
 
 @register_layer
@@ -130,7 +218,7 @@ class Output(Layer, _LossMixin):
         return y
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
-        no_training_dropout(self, self.dropout, training)
+        x = apply_input_dropout(self, x, rng, training)
         return (activations.get(self.activation)(self.preactivation(params, x)),
                 state, mask)
 

@@ -32,7 +32,8 @@ import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.losses import reduction_mass
-from .api import Layer, Params, Shape, State, layer_from_dict
+from .api import (Layer, Params, Shape, State, draws_random, layer_from_dict,
+                  rewinding)
 from .vertices import GraphVertex, vertex_from_dict
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -96,13 +97,16 @@ def _apply_layer(cfg: NetConfig, layer: Layer, p, s, x, *, training, rng,
     """One layer, checkpointed when ``cfg.remat`` asks for it — unless the
     layer checkpoints itself (its own ``remat=True``): nesting would
     recompute twice for no memory saved. Checkpointing only applies while
-    autograd records."""
+    autograd records; a layer that draws from ``rng`` recomputes with the
+    draws of its forward (:func:`rewinding`)."""
     if cfg.remat and not getattr(layer, "remat", False) \
             and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(
-            lambda p_, x_: layer.apply(p_, s, x_, training=training, rng=rng,
-                                       mask=mask),
-            p, x, use_reentrant=False)
+        fn = lambda p_, x_: layer.apply(p_, s, x_, training=training,
+                                        rng=rng, mask=mask)
+        if training and draws_random(layer):
+            fn = rewinding(fn, rng)
+        return torch.utils.checkpoint.checkpoint(fn, p, x,
+                                                 use_reentrant=False)
     return layer.apply(p, s, x, training=training, rng=rng, mask=mask)
 
 

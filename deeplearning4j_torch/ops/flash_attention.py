@@ -400,8 +400,13 @@ def flash_attention(q, k, v, *, causal: bool = False,
     def to_bh(a):
         return a.permute(0, 2, 1, 3).reshape(B * H, T, D)
 
-    lens_bh = None if lengths is None else lengths.repeat_interleave(H)
-    km_bh = None if key_mask is None else key_mask.repeat_interleave(H, dim=0)
+    # each example's lengths or key mask for its H heads: an expand and a
+    # copy, whose size is known on the host (no sync, so a CUDA graph can
+    # capture it)
+    lens_bh = None if lengths is None else \
+        lengths[:, None].expand(B, H).reshape(B * H)
+    km_bh = None if key_mask is None else \
+        key_mask[:, None].expand(B, H, T).reshape(B * H, T)
     o, _ = _FlashAttention.apply(to_bh(q), to_bh(k), to_bh(v), lens_bh, km_bh,
                                  scale, causal, window or 0)
     return o.reshape(B, H, T, D).permute(0, 2, 1, 3)

@@ -6,7 +6,9 @@ PerformanceListener).
 Listeners observe between steps (``iteration_done``) and at epoch edges.
 The loss of step k is a tensor on the card; :class:`DeferredScoreReporter`
 reads it back only after step k+1 has been dispatched, so the host's
-``.item()`` never leaves the card idle between steps.
+``.item()`` never leaves the card idle between steps. Under
+``steps_per_execution`` a window of K steps is reported the same way,
+its K losses read back together after the next dispatch.
 """
 
 from __future__ import annotations
@@ -60,20 +62,32 @@ class DeferredScoreReporter:
     def flush(self):
         if self._pending is None:
             return
-        it_idx, epoch, loss_dev = self._pending
+        it_idx, epoch, loss_dev, window = self._pending
         self._pending = None
-        lossf = self.reduce(loss_dev)
-        for lst in self.listeners:
-            lst.iteration_done(self.trainer, it_idx, epoch, lossf)
+        # a window's (K,) losses come back in one read
+        losses = loss_dev.tolist() if window else [self.reduce(loss_dev)]
+        for i, lossf in enumerate(losses):
+            for lst in self.listeners:
+                lst.iteration_done(self.trainer, it_idx + i, epoch, lossf)
+
+    def _hold(self, pending):
+        if self.lagged:
+            self.flush()  # the PREVIOUS dispatch, while this one runs
+            self._pending = pending
+        else:
+            self._pending = pending
+            self.flush()
 
     def report(self, iteration: int, epoch: int, loss_dev):
         """Call right after dispatching ``iteration``'s step."""
-        if self.lagged:
-            self.flush()  # the PREVIOUS iteration, while this one runs
-            self._pending = (iteration, epoch, loss_dev)
-        else:
-            self._pending = (iteration, epoch, loss_dev)
-            self.flush()
+        self._hold((iteration, epoch, loss_dev, False))
+
+    def report_window(self, first_iteration: int, epoch: int, losses_dev):
+        """Call right after dispatching a window of K steps whose (K,)
+        device losses are ``losses_dev`` (iterations ``first_iteration``
+        to ``first_iteration + K - 1``): each is reported in order, all
+        read back at once."""
+        self._hold((first_iteration, epoch, losses_dev, True))
 
 
 class ScoreIterationListener(TrainingListener):

@@ -8,13 +8,25 @@ The reference jits it with the params' buffers donated; here the params
 are leaf tensors that the step updates in place under ``no_grad``, which
 is the same thing on the card: no second copy of the params. The step
 runs on the model's device (the card unless the model was built with
-``device="cpu"``); each batch moves there inside the step.
+``device="cpu"``); each batch gets there through ``staging.BatchStager``
+(pinned buffers and a ``non_blocking`` copy on a copy stream).
 
-``fit`` is the plain-step path with prefetch and deferred loss readback.
+``fit`` is the plain-step path with prefetch and deferred loss readback,
+and the reference's two ways to batch work per update or per dispatch:
+
+- ``Trainer(grad_accum=N)``: each batch as N sequential microbatches,
+  their gradients summed weighted by each microbatch's loss-reduction
+  mass, net state threaded through them, one updater call (the
+  reference's ``_make_accum_step``; eager here on every device);
+- ``fit(steps_per_execution=K)``: K steps as one program. On the card it
+  is a CUDA graph, captured once per batch signature and replayed once per
+  window of K batches; on the CPU the same K steps run eagerly through the
+  same code (:meth:`Trainer._k_steps`).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, Queue
-1): ``grad_accum``, ``steps_per_execution``, truncated BPTT, ``mesh=``,
-``telemetry=``, ``Frozen`` layers, and a multi-input Graph fed
-``MultiDataSet``-style batches (a list or dict of feature arrays).
+1): truncated BPTT, ``mesh=``, ``telemetry=``, ``Frozen`` layers, and a
+multi-input Graph fed ``MultiDataSet``-style batches (a list or dict of
+feature arrays).
 """
 
 from __future__ import annotations
@@ -29,9 +41,47 @@ from ..ops import updaters as upd
 from ..ops.updaters import Transform, tree_leaves
 from .listeners import DeferredScoreReporter, PerformanceListener, TrainingListener
 from .serialization import load_model, load_opt_state, save_model
+from .staging import BatchStager
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: slice 2 left-outs)"
 _NOT_PORTED_GRAPH = "not ported yet (ROADMAP.md, Queue 1: slice 3 left-outs)"
+
+
+def accum_supported(model, mask, label_mask) -> bool:
+    """Whether ``grad_accum``'s microbatch accumulation is exact for this
+    batch (the reference's rule): unmasked batches always; a masked
+    ``Sequential`` through mass-weighted recombination (one effective loss
+    mask); a masked ``Graph`` never (per-output masks would need
+    per-output masses). Otherwise the batch takes the plain step."""
+    if mask is None and label_mask is None:
+        return True
+    if not isinstance(model, Sequential):
+        return False
+    return not any(getattr(l, "aux_loss_weight", None) is not None
+                   for l in model.layers)
+
+
+def _clone_tree(tree):
+    return upd.tree_unflatten(tree, [
+        t.detach().clone().requires_grad_(t.requires_grad)
+        for t in tree_leaves(tree)])
+
+
+def _batch_sig(parts) -> tuple:
+    """Shapes and dtypes of a staged (x, y, mask, label mask): the batches
+    of one captured window must agree on it."""
+    return tuple(None if t is None else (tuple(t.shape), t.dtype)
+                 for t in parts)
+
+
+class _Captured:
+    """K training steps captured as one CUDA graph for one batch
+    signature: the slot buffers it reads the K batches from ((K, ...) per
+    part, None where the signature has no such part) and the (K,) losses
+    it writes."""
+
+    def __init__(self, graph, slots, losses):
+        self.graph, self.slots, self.losses = graph, slots, losses
 
 
 def _leaf_owners(tree) -> List[str]:
@@ -101,11 +151,10 @@ class Trainer:
                  seed: int = 0, mesh=None, rules=None, grad_accum: int = 1):
         if mesh is not None or rules is not None:
             raise NotImplementedError(f"training over a mesh is {_NOT_PORTED}")
-        if int(grad_accum) != 1:
-            raise NotImplementedError(f"grad_accum is {_NOT_PORTED}")
         if getattr(model.config, "tbptt_length", 0):
             raise NotImplementedError(f"truncated BPTT is {_NOT_PORTED}")
         self.model = model
+        self.grad_accum = max(1, int(grad_accum))
         self.tx = updater if updater is not None else build_updater(model)
         if model.params is None:
             model.init()
@@ -121,18 +170,21 @@ class Trainer:
         self.epoch = 0
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
-
-    def _to_device(self, a):
-        if isinstance(a, (list, tuple)):
-            return [self._to_device(t) for t in a]
-        return None if a is None else torch.as_tensor(a, device=self.device)
+        self._stage = BatchStager(self.device)
+        # steps_per_execution: windows run, CUDA graphs captured (one per
+        # batch signature), the trees the graphs read and write in place
+        self.windows = 0
+        self.captures = 0
+        self._graphs: Dict[tuple, _Captured] = {}
+        self._graph_stream = None
+        self._static = None
 
     def step(self, params, opt_state, net_state, x, y, gen=None, mask=None,
              label_mask=None):
         """One training step on one batch: returns ``(params, opt_state,
         net_state, loss)`` with the params updated in place and the loss a
         0-d tensor on the device (not read back)."""
-        x, y, mask, label_mask = (self._to_device(a)
+        x, y, mask, label_mask = (self._stage(a)
                                   for a in (x, y, mask, label_mask))
         leaves = tree_leaves(params)
         trained = [p for p in leaves if p.requires_grad]
@@ -141,6 +193,12 @@ class Trainer:
                                      training=True, rng=gen, mask=mask,
                                      label_mask=label_mask)
             grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        opt_state = self._apply_update(leaves, grads, opt_state)
+        return params, opt_state, new_state, loss.detach()
+
+    def _apply_update(self, leaves, grads, opt_state):
+        """The updater on the trained leaves' gradients (zeros for the
+        others and for unused params), added to the params in place."""
         grads = iter(grads)
         with torch.no_grad():
             full = []
@@ -149,7 +207,73 @@ class Trainer:
                 full.append(torch.zeros_like(p) if g is None else g)
             updates, opt_state = self.tx.update(full, opt_state, leaves)
             torch._foreach_add_(leaves, list(updates))
-        return params, opt_state, new_state, loss.detach()
+        return opt_state
+
+    def accum_step(self, params, opt_state, net_state, x, y, gen=None,
+                   mask=None, label_mask=None):
+        """One update from ``grad_accum`` sequential microbatches of one
+        batch (rows split in order, as the reference reshapes them): each
+        microbatch's loss and gradients weigh in by its loss-reduction
+        mass (``Sequential.score(with_mass=True)``; 1 for a Graph), the
+        sums are divided by the total mass clamped at 1 (an all-masked
+        batch gives 0, not NaN), the net state is threaded through every
+        microbatch, and the updater runs once. Same return as
+        :meth:`step`; the batch must divide by ``grad_accum``."""
+        x, y, mask, label_mask = (self._stage(a)
+                                  for a in (x, y, mask, label_mask))
+        n = self.grad_accum
+        mb = x.shape[0] // n
+        leaves = tree_leaves(params)
+        trained = [p for p in leaves if p.requires_grad]
+        zero = torch.zeros((), dtype=torch.float32, device=self.device)
+        g_sum, loss_sum, w_sum = None, zero, zero
+        for i in range(n):
+            rows = slice(i * mb, (i + 1) * mb)
+            part = [None if t is None else t[rows]
+                    for t in (x, y, mask, label_mask)]
+            with torch.enable_grad():
+                if isinstance(self.model, Sequential):
+                    loss, net_state, w = self.model.score(
+                        params, net_state, part[0], part[1], training=True,
+                        rng=gen, mask=part[2], label_mask=part[3],
+                        with_mass=True)
+                    w = w.to(device=self.device, dtype=torch.float32)
+                else:
+                    loss, net_state = _score(
+                        self.model, params, net_state, part[0], part[1],
+                        training=True, rng=gen, mask=part[2],
+                        label_mask=part[3])
+                    w = torch.ones((), dtype=torch.float32,
+                                   device=self.device)
+                wloss = loss * w
+                grads = torch.autograd.grad(wloss, trained,
+                                            allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(trained, grads)]
+            g_sum = grads if g_sum is None else [a + b for a, b in
+                                                 zip(g_sum, grads)]
+            loss_sum = loss_sum + wloss.detach()
+            w_sum = w_sum + w
+        w_sum = torch.clamp(w_sum, min=1.0)
+        opt_state = self._apply_update(leaves, [g / w_sum for g in g_sum],
+                                       opt_state)
+        return params, opt_state, net_state, loss_sum / w_sum
+
+    def _dispatch_train_step(self, x, y, mask, label_mask):
+        """One batch through :meth:`accum_step` when ``grad_accum`` > 1,
+        the batch divides by it and :func:`accum_supported` holds, else
+        through :meth:`step` (one update either way). Returns the device
+        loss."""
+        x, y, mask, label_mask = (self._stage(a)
+                                  for a in (x, y, mask, label_mask))
+        fn = self.step
+        if self.grad_accum > 1 and x.shape[0] % self.grad_accum == 0 \
+                and accum_supported(self.model, mask, label_mask):
+            fn = self.accum_step
+        self.params, self.opt_state, self.state, loss = fn(
+            self.params, self.opt_state, self.state, x, y, self._gen, mask,
+            label_mask)
+        return loss
 
     def fit(self, iterator, epochs: int = 1,
             listeners: Sequence[TrainingListener] = (), prefetch: bool = True,
@@ -158,14 +282,28 @@ class Trainer:
         is read back only after iteration k+1 has been dispatched (unless a
         listener needs in-order reporting); every iteration is reported to
         the listeners exactly once, in order. ``prefetch`` draws batches on
-        a background thread."""
-        if int(steps_per_execution) != 1:
-            raise NotImplementedError(f"steps_per_execution is {_NOT_PORTED}")
+        a background thread.
+
+        ``steps_per_execution=K`` (K > 1) runs K steps as one program
+        (:meth:`_exec_window`), with the reference's rules: iteration 0
+        always runs alone (a layer may add net state on its first training
+        step); batches are buffered K at a time and run as singles when
+        their signatures differ or at a ragged epoch tail; one
+        ``PerformanceListener.step_begin`` gets the window's total samples.
+        It is off with ``grad_accum`` > 1 and with any listener that
+        ``requires_sync`` or ``snapshots_state`` (under a window such a
+        listener would act or read up to K steps late)."""
         if telemetry is not None or any(getattr(l, "telemetry", None) is not None
                                         for l in listeners):
             raise NotImplementedError(f"step telemetry is {_NOT_PORTED}")
         reporter = DeferredScoreReporter(self, listeners)
         perf = [l for l in listeners if isinstance(l, PerformanceListener)]
+        spe = max(1, int(steps_per_execution))
+        use_window = (spe > 1 and self.grad_accum == 1
+                      and not any(getattr(l, "requires_sync", False)
+                                  or getattr(l, "snapshots_state", False)
+                                  for l in listeners))
+        buf: List[tuple] = []
         for epoch in range(epochs):
             self.epoch = epoch
             for lst in listeners:
@@ -176,13 +314,20 @@ class Trainer:
                     raise NotImplementedError(
                         f"multi-input (MultiDataSet) batches are "
                         f"{_NOT_PORTED_GRAPH}")
-                for lst in perf:
-                    lst.step_begin(ds.num_examples)
-                self.params, self.opt_state, self.state, loss = self.step(
-                    self.params, self.opt_state, self.state, ds.features,
-                    ds.labels, self._gen, ds.features_mask, ds.labels_mask)
-                reporter.report(self.iteration, epoch, loss)
-                self.iteration += 1
+                batch = (ds.features, ds.labels, ds.features_mask,
+                         ds.labels_mask)
+                if use_window and self.iteration > 0:
+                    buf.append((tuple(self._stage(a) for a in batch),
+                                ds.num_examples))
+                    if len(buf) == spe:
+                        self._exec_window(buf, reporter, epoch, perf)
+                        buf.clear()
+                    continue
+                self._exec_singles([(batch, ds.num_examples)], reporter,
+                                   epoch, perf)
+            if buf:  # ragged tail: fewer than K buffered at epoch end
+                self._exec_singles(buf, reporter, epoch, perf)
+                buf.clear()
             reporter.flush()
             if hasattr(iterator, "reset"):
                 iterator.reset()
@@ -191,6 +336,157 @@ class Trainer:
         self.model.params, self.model.state = self.params, self.state
         return self
 
+    def _exec_singles(self, buf, reporter, epoch, perf):
+        """Buffered batches through the single-batch step, in order."""
+        for batch, n in buf:
+            for lst in perf:
+                lst.step_begin(n)
+            loss = self._dispatch_train_step(*batch)
+            reporter.report(self.iteration, epoch, loss)
+            self.iteration += 1
+
+    def _exec_window(self, buf, reporter, epoch, perf):
+        """K buffered batches as one program: a CUDA graph replay on the
+        card (:meth:`_replay`), the same K steps eagerly on the CPU. Runs
+        them as singles when their signatures differ."""
+        batches = [b for b, _ in buf]
+        if len({_batch_sig(b) for b in batches}) > 1:
+            self._exec_singles(buf, reporter, epoch, perf)
+            return
+        for lst in perf:
+            lst.step_begin(sum(n for _, n in buf))
+        if self.device.type == "cuda":
+            losses = self._replay(batches)
+        else:
+            slots = self._slots(batches)
+            losses = torch.empty(len(batches), dtype=torch.float32,
+                                 device=self.device)
+            self.params, self.opt_state, self.state = self._k_steps(
+                self.params, self.opt_state, self.state, slots, losses)
+        self.windows += 1
+        reporter.report_window(self.iteration, epoch, losses)
+        self.iteration += len(batches)
+
+    @staticmethod
+    def _slots(batches, out=None):
+        """The K batches stacked part by part into (K, ...) tensors (into
+        ``out``'s when given); None for a part the batches lack."""
+        slots = []
+        for j, parts in enumerate(zip(*batches)):
+            if parts[0] is None:
+                slots.append(None)
+            elif out is None:
+                slots.append(torch.stack(parts))
+            else:
+                slots.append(torch.stack(parts, out=out[j]))
+        return slots
+
+    def _k_steps(self, params, opt_state, net_state, slots, losses):
+        """K training steps, batch i from slot i of each part, loss i
+        written into ``losses[i]``: the body of a window on every device
+        (captured on the card). Returns the final trees."""
+        xs, ys, fms, lms = slots
+        for i in range(losses.shape[0]):
+            params, opt_state, net_state, loss = self.step(
+                params, opt_state, net_state, xs[i], ys[i], self._gen,
+                None if fms is None else fms[i],
+                None if lms is None else lms[i])
+            losses[i].copy_(loss)
+        return params, opt_state, net_state
+
+    # --- steps_per_execution on the card: one CUDA graph per signature ---
+
+    def _adopt(self):
+        """Make the live trees the ones the graphs read and write in place
+        (the first live trees seen): a step outside a graph (iteration 0,
+        a batch run alone) leaves new updater-state and net-state tensors,
+        whose values are copied in here."""
+        live = (self.params, self.opt_state, self.state)
+        if self._static is None:
+            self._static = live
+            return
+        with torch.no_grad():
+            for static, new in zip(self._static, live):
+                if static is new:
+                    continue
+                a, b = tree_leaves(static), tree_leaves(new)
+                if [(t.shape, t.dtype) for t in a] != \
+                        [(t.shape, t.dtype) for t in b]:
+                    raise RuntimeError("the trainer's state changed its "
+                                       "structure since a step was captured")
+                for dst, src in zip(a, b):
+                    dst.copy_(src)
+        self.params, self.opt_state, self.state = self._static
+
+    def _warm_up(self, slots):
+        """One step on copies of the params and states, with the first
+        slot's batch, on the graph stream before a capture (as CUDA
+        graphs are warmed up): what a library or a kernel wrapper makes
+        lazily for a stream (workspaces, K4a's ticketed workspace) is then
+        made outside the capture. The generator is put back, so training
+        draws what it would have; the copies are dropped."""
+        params, opt_state, net_state = (_clone_tree(t) for t in self._static)
+        gen_state = self._gen.get_state()
+        self.step(params, opt_state, net_state,
+                  *(None if s is None else s[0] for s in slots[:2]),
+                  self._gen, *(None if s is None else s[0] for s in slots[2:]))
+        self._gen.set_state(gen_state)
+
+    def _capture(self, batches) -> _Captured:
+        """Capture :meth:`_k_steps` over slot buffers for these batches'
+        signature, on the trainer's graph stream, after a warm-up step;
+        the graph ends by copying the final updater and net state into
+        the trees it started from, so a replay updates them in place. The
+        trainer's generator is registered with the graph, so each replay
+        draws new dropout masks."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        gs = self._graph_stream
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                "this PyTorch's CUDAGraph has no register_generator_state: "
+                "a captured step would replay the same dropout masks")
+        self._adopt()
+        slots = self._slots(batches)
+        losses = torch.empty(len(batches), dtype=torch.float32,
+                             device=self.device)
+        gs.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(gs):
+            self._warm_up(slots)
+        graph.register_generator_state(self._gen)
+        params, opt_state, net_state = self._static
+        with torch.cuda.graph(graph, stream=gs):
+            _, opt_end, state_end = self._k_steps(
+                params, opt_state, net_state, slots, losses)
+            with torch.no_grad():
+                for dst, src in zip(tree_leaves((opt_state, net_state)),
+                                    tree_leaves((opt_end, state_end))):
+                    if dst is not src:
+                        dst.copy_(src)
+        torch.cuda.current_stream(self.device).wait_stream(gs)
+        self.captures += 1
+        return _Captured(graph, slots, losses)
+
+    def _replay(self, batches) -> torch.Tensor:
+        """One window on the card: the signature's graph (captured first
+        if new), its slots filled with the K staged batches, one replay on
+        the graph stream. Returns a copy of the (K,) losses."""
+        sig = _batch_sig(batches[0])
+        cap = self._graphs.get(sig)
+        if cap is None:
+            cap = self._graphs[sig] = self._capture(batches)
+        self._adopt()
+        self._slots(batches, out=cap.slots)
+        user = torch.cuda.current_stream(self.device)
+        gs = self._graph_stream
+        gs.wait_stream(user)
+        with torch.cuda.stream(gs):
+            cap.graph.replay()
+            losses = cap.losses.clone()
+        user.wait_stream(gs)
+        return losses
+
     def score_iterator(self, iterator) -> float:
         """Average loss over an iterator (model.score(DataSetIterator))."""
         total, n = 0.0, 0
@@ -198,10 +494,10 @@ class Trainer:
             for ds in iterator:
                 loss, _ = _score(
                     self.model, self.params, self.state,
-                    self._to_device(ds.features), self._to_device(ds.labels),
+                    self._stage(ds.features), self._stage(ds.labels),
                     training=False, rng=None,
-                    mask=self._to_device(ds.features_mask),
-                    label_mask=self._to_device(ds.labels_mask))
+                    mask=self._stage(ds.features_mask),
+                    label_mask=self._stage(ds.labels_mask))
                 total += float(loss)
                 n += 1
         if hasattr(iterator, "reset"):

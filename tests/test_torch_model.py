@@ -269,15 +269,24 @@ def test_embedding_sequence_matches_reference():
     TL.TransformerEncoderBlock(num_heads=2, dropout_rate=0.1),
 ], ids=["input_dropout", "attn_dropout", "block_dropout"])
 def test_training_time_dropout_is_refused(layer):
-    """Forward only: a training forward that would drop raises instead of
-    silently skipping the dropout; inference runs."""
+    """Forward only: training-time dropout is never silently skipped. With
+    a generator the training forward drops (its output differs from
+    inference's); an input dropout with no generator is refused, as the
+    reference refuses it (attention and block dropout then drop nothing,
+    as the reference's do); inference runs."""
     params, _ = layer.init(torch.Generator().manual_seed(0), (4, 8))
-    x = torch.zeros((1, 4, 8))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        layer.apply(params, {}, x, training=True,
-                    rng=torch.Generator().manual_seed(1))
+    x = torch.linspace(-1.0, 1.0, 32).reshape(1, 4, 8)
     y, _, _ = layer.apply(params, {}, x)
     assert torch.isfinite(y).all()
+    y_train, _, _ = layer.apply(params, {}, x, training=True,
+                                rng=torch.Generator().manual_seed(1))
+    assert torch.isfinite(y_train).all() and not torch.equal(y_train, y)
+    if layer.dropout is not None:
+        with pytest.raises(ValueError, match="dropout but no rng"):
+            layer.apply(params, {}, x, training=True)
+    else:
+        y_none, _, _ = layer.apply(params, {}, x, training=True)
+        assert torch.equal(y_none, y)
 
 
 class TestDevice:

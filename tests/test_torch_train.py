@@ -35,7 +35,7 @@ import torch
 from deeplearning4j_torch.data import ArrayIterator, AsyncIterator, DataSet
 from deeplearning4j_torch.models import CausalLM
 from deeplearning4j_torch.nn import layers as TL
-from deeplearning4j_torch.nn.model import NetConfig, Sequential
+from deeplearning4j_torch.nn.model import GraphBuilder, NetConfig, Sequential
 from deeplearning4j_torch.ops import losses, schedules, updaters
 from deeplearning4j_torch.ops.updaters import tree_leaves
 from deeplearning4j_torch.train import (CollectScoresListener,
@@ -45,7 +45,9 @@ from deeplearning4j_torch.train import (CollectScoresListener,
                                         TrainingListener, load_opt_state,
                                         opt_state_from_numpy,
                                         params_from_numpy)
+from deeplearning4j_torch.train.trainer import accum_supported
 from deeplearning4j_tpu.data.iterators import ArrayIterator as JArrayIterator
+from deeplearning4j_tpu.data.iterators import DataSet as JDataSet
 from deeplearning4j_tpu.models import CausalLM as JCausalLM
 from deeplearning4j_tpu.nn import layers as JL
 from deeplearning4j_tpu.nn.model import NetConfig as JNetConfig
@@ -614,31 +616,353 @@ def test_fit_reports_in_order_with_epochs(reference_params, lm_batch):
     assert sum("score" in s for s in logged) == 3
 
 
+# ------------------------------------------- grad_accum (mirrors the JAX
+# package's TestGradAccum, tests/test_train.py)
+ACCUM_RTOL, ACCUM_ATOL = 2e-5, 1e-6  # the reference's own accum tolerance
+
+
+def _pair(build):
+    """A JAX model and the port's with the JAX model's params: ``build``
+    takes a layers module, a Sequential class, a NetConfig class and the
+    port's device keywords."""
+    jm = build(JL, JSequential, JNetConfig, {})
+    jm.init()
+    tm = build(TL, Sequential, NetConfig, {"device": "cpu"})
+    tm.params = params_from_numpy(tm, _np_tree(jm.params))
+    tm.state = ({k: {n: torch.from_numpy(np.array(a)) for n, a in v.items()}
+                 for k, v in _np_tree(jm.state).items()} if jm.state else {})
+    return jm, tm
+
+
+def _blob_net(L, Seq, NC, kw, bn=False, drop=0.0):
+    layers = [L.Dense(n_out=12, activation="relu")]
+    if bn:
+        layers.append(L.BatchNorm())
+    if drop:
+        layers.append(L.DropoutLayer(rate=drop))
+    layers.append(L.Output(n_out=3, activation="softmax", loss="mcxent"))
+    return Seq(NC(seed=0, updater={"type": "adam", "learning_rate": 1e-2}),
+               layers, (6,), **kw)
+
+
+def _seq_net(L, Seq, NC, kw, T=8):
+    """A per-timestep classifier (no recurrent layer): Dense over (B, T, 3)
+    features, then RnnOutput, scored with a (B, T) label mask."""
+    return Seq(NC(seed=0, updater={"type": "sgd", "learning_rate": 1e-1}),
+               [L.Dense(n_out=5, activation="relu"),
+                L.RnnOutput(n_out=2, activation="softmax", loss="mcxent")],
+               (T, 3), **kw)
+
+
+def _blobs(n=120, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, 6)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, n)]
+    return x, y
+
+
+def _seq_batch(B=8, T=8, seed=3, coverage=True):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, 3)).astype(np.float32)
+    y = np.zeros((B, T, 2), np.float32)
+    y[np.arange(B)[:, None], np.arange(T)[None, :],
+      rng.integers(0, 2, (B, T))] = 1.0
+    lm = np.ones((B, T), np.float32)
+    if coverage:
+        lm[B // 2:, 2:] = 0.0  # the 2nd microbatch carries 1/4 the mass
+    return x, y, lm
+
+
+def _fit(trainer, it, epochs=1, **kw):
+    rec = CollectScoresListener()
+    trainer.fit(it, epochs=epochs, listeners=[rec], **kw)
+    return np.array([l for _, l in rec.scores])
+
+
+def _jfit(trainer, it, epochs=1, **kw):
+    rec = JCollectScoresListener()
+    trainer.fit(it, epochs=epochs, listeners=[rec], prefetch=False, **kw)
+    return np.array([l for _, l in rec.scores])
+
+
+def _assert_params_close(got, want, rtol=ACCUM_RTOL, atol=ACCUM_ATOL):
+    """Port params against a JAX tree or another port tree."""
+    if isinstance(tree_leaves(want)[0], torch.Tensor):
+        want = [w.detach().numpy() for w in tree_leaves(want)]
+    for g, w in zip(tree_leaves(got), jax.tree_util.tree_leaves(want)):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   rtol=rtol, atol=atol)
+
+
+def _count_calls(trainer, name):
+    calls = []
+    fn = getattr(trainer, name)
+
+    def spy(*a, **k):
+        calls.append(1)
+        return fn(*a, **k)
+
+    setattr(trainer, name, spy)
+    return calls
+
+
+def test_grad_accum_unmasked_equals_big_batch_and_reference():
+    x, y = _blobs()
+    jm, tm = _pair(_blob_net)
+    plain = Trainer(_pair(_blob_net)[1])
+    _fit(plain, ArrayIterator(x, y, batch_size=60), epochs=2)
+    acc = Trainer(tm, grad_accum=2)
+    calls = _count_calls(acc, "accum_step")
+    got = _fit(acc, ArrayIterator(x, y, batch_size=60), epochs=2)
+    assert len(calls) == 4 and acc.iteration == plain.iteration == 4
+    _assert_params_close(acc.params, plain.params)
+    jt = JTrainer(jm, grad_accum=2)
+    want = _jfit(jt, JArrayIterator(x, y, batch_size=60), epochs=2)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    _assert_params_close(acc.params, jt.params)
+
+
+def test_grad_accum_masked_is_mass_weighted_like_reference():
+    """Mask coverage that varies across microbatches: the mass-weighted
+    recombination equals the single step's masked mean, and the JAX
+    package's accumulation."""
+    x, y, lm = _seq_batch()
+    one = Trainer(_pair(_seq_net)[1])
+    _fit(one, iter([DataSet(x, y, labels_mask=lm)]), prefetch=False)
+    jm, tm = _pair(_seq_net)
+    acc = Trainer(tm, grad_accum=2)
+    calls = _count_calls(acc, "accum_step")
+    got = _fit(acc, iter([DataSet(x, y, labels_mask=lm)]), prefetch=False)
+    assert len(calls) == 1
+    _assert_params_close(acc.params, one.params, rtol=1e-5)
+    jt = JTrainer(jm, grad_accum=2)
+    want = _jfit(jt, iter([JDataSet(x, y, labels_mask=lm)]))
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    _assert_params_close(acc.params, jt.params, rtol=1e-5)
+
+
+def test_grad_accum_masked_graph_takes_the_plain_step():
+    x, y, lm = _seq_batch()
+
+    def graph():
+        return (GraphBuilder(NetConfig(seed=0, updater={
+                    "type": "sgd", "learning_rate": 1e-1}), device="cpu")
+                .add_input("in", (8, 3))
+                .add_layer("d", TL.Dense(n_out=5, activation="relu"), "in")
+                .add_layer("out", TL.RnnOutput(n_out=2, activation="softmax",
+                                               loss="mcxent"), "d")
+                .set_outputs("out").build())
+
+    g = graph()
+    g.init(seed=4)
+    g2 = graph()
+    g2.params = {k: {n: t.clone() for n, t in v.items()}
+                 for k, v in g.params.items()}
+    g2.state = {}
+    acc, plain = Trainer(g, grad_accum=2), Trainer(g2)
+    calls = _count_calls(acc, "accum_step")
+    for t in (acc, plain):
+        t.fit(iter([DataSet(x, y, labels_mask=lm)]), prefetch=False)
+    assert calls == [] and acc.iteration == 1
+    for a, b in zip(tree_leaves(acc.params), tree_leaves(plain.params)):
+        assert torch.equal(a, b)
+    assert not accum_supported(g, None, lm)
+    assert accum_supported(g, None, None)
+
+
+def test_grad_accum_indivisible_batch_takes_the_plain_step():
+    x, y = _blobs(150)  # batch 40: 40, 40, 40, 30 (30 % 4 != 0)
+    tr = Trainer(_pair(_blob_net)[1], grad_accum=4)
+    accum, plain = _count_calls(tr, "accum_step"), _count_calls(tr, "step")
+    _fit(tr, ArrayIterator(x, y, batch_size=40))
+    assert tr.iteration == 4 and len(accum) == 3 and len(plain) == 1
+
+
+def test_grad_accum_all_masked_batch_gives_zero_not_nan():
+    x, y, _ = _seq_batch()
+    lm = np.zeros((8, 8), np.float32)
+    tm = _pair(_seq_net)[1]
+    before = [p.detach().clone() for p in tree_leaves(tm.params)]
+    tr = Trainer(tm, grad_accum=2)
+    got = _fit(tr, iter([DataSet(x, y, labels_mask=lm)]), prefetch=False)
+    assert got.tolist() == [0.0]
+    for a, b in zip(before, tree_leaves(tr.params)):
+        assert torch.equal(a, b)
+
+
+def test_grad_accum_threads_batchnorm_state_like_reference():
+    x, y = _blobs(64)
+    jm, tm = _pair(lambda *a: _blob_net(*a, bn=True))
+    tr = Trainer(tm, grad_accum=4)
+    got = _fit(tr, ArrayIterator(x, y, batch_size=32), epochs=3)
+    jt = JTrainer(jm, grad_accum=4)
+    want = _jfit(jt, JArrayIterator(x, y, batch_size=32), epochs=3)
+    assert tr.iteration == 6
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    _assert_params_close(tr.params, jt.params, rtol=1e-5)
+    for k, v in _np_tree(jt.state).items():
+        for n, a in v.items():
+            np.testing.assert_allclose(tr.state[k][n].numpy(), a, rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_grad_accum_and_steps_per_execution_exclude_each_other():
+    x, y = _blobs()
+    tr = Trainer(_pair(_blob_net)[1], grad_accum=2)
+    _fit(tr, ArrayIterator(x, y, batch_size=20), steps_per_execution=2)
+    assert tr.windows == 0 and tr.iteration == 6
+
+
+# ------------------------------ steps_per_execution (mirrors the JAX
+# package's TestStepsPerExecution, tests/test_train.py)
+def _spe_run(spe, epochs=2, n=150, batch=30, listeners=(), build=_blob_net,
+             seed=0):
+    x, y = _blobs(n, seed)
+    tr = Trainer(_pair(build)[1], seed=seed)
+    rec = CollectScoresListener()
+    tr.fit(ArrayIterator(x, y, batch_size=batch), epochs=epochs,
+           listeners=[rec, *listeners], steps_per_execution=spe)
+    return tr, rec.scores
+
+
+def test_megastep_equals_single_steps_bit_for_bit_and_reference():
+    a, sa = _spe_run(1)
+    b, sb = _spe_run(4)
+    assert a.windows == 0 and b.windows == 2  # per epoch: 1 single, 1 x 4
+    assert b.iteration == a.iteration == 10
+    assert sb == sa
+    for p, q in zip(tree_leaves(a.params), tree_leaves(b.params)):
+        assert torch.equal(p, q)
+    for p, q in zip(tree_leaves(a.opt_state), tree_leaves(b.opt_state)):
+        assert torch.equal(p, q)
+    x, y = _blobs(150)
+    jm, _ = _pair(_blob_net)
+    jt = JTrainer(jm)
+    want = _jfit(jt, JArrayIterator(x, y, batch_size=30), epochs=2,
+                 steps_per_execution=4)
+    np.testing.assert_allclose([l for _, l in sb], want, rtol=1e-5)
+    _assert_params_close(b.params, jt.params, rtol=1e-5)
+
+
+def test_megastep_reports_every_iteration_in_order():
+    tr, scores = _spe_run(3)
+    # 5 batches x 2 epochs; per epoch iteration 0 or a window of 3, then
+    # the ragged tail as singles
+    assert [i for i, _ in scores] == list(range(10))
+    assert all(np.isfinite(s) for _, s in scores)
+    assert tr.windows == 2
+
+
+def test_megastep_ragged_tail_and_signature_change_run_as_singles():
+    """4 batches of 16 and a ragged 8, with BatchNorm state and dropout
+    draws engaged: every batch trains, and the result is the single
+    steps' bit for bit."""
+    build = lambda *a: _blob_net(*a, bn=True, drop=0.25)
+    a, sa = _spe_run(1, n=72, batch=16, build=build)
+    b, sb = _spe_run(2, n=72, batch=16, build=build)
+    # per epoch: iteration 0 (epoch 0 only) alone, windows of 2, then a
+    # buffered pair whose signatures differ (16 and 8) run alone
+    assert b.iteration == a.iteration == 10 and b.windows == 3
+    assert sb == sa
+    for p, q in zip(tree_leaves((a.params, a.state)),
+                    tree_leaves((b.params, b.state))):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.parametrize("flag", ["requires_sync", "snapshots_state"])
+def test_megastep_is_off_for_sync_and_snapshot_listeners(flag):
+    lst = TrainingListener()
+    setattr(lst, flag, True)
+    tr, scores = _spe_run(4, listeners=[lst])
+    assert tr.windows == 0 and len(scores) == 10
+    tr2, _ = _spe_run(4, listeners=[TrainingListener()])
+    assert tr2.windows == 2
+
+
+def test_performance_listener_gets_one_step_begin_per_window():
+    class Spy(PerformanceListener):
+        def __init__(self):
+            super().__init__(frequency=9)
+            self.begins = []
+
+        def step_begin(self, batch_size):
+            self.begins.append(batch_size)
+            super().step_begin(batch_size)
+
+    spy = Spy()
+    _spe_run(4, epochs=1, n=90, batch=10, listeners=[spy])
+    # iteration 0 alone, two windows of 4 batches of 10
+    assert spy.begins == [10, 40, 40]
+    assert spy.samples_per_sec > 0
+
+
+# ---------------------------------------------- the graphed step (card)
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (chip_smoke.py's [breadth] phase runs "
+                    "these checks on the H100)")
+    return torch.device("cuda")
+
+
+def _card_run(device, spe, build, n=96, batch=16, seed=0, junk=False):
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    x, y = _blobs(n, seed)
+    m = build(TL, Sequential, NetConfig, {"device": device})
+    m.init(seed=5)
+    tr = Trainer(m, seed=seed)
+    rec = CollectScoresListener()
+    tr.fit(ArrayIterator(x[:batch], y[:batch], batch_size=batch),
+           listeners=[rec])
+    if junk:  # allocations between capture and replay move nothing
+        _ = [torch.empty(1 << 20, device=device) for _ in range(8)]
+    tr.fit(ArrayIterator(x, y, batch_size=batch), listeners=[rec],
+           steps_per_execution=spe)
+    return tr, [l for _, l in rec.scores]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bn", [False, True], ids=["dense", "batchnorm"])
+def test_graphed_megastep_is_bit_equal_to_eager(cuda, bn):
+    build = lambda *a: _blob_net(*a, bn=bn)
+    a, la = _card_run(cuda, 1, build)
+    b, lb = _card_run(cuda, 3, build, junk=True)
+    assert b.captures == 1 and b.windows == 2 and la == lb
+    for p, q in zip(tree_leaves((a.params, a.opt_state, a.state)),
+                    tree_leaves((b.params, b.opt_state, b.state))):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.gpu
+def test_graph_replays_draw_new_dropout_masks(cuda):
+    """lr 0: the params never move, so a loss differs from another only
+    through its dropout mask; two replays must not repeat their masks."""
+    def build(L, Seq, NC, kw):
+        return Seq(NC(seed=0, updater={"type": "sgd", "learning_rate": 0.0}),
+                   [L.Dense(n_out=64, activation="relu", dropout=0.5),
+                    L.Output(n_out=3, activation="softmax", loss="mcxent")],
+                   (6,), **kw)
+
+    tr, losses = _card_run(cuda, 2, build, n=64, batch=16)
+    assert tr.captures == 1 and tr.windows == 2
+    window1, window2 = losses[1:3], losses[3:5]
+    assert window1 != window2 and window1[0] != window1[1]
+
+
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("kw", [dict(grad_accum=2), dict(mesh=object())],
-                         ids=["grad_accum", "mesh"])
+@pytest.mark.parametrize("kw", [dict(mesh=object())], ids=["mesh"])
 def test_trainer_refuses_unported_options(reference_params, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer(_port_lm(reference_params), **kw)
 
 
-@pytest.mark.parametrize("kw", [dict(steps_per_execution=4),
-                                dict(telemetry=object())],
-                         ids=["steps_per_execution", "telemetry"])
+@pytest.mark.parametrize("kw", [dict(telemetry=object())],
+                         ids=["telemetry"])
 def test_fit_refuses_unported_options(reference_params, lm_batch, kw):
     t = Trainer(_port_lm(reference_params))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.fit(ArrayIterator(*lm_batch, batch_size=4), **kw)
-
-
-def test_training_time_dropout_still_raises(lm_batch):
-    m = Sequential(NetConfig(), [TL.Dense(n_out=4, dropout=0.5),
-                                 TL.Output(n_out=3)], (48,), device="cpu")
-    m.init()
-    x = np.zeros((2, 48), np.float32)
-    y = np.eye(3, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="dropout"):
-        Trainer(m).fit(ArrayIterator(x, y, batch_size=2))
 
 
 def test_trainer_load_without_cuda_raises(reference_params, tmp_path,

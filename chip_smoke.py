@@ -127,6 +127,27 @@ last line):
    op with no deterministic version would turn a gate into a comparison
    with two eager runs' spread, and say so. Launch counts under a graph
    are the launches captured times the replays.
+12. rnn — the recurrent path, which reaches no kernel of the port (every
+   kernel's launch count is zeroed before the phase and read after, and
+   goes into the kernels line under ``launches_by_path["rnn"]``).
+   ``GravesLSTMCharRNN(seed=0, tbptt=0)`` as ``bench.py:_breadth`` trains
+   it (2 x GravesLSTM 200, batch 128, T 64, V 98 one-hot from
+   ``np.random.RandomState(0)``, bf16 compute, rmsprop 0.1): 8 graphed
+   steps (steps_per_execution=8) bit-equal to 8 eager ones in f32 and in
+   bf16; host ms a step eager and graphed (eager, graph, graph, eager),
+   sequences/s and characters/s, device ms and operations of an eager
+   step and of a replay with the idle share, the capture's time, peak
+   memory; a step's bf16 gate sigmoids op for op against
+   ``torch.sigmoid``. Gated:
+   losses finite; on the char corpus (rmsprop 1e-3) the loss falls by 0.5
+   in 16 steps; one f32 step's gradients within 1e-4 of the CPU's from the
+   same params (TF32 off); the model's own tBPTT of 50 (a 50-step chunk
+   and a 14-step tail padded and masked) with one batch's loss within
+   1e-4 of the CPU's, ms a batch; greedy one-hot generation of 64
+   characters after 8 prompts of 16 (``TextGenerationLSTM`` and the
+   char-RNN, f32), every token the argmax of one full forward at its
+   position unless the top-two gap there is at most RNN_GEN_GAP_TOL
+   (counted), tokens/s and device ms a decode step.
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -2355,7 +2376,7 @@ def _max_diff(a, b):
 
 
 def _graph_vs_eager(build, batches, n, spe, what, between=None,
-                    wrappers=()):
+                    wrappers=(), tag="breadth"):
     """From one start (``build()`` twice: the same seed), 1 + ``n`` eager
     steps against iteration 0 alone then ``n`` steps at
     ``steps_per_execution=spe`` (``n // spe`` windows of one captured
@@ -2413,7 +2434,7 @@ def _graph_vs_eager(build, batches, n, spe, what, between=None,
               f"(ops without a deterministic version: {nondet})")
         how = (f"within two eager runs' spread {spread:.3g} (max diff "
                f"{diff:.3g}; ops without a deterministic version: {nondet})")
-    print(f"[breadth] {what}: {n} steps as {n // spe} replays of one graph "
+    print(f"[{tag}] {what}: {n} steps as {n // spe} replays of one graph "
           f"(steps_per_execution={spe}) against {n} eager steps from the "
           f"same start: losses, params, updater and net state {how}; "
           f"losses " + " ".join(f"{l:.5f}" for l in lg))
@@ -3058,6 +3079,403 @@ def phase_breadth():
             "resnet_graph_ms": rn_times}
 
 
+# --- [rnn]: the GravesLSTM char-RNN and one-hot generation ---
+RNN_B, RNN_T, RNN_V, RNN_H = 128, 64, 98, 200
+RNN_SPE = 8
+RNN_TIMED = 2 * RNN_SPE        # steps of each host-time fit
+RNN_GRAD_RTOL = 1e-4           # f32 card gradients vs the CPU's, per param
+RNN_TBPTT_RTOL = 1e-4          # f32 tBPTT batch loss, card vs CPU
+RNN_TBPTT_BATCHES = 6
+RNN_LEARN_LR, RNN_LEARN_STEPS = 1e-3, 16
+RNN_GEN_B, RNN_GEN_TP, RNN_GEN_N = 8, 16, 64
+# f32 decode against the same model's full forward: the two differ only in
+# the products' shapes (rounding near 1e-6 of a log-prob), so a top-two gap
+# above 1e-4 must give the same argmax
+RNN_GEN_GAP_TOL = 1e-4
+
+
+def _kernel_wrappers():
+    from deeplearning4j_torch.ops.batch_norm import (bn_dx, bn_reduce,
+                                                     bn_reduce_coeffs)
+    from deeplearning4j_torch.ops.flash_attention import (
+        column_broadcast_cuda, flash_bwd_dkv_cuda, flash_bwd_dq_cuda,
+        flash_fwd_cuda)
+
+    return {"K1": flash_fwd_cuda, "K2": flash_bwd_dq_cuda,
+            "K3": flash_bwd_dkv_cuda, "K4a": bn_reduce_coeffs,
+            "K4a_unfused": bn_reduce, "K4b": bn_dx,
+            "K5": column_broadcast_cuda}
+
+
+def _charrnn(compute_dtype, tbptt=0, lr=None, device=None, init=True):
+    """``GravesLSTMCharRNN(seed=0, tbptt=tbptt)`` (2 x GravesLSTM 200 over
+    (64, 98) one-hot characters, rmsprop 0.1) on ``device`` (the card
+    unless named), with its params from seed 0 when ``init``; ``lr``
+    replaces rmsprop's learning rate."""
+    from deeplearning4j_torch.models import GravesLSTMCharRNN
+
+    model = GravesLSTMCharRNN(seed=0, tbptt=tbptt, device=device).build()
+    model.config.compute_dtype = compute_dtype
+    if lr is not None:
+        model.config.updater = {"type": "rmsprop", "learning_rate": lr}
+    if init:
+        model.init(seed=0)
+    return model
+
+
+def _on_cpu(model, **kw):
+    """``_charrnn(**kw)`` on the CPU holding a copy of ``model``'s
+    params."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+
+    cpu = _charrnn(device="cpu", init=False, **kw)
+    cpu.params = tree_unflatten(model.params, [
+        t.detach().cpu().clone() for t in tree_leaves(model.params)])
+    cpu.state = {}
+    return cpu
+
+
+def _rnn_bench_batch():
+    """The bench's char-RNN batch: (128, 64) ids and labels uniform in
+    [0, 98) from ``np.random.RandomState(0)``, one-hot (f32)."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, RNN_V, (RNN_B, RNN_T))
+    x = np.eye(RNN_V, dtype=np.float32)[ids]
+    y = np.eye(RNN_V, dtype=np.float32)[rng.randint(0, RNN_V, (RNN_B, RNN_T))]
+    return x, y
+
+
+def _rnn_iter(x, y, n):
+    from deeplearning4j_torch.data import ArrayIterator
+
+    return ArrayIterator(np.tile(x, (n, 1, 1)), np.tile(y, (n, 1, 1)),
+                         batch_size=x.shape[0])
+
+
+def _rnn_flop(batch, T):
+    """Model FLOP of one char-RNN training step: 2 FLOP per multiply-add of
+    the two layers' input and recurrent products and the output layer, x 3
+    for the input and weight gradients."""
+    H, V = RNN_H, RNN_V
+    macs = batch * T * (V * 4 * H + H * 4 * H + H * 4 * H + H * 4 * H + H * V)
+    return 6 * macs
+
+
+def rnn_train(where):
+    """The bench's char-RNN (bf16 compute, rmsprop 0.1, full BPTT) on its
+    random batch. Gated: graphed steps (steps_per_execution=8) bit-equal to
+    eager ones in bf16 and in f32, losses finite. Printed: host ms a step
+    eager and graphed, sequences/s and characters/s, device ms and device
+    operations of an eager step and of a replay, the idle share, the
+    capture's time and peak memory."""
+    from deeplearning4j_torch.train import Trainer
+
+    x, y = _rnn_bench_batch()
+    batches = lambda k: _rnn_iter(x, y, k)
+    for cdt in (None, "bfloat16"):
+        eager, graphed, _ = _graph_vs_eager(
+            lambda: _charrnn(cdt), batches, RNN_SPE, RNN_SPE,
+            f"GravesLSTMCharRNN {cdt or 'float32'} batch {RNN_B}",
+            tag="rnn")
+        if cdt is None:
+            del eager, graphed
+            _release()
+    times = {"eager": [], "graph": []}
+    xb, yb = (torch.from_numpy(a).cuda() for a in (x, y))
+    window = [(xb, yb, None, None)] * RNN_SPE
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _deterministic():
+        for which in ("eager", "graph", "graph", "eager"):
+            t = eager if which == "eager" else graphed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit(batches(RNN_TIMED), steps_per_execution=1
+                  if which == "eager" else RNN_SPE)
+            torch.cuda.synchronize()
+            times[which].append(1e3 * (time.perf_counter() - t0) / RNN_TIMED)
+        peak = torch.cuda.max_memory_allocated()
+        p, o, s = eager.params, eager.opt_state, eager.state
+        step_dev, step_ops = device_ms(lambda: eager.step(p, o, s, xb, yb),
+                                       reps=3)
+        rep_dev, rep_ops = device_ms(lambda: graphed._replay(window), reps=2)
+        # a capture of its own, timed: the warm-up step and the recording
+        fresh = Trainer(_charrnn("bfloat16"))
+        fresh.fit(batches(1))
+        staged = [tuple(fresh._stage(a) for a in (xb, yb, None, None))] \
+            * RNN_SPE
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cap = fresh._capture(staged)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        del cap, fresh
+    eager_ms = statistics.median(times["eager"])
+    graph_ms = statistics.median(times["graph"])
+    flop = _rnn_flop(RNN_B, RNN_T)
+    print(f"[rnn] GravesLSTMCharRNN bf16 batch {RNN_B} x T {RNN_T} x V "
+          f"{RNN_V}, hidden {RNN_H}, rmsprop 0.1, full BPTT, on {where}: host "
+          f"ms a step over {RNN_TIMED} steps (eager, graph, graph, eager): "
+          f"eager " + ", ".join(f"{v:.3f}" for v in times["eager"])
+          + f"; steps_per_execution={RNN_SPE} "
+          + ", ".join(f"{v:.3f}" for v in times["graph"]) + " ms")
+    print(f"[rnn] throughput on {where}: eager {RNN_B / eager_ms * 1e3:.1f} "
+          f"sequences/s, {RNN_B * RNN_T / eager_ms * 1e3:.0f} characters/s; "
+          f"graphed {RNN_B / graph_ms * 1e3:.1f} sequences/s, "
+          f"{RNN_B * RNN_T / graph_ms * 1e3:.0f} characters/s")
+    print(f"[rnn] device on {where}: one eager step {step_dev:.3f} ms in "
+          f"{step_ops:.0f} device operations (idle share "
+          f"{1 - step_dev / eager_ms:.4f} of the {eager_ms:.3f} ms host "
+          f"step); one replay ({RNN_SPE} steps) {rep_dev:.3f} ms in "
+          f"{rep_ops:.0f} ({rep_dev / RNN_SPE:.3f} ms, "
+          f"{rep_ops / RNN_SPE:.1f} operations a step, the slot copies "
+          f"included; idle share {1 - rep_dev / RNN_SPE / graph_ms:.4f} of "
+          f"the {graph_ms:.3f} ms graphed host step)")
+    print(f"[rnn] capture of {RNN_SPE} steps on {where} (its warm-up step "
+          f"included): {capture_s:.3f} s; peak memory "
+          f"{peak / 2**30:.3f} GiB; model FLOP/step {flop:.4g} "
+          f"({flop / (graph_ms * 1e-3) / PEAK_BF16_FLOPS:.5f} of 989 "
+          f"TFLOP/s at the graphed step; the step's bound at that rate "
+          f"{1e3 * flop / PEAK_BF16_FLOPS:.4f} ms, so a replayed step is "
+          f"{rep_dev / RNN_SPE / (1e3 * flop / PEAK_BF16_FLOPS):.0f}x it)")
+    del eager, graphed
+    _release()
+    return {"eager_ms": times["eager"], "graph_ms": times["graph"],
+            "step_dev_ms": step_dev, "step_ops": step_ops,
+            "replay_dev_ms": rep_dev, "replay_ops": rep_ops,
+            "capture_s": capture_s, "peak_gib": peak / 2**30}
+
+
+def rnn_sigmoid_cost(where):
+    """The bf16 sigmoid written op for op (negate, exp, add 1, reciprocal,
+    as XLA rounds it) against ``torch.sigmoid``: a step's 3 x 64 x 2 gate
+    sigmoids forward at the gate shape (128, 200), on the device and on
+    the host clock (the backward is the same formula both ways)."""
+    from deeplearning4j_torch.ops.activations import sigmoid
+
+    z = torch.randn(RNN_B, RNN_H, device="cuda").bfloat16()
+    n = 3 * RNN_T * 2
+    out = {}
+    for name, fn in (("op for op", sigmoid), ("torch.sigmoid", torch.sigmoid)):
+        run = lambda: [fn(z) for _ in range(n)]
+        with torch.no_grad():
+            out[name] = (time_ms(run, reps=5, warmup=2),
+                         *device_ms(run, reps=3))
+    (h1, d1, o1), (h2, d2, o2) = out["op for op"], out["torch.sigmoid"]
+    print(f"[rnn] a step's {n} bf16 gate sigmoids at ({RNN_B}, {RNN_H}) on "
+          f"{where}: op for op {d1:.4f} ms on the device in {o1:.0f} "
+          f"operations, {h1:.3f} ms on the host clock; torch.sigmoid "
+          f"{d2:.4f} ms in {o2:.0f}, {h2:.3f} ms; the difference {d1 - d2:.4f}"
+          f" ms of device time and {h1 - h2:.3f} ms of host a step")
+    return d1 - d2
+
+
+def rnn_learns(where):
+    """The bench-width char-RNN (bf16) learns the char corpus: 16 fit
+    steps of 128 windows of 64 characters (next-character labels) at
+    rmsprop 1e-3, losses finite and the last four's mean at least 0.5
+    below the first four's. At the config's own rate of 0.1 the loss rises
+    after the second step in both packages (rmsprop's first update is
+    lr / sqrt(1 - 0.95) = 4.5 lr a weight), so the learning gate takes a
+    smaller rate."""
+    from deeplearning4j_torch.data import ArrayIterator, char_rnn_corpus
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    ids, _ = char_rnn_corpus(200_000, seed=0)
+    n = RNN_LEARN_STEPS * RNN_B
+    starts = np.random.RandomState(0).randint(0, len(ids) - RNN_T - 1, n)
+    seq = ids[starts[:, None] + np.arange(RNN_T + 1)]
+    eye = np.eye(RNN_V, dtype=np.float32)
+    rec = CollectScoresListener()
+    Trainer(_charrnn("bfloat16", lr=RNN_LEARN_LR)).fit(
+        ArrayIterator(eye[seq[:, :-1]], eye[seq[:, 1:]], batch_size=RNN_B),
+        listeners=[rec])
+    losses = [l for _, l in rec.scores]
+    check(len(losses) == RNN_LEARN_STEPS and all(np.isfinite(losses)),
+          f"char corpus: losses {losses}")
+    first, last = np.mean(losses[:4]), np.mean(losses[-4:])
+    check(last <= first - 0.5, f"char corpus: the loss did not fall "
+          f"(first four {first:.4f}, last four {last:.4f}): {losses}")
+    print(f"[rnn] char corpus on {where}, bf16, rmsprop {RNN_LEARN_LR}, "
+          f"{RNN_LEARN_STEPS} steps: losses " + " ".join(
+              f"{l:.4f}" for l in losses))
+
+
+def rnn_grad_gate(where):
+    """One f32 step's gradients on the card against the same step on the
+    CPU from the same params (TF32 off): every param's within
+    RNN_GRAD_RTOL of its largest entry."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+
+    x, y = _rnn_bench_batch()
+    model = _charrnn(None)
+    cpu = _on_cpu(model, compute_dtype=None)
+
+    def grads(m, dev):
+        leaves = [t.detach().clone().requires_grad_() for t in
+                  tree_leaves(m.params)]
+        params = tree_unflatten(m.params, leaves)
+        loss, _ = m.score(params, {}, torch.from_numpy(x).to(dev),
+                          torch.from_numpy(y).to(dev), training=True)
+        return loss.item(), [g.double().cpu() for g in
+                             torch.autograd.grad(loss, leaves)]
+
+    l_card, g_card = grads(model, "cuda")
+    l_cpu, g_cpu = grads(cpu, "cpu")
+    worst = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                for a, b in zip(g_card, g_cpu))
+    check(worst <= RNN_GRAD_RTOL, f"char-RNN f32 gradients: card vs CPU "
+          f"{worst:.3g} of the largest entry > {RNN_GRAD_RTOL}")
+    print(f"[rnn] f32 gradients of one full-width step, {where} against the "
+          f"CPU from the same params (TF32 off): worst param "
+          f"{worst:.3g} of its largest entry (gate {RNN_GRAD_RTOL}); loss "
+          f"{l_card:.6f} on the card, {l_cpu:.6f} on the CPU")
+    del model, cpu
+    _release()
+
+
+def rnn_tbptt(where):
+    """The model's own tBPTT of 50 steps at T 64 (a 50-step chunk, then a
+    14-step tail padded and masked), bf16 config (the chunks train in f32,
+    the reference's contract). Gated: one batch's loss on the card within
+    RNN_TBPTT_RTOL of the CPU's from the same params; losses finite over
+    RNN_TBPTT_BATCHES batches. Printed: host ms a batch, device ms and
+    operations of a batch."""
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    x, y = _rnn_bench_batch()
+    model = _charrnn("bfloat16", tbptt=50)
+    cpu = _on_cpu(model, compute_dtype="bfloat16", tbptt=50)
+    first = []
+    for m in (model, cpu):
+        rec = CollectScoresListener()
+        Trainer(m).fit(_rnn_iter(x, y, 1), listeners=[rec])
+        first.append(rec.scores[0][1])
+    rel = abs(first[0] - first[1]) / abs(first[1])
+    check(rel <= RNN_TBPTT_RTOL, f"tBPTT batch loss: card {first[0]:.7f}, "
+          f"CPU {first[1]:.7f} (relative {rel:.3g} > {RNN_TBPTT_RTOL})")
+    trainer = Trainer(model)
+    rec = CollectScoresListener()
+    trainer.fit(_rnn_iter(x, y, 1), listeners=[rec])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(_rnn_iter(x, y, RNN_TBPTT_BATCHES), listeners=[rec])
+    torch.cuda.synchronize()
+    batch_ms = 1e3 * (time.perf_counter() - t0) / RNN_TBPTT_BATCHES
+    losses = [l for _, l in rec.scores]
+    check(all(np.isfinite(losses)), f"tBPTT losses {losses}")
+    xb, yb = (torch.from_numpy(a).cuda() for a in (x, y))
+    dev_ms, dev_ops = device_ms(
+        lambda: trainer._fit_tbptt_batch(xb, yb, None, None), reps=2)
+    print(f"[rnn] tBPTT 50 at T {RNN_T} (chunks of 50 and 14 padded to 50), "
+          f"f32 chunks under the bf16 config, on {where}: first batch's "
+          f"loss card {first[0]:.7f}, CPU {first[1]:.7f} (relative "
+          f"{rel:.3g}, gate {RNN_TBPTT_RTOL}); host ms a batch over "
+          f"{RNN_TBPTT_BATCHES} batches {batch_ms:.3f} ms "
+          f"({RNN_B * RNN_T / batch_ms * 1e3:.0f} characters/s); one "
+          f"batch on the device {dev_ms:.3f} ms in {dev_ops:.0f} device "
+          f"operations; losses " + " ".join(f"{l:.4f}" for l in losses))
+    del model, cpu, trainer
+    _release()
+    return batch_ms, dev_ms
+
+
+def rnn_generate(where):
+    """Greedy one-hot generation of RNN_GEN_N characters after RNN_GEN_B
+    prompts of RNN_GEN_TP random characters (RandomState(1)), f32, for
+    ``TextGenerationLSTM`` (2 x LSTM 256, V 77) and the char-RNN. Gated:
+    every token is the argmax of one full forward over prompt + generated
+    at its position, unless the top-two log-prob gap there is at most
+    RNN_GEN_GAP_TOL (counted and skipped). Printed: tokens/s of ``generate``
+    and device ms and operations of one decode step."""
+    from deeplearning4j_torch.models import (GravesLSTMCharRNN,
+                                             TextGenerationLSTM)
+    from deeplearning4j_torch.nn.generation import (decode_forward,
+                                                    generate, init_caches)
+
+    out = {}
+    for name, build in (("TextGenerationLSTM",
+                         lambda: TextGenerationLSTM(seed=0).build()),
+                        ("GravesLSTMCharRNN",
+                         lambda: GravesLSTMCharRNN(seed=0, tbptt=0).build())):
+        model = build()
+        model.init(seed=0)
+        V = model.input_shape[-1]
+        ids = np.random.RandomState(1).randint(0, V, (RNN_GEN_B, RNN_GEN_TP))
+        eye = np.eye(V, dtype=np.float32)
+        prompt = eye[ids]
+        toks = generate(model, prompt, RNN_GEN_N, temperature=0.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = generate(model, prompt, RNN_GEN_N, temperature=0.0)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        check(toks.shape == (RNN_GEN_B, RNN_GEN_N) and
+              np.array_equal(toks, again), f"{name}: generate gave "
+              f"{toks.shape}, or two calls differ")
+        full = eye[np.concatenate([ids, toks], axis=1)]
+        logp = torch.log(model.output(full).float())
+        compared = ties = 0
+        for b in range(RNN_GEN_B):
+            c, t = _gap_rule(toks[b], logp[b], RNN_GEN_TP,
+                             f"{name} row {b}", RNN_GEN_GAP_TOL)
+            compared, ties = compared + c, ties + t
+        caches = init_caches(model, RNN_GEN_B, RNN_GEN_TP + RNN_GEN_N,
+                             model.dtype)
+        x1 = torch.from_numpy(prompt[:, :1]).cuda()
+        with torch.inference_mode():
+            dev_ms, dev_ops = device_ms(lambda: decode_forward(
+                model, model.params, model.state, x1, caches, RNN_GEN_TP),
+                reps=10)
+        n = RNN_GEN_B * RNN_GEN_N
+        print(f"[rnn] generate {name} f32 on {where}: {RNN_GEN_B} one-hot "
+              f"prompts of {RNN_GEN_TP}, {RNN_GEN_N} greedy characters "
+              f"each: {compared} tokens equal to the full forward's argmax, "
+              f"{ties} near-ties (top-two gap <= {RNN_GEN_GAP_TOL}) skipped; "
+              f"{n / gen_s:.0f} tokens/s ({1e3 * gen_s / RNN_GEN_N:.3f} ms "
+              f"of host time a step of {RNN_GEN_B}); one decode step on "
+              f"the device {dev_ms:.4f} ms in {dev_ops:.0f} device "
+              f"operations")
+        out[name] = {"tokens_per_s": n / gen_s, "dev_ms": dev_ms,
+                     "ties": ties}
+        del model
+        _release()
+    return out
+
+
+def phase_rnn():
+    """[rnn]: the recurrent path. Kernel launch counts are zeroed before
+    and read after: the path reaches no kernel of the port. Returns the
+    counts by kernel."""
+    where = card()
+    print(f"[rnn] card: {where}")
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    train = rnn_train(where)
+    rnn_sigmoid_cost(where)
+    rnn_learns(where)
+    rnn_grad_gate(where)
+    tbptt_ms, tbptt_dev = rnn_tbptt(where)
+    gen = rnn_generate(where)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    print(f"[rnn] kernel launches over the phase: {counts}")
+    eager_ms = statistics.median(train["eager_ms"])
+    graph_ms = statistics.median(train["graph_ms"])
+    print(f"[rnn] summary on {where}: char-RNN host ms a step eager "
+          f"{eager_ms:.3f}, graphed {graph_ms:.3f}; device ms a step eager "
+          f"{train['step_dev_ms']:.3f} ({train['step_ops']:.0f} operations), "
+          f"graphed {train['replay_dev_ms'] / RNN_SPE:.3f} "
+          f"({train['replay_ops'] / RNN_SPE:.1f} operations); idle share "
+          f"eager {1 - train['step_dev_ms'] / eager_ms:.4f}, graphed "
+          f"{1 - train['replay_dev_ms'] / RNN_SPE / graph_ms:.4f}; "
+          f"characters/s graphed {RNN_B * RNN_T / graph_ms * 1e3:.0f}; "
+          f"tBPTT ms a batch {tbptt_ms:.3f}; generate tokens/s "
+          + ", ".join(f"{k} {v['tokens_per_s']:.0f}" for k, v in gen.items()))
+    return counts
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3091,6 +3509,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_resnet_grad_gate()
     breadth = phase_breadth()
+    rnn_counts = phase_rnn()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -3111,6 +3530,11 @@ def main() -> int:
         row["launches_by_path"] = {"train": n, "resnet_graph":
                                    rg["captured"] * rg["replays"]}
         row["routes_on_path"] = bn_routes[key]
+    # the recurrent path reaches no kernel: its launches, counted
+    for row, key in zip([k1] + bwd_rows + bn_rows,
+                        ("K1", "K2", "K3", "K5", "K4a", "K4b")):
+        row.setdefault("launches_by_path", {"train": row["launches"]})
+        row["launches_by_path"]["rnn"] = rnn_counts[key]
     print(json.dumps({"kernels": [k1] + bwd_rows + bn_rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Data pipeline of the port (so far: in-memory, prefetching and benchmark
-iterators)."""
+iterators, and the char-RNN corpus)."""
 
+from .datasets import char_rnn_corpus
 from .iterators import (ArrayIterator, AsyncIterator, BenchmarkIterator,
                         DataSet, DataSetIterator)
 
 __all__ = ["ArrayIterator", "AsyncIterator", "BenchmarkIterator", "DataSet",
-           "DataSetIterator"]
+           "DataSetIterator", "char_rnn_corpus"]

@@ -1,6 +1,7 @@
 """Autoregressive generation — counterpart of
 ``deeplearning4j_tpu/nn/generation.py``: KV-cache decode and sampling for
-``Sequential`` token models (the CausalLM family).
+``Sequential`` token models (the CausalLM family) and one-hot char models
+with recurrent layers (``TextGenerationLSTM``, ``GravesLSTMCharRNN``).
 
 The reference compiles prefill and a ``lax.scan`` of decode steps into one
 program; here the same steps run eagerly with static shapes. Attention
@@ -17,9 +18,11 @@ bf16-rounded weights. The port promotes where JAX promotes: a matmul of
 an f32 activation with a bf16 weight runs in f32 on the weight's
 bf16-rounded value.
 
-One-hot char models and recurrent layers (``TextGenerationLSTM``,
-``GravesLSTMCharRNN``) are not ported yet: ROADMAP.md, Queue 1,
-"GravesLSTM char-RNN".
+A recurrent layer's cache is its carry (the rnnTimeStep state), also in
+the param dtype, so a bf16 char model's decode promotes h and c to f32
+from the first step, as the reference's does. A one-hot prompt (B, Tp, V)
+is fed back one sampled character at a time as a one-hot row, as the
+reference's sampling loop does.
 """
 
 from __future__ import annotations
@@ -36,16 +39,15 @@ from .layers import (ActivationLayer, Dense, EmbeddingSequence, LayerNorm,
                      TransformerEncoderBlock)
 from .layers.attention import rope_rotate
 from .layers.norm import layer_norm
+from .layers.recurrent import RecurrentLayer
 from .model import DTYPES, Sequential, _layer_key
 
 # Layers that act on each position independently: safe to run on a decode
 # chunk with their ordinary eval-time apply(). Anything else but the
-# attention/positional special cases and the final Output is rejected by
-# generate() up front (the reference's list, as far as the port has it).
+# attention/positional/recurrent special cases and the final Output is
+# rejected by generate() up front (the reference's list, as far as the
+# port has it).
 _TOKEN_LOCAL = (ActivationLayer, Dense, EmbeddingSequence, LayerNorm)
-
-_NOT_PORTED_RNN = ("one-hot char models and recurrent layers are not ported "
-                   "yet (ROADMAP.md, Queue 1, 'GravesLSTM char-RNN')")
 
 # --------------------------------------------------------------------------
 # KV-cache layout contract (the reference's, nn/generation.py)
@@ -216,8 +218,9 @@ def cache_spec(model: Sequential):
 
 
 def init_caches(model: Sequential, batch: int, capacity: int, dtype):
-    """Zero-filled dense caches for every attention layer, on the model's
-    device. For the paged layout, build pools from :func:`cache_spec`."""
+    """Zero-filled dense caches for every attention layer and zero carries
+    for every recurrent layer, in ``dtype`` on the model's device. For the
+    paged layout, build pools from :func:`cache_spec`."""
     caches: Dict[str, Any] = {}
     for lk, hkv, hd in cache_spec(model):
         caches[lk] = {
@@ -225,6 +228,10 @@ def init_caches(model: Sequential, batch: int, capacity: int, dtype):
                              device=model.device),
             "v": torch.zeros((batch, capacity, hkv, hd), dtype=dtype,
                              device=model.device)}
+    for i, layer in enumerate(model.layers):
+        if isinstance(layer, RecurrentLayer):
+            caches[_layer_key(i, layer)] = layer.init_carry(
+                batch, model._shapes[i], dtype, model.device)
     return caches
 
 
@@ -256,10 +263,11 @@ def cast_bytes(casts: Optional[dict]) -> int:
 
 def decode_forward(model: Sequential, params, state, x, caches, pos, *,
                    casts: Optional[dict] = None):
-    """Run one decode chunk through the stack. ``x``: (B, Tq) int ids at
-    absolute offset ``pos`` (an int, or a (B,) tensor when every row sits
-    at its own offset); returns (logits (B, Tq, V), caches), the caches
-    written in place. The final Output layer contributes its
+    """Run one decode chunk through the stack. ``x``: (B, Tq) int ids or
+    (B, Tq, F) features at absolute offset ``pos`` (an int, or a (B,)
+    tensor when every row sits at its own offset); returns (logits (B, Tq,
+    V), caches), attention caches written in place and recurrent carries
+    replaced. The final Output layer contributes its
     pre-activation. Params are cast to the compute dtype on every call, as
     the reference does; a ``casts`` dict memoizes those copies across
     calls (same bits: callers keep one per params generation)."""
@@ -304,6 +312,8 @@ def decode_forward(model: Sequential, params, state, x, caches, pos, *,
                 idx = (pv[:, None] + torch.arange(Tq, device=x.device)[None]
                        ).clamp(max=p["pos"].shape[0] - 1)
                 x = x + p["pos"][idx]
+        elif isinstance(layer, RecurrentLayer):
+            x, new[k] = layer.apply_sequence(p, x, new[k])
         elif isinstance(layer, Output):  # incl. RnnOutput
             w = p["w"]
             y = _mm(x, w, casts)
@@ -367,7 +377,7 @@ def _check_decodable(model: Sequential, total: int) -> None:
                     f"layer {i} {type(layer).__name__}(causal=False) cannot "
                     f"be decoded autoregressively — generation needs causal "
                     f"attention")
-        elif isinstance(layer, _TOKEN_LOCAL):
+        elif isinstance(layer, (RecurrentLayer, _TOKEN_LOCAL)):
             pass
         elif isinstance(layer, Output) and i == len(model.layers) - 1:
             pass
@@ -384,8 +394,11 @@ def generate(model: Sequential, prompt, max_new_tokens: int, *,
              top_k: Optional[int] = None,
              rng: Optional[torch.Generator] = None, seed: int = 0,
              capacity: Optional[int] = None) -> np.ndarray:
-    """Autoregressively continue ``prompt`` ((B, Tp) int token ids) for
-    ``max_new_tokens`` tokens; returns the generated ids (B, N) int32.
+    """Autoregressively continue ``prompt`` for ``max_new_tokens`` tokens;
+    returns the generated ids (B, N) int32. ``prompt`` is (B, Tp) int
+    token ids (embedding-front models) or (B, Tp, V) one-hot rows (char
+    models): each sampled id is then fed back as a one-hot row of the
+    prompt's dtype.
 
     Prefill of the whole prompt, then one decode step a token, on the
     model's device. ``capacity`` (default Tp + max_new_tokens) sizes the
@@ -397,9 +410,8 @@ def generate(model: Sequential, prompt, max_new_tokens: int, *,
         raise ValueError("call init() first")
     prompt = torch.as_tensor(np.asarray(prompt) if not isinstance(
         prompt, torch.Tensor) else prompt, device=model.device)
-    if prompt.ndim == 3 or prompt.is_floating_point():
-        raise NotImplementedError(_NOT_PORTED_RNN)
-    B, Tp = prompt.shape
+    onehot = prompt.ndim == 3
+    B, Tp = prompt.shape[:2]
     total = Tp + max_new_tokens
     capacity = capacity or total
     if capacity < total:
@@ -408,6 +420,13 @@ def generate(model: Sequential, prompt, max_new_tokens: int, *,
     if rng is None:
         rng = torch.Generator(device=model.device)
         rng.manual_seed(seed)
+    V = getattr(model.layers[-1], "n_out", 0) or model._shapes[-1][-1]
+
+    def embed(tok):  # (B,) ids -> the next (B, 1[, V]) input chunk
+        if onehot:
+            return torch.nn.functional.one_hot(tok, V).to(prompt.dtype)[:, None]
+        return tok[:, None].to(prompt.dtype)
+
     casts: dict = {}
     toks = []
     with torch.inference_mode():
@@ -419,8 +438,7 @@ def generate(model: Sequential, prompt, max_new_tokens: int, *,
             tok = sample_logits(last, rng, temperature, top_k)
             toks.append(tok)
             if i + 1 < max_new_tokens:
-                lg, caches = decode_forward(model, params, state,
-                                            tok[:, None].to(prompt.dtype),
+                lg, caches = decode_forward(model, params, state, embed(tok),
                                             caches, Tp + i, casts=casts)
                 last = lg[:, -1]
     return torch.stack(toks, dim=1).to(torch.int32).cpu().numpy()

@@ -1,6 +1,6 @@
 """Layer catalog of the port (so far: the CausalLM and BERT stacks, the
-zoo CNNs' conv, pooling and BatchNorm layers, and the dropout and noise
-layers)."""
+zoo CNNs' conv, pooling and BatchNorm layers, the dropout and noise
+layers, and the recurrent layers)."""
 
 from .attention import (MultiHeadAttention, PositionalEmbedding,
                         TransformerEncoderBlock, dot_product_attention,
@@ -11,10 +11,13 @@ from .core import (ActivationLayer, AlphaDropout, Dense, DropoutLayer,
                    RnnOutput)
 from .norm import BatchNorm, LayerNorm
 from .pooling import Flatten, GlobalPooling
+from .recurrent import (GRU, LSTM, Bidirectional, GravesLSTM, LastTimeStep,
+                        RecurrentLayer, SimpleRnn)
 
-__all__ = ["ActivationLayer", "AlphaDropout", "BatchNorm", "Conv2D", "Dense",
-           "DropoutLayer", "EmbeddingSequence", "GaussianDropout",
-           "GaussianNoise", "Flatten", "GlobalPooling", "LayerNorm",
-           "MultiHeadAttention", "Output", "PositionalEmbedding", "RnnOutput",
-           "Subsampling2D", "TransformerEncoderBlock",
-           "dot_product_attention", "rope_rotate"]
+__all__ = ["ActivationLayer", "AlphaDropout", "BatchNorm", "Bidirectional",
+           "Conv2D", "Dense", "DropoutLayer", "EmbeddingSequence", "GRU",
+           "GaussianDropout", "GaussianNoise", "Flatten", "GlobalPooling",
+           "GravesLSTM", "LSTM", "LastTimeStep", "LayerNorm",
+           "MultiHeadAttention", "Output", "PositionalEmbedding",
+           "RecurrentLayer", "RnnOutput", "SimpleRnn", "Subsampling2D",
+           "TransformerEncoderBlock", "dot_product_attention", "rope_rotate"]

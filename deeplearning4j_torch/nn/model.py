@@ -32,8 +32,9 @@ import torch.utils.checkpoint
 
 from ..device import DeviceLike, resolve_device
 from ..ops.losses import reduction_mass
-from .api import (Layer, Params, Shape, State, draws_random, layer_from_dict,
-                  rewinding)
+from .api import (Layer, Params, Shape, State, apply_input_dropout,
+                  draws_random, layer_from_dict, rewinding)
+from .layers.recurrent import RecurrentLayer
 from .vertices import GraphVertex, vertex_from_dict
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -227,6 +228,81 @@ class Sequential:
         with torch.inference_mode():
             y, _ = self.forward(p, s, x, training=False, mask=mask)
         return y
+
+    # --- carries (rnnTimeStep / truncated BPTT) ---
+
+    def rnn_layers(self) -> List[Tuple[str, Layer]]:
+        """(params key, layer) of every recurrent layer."""
+        return [(_layer_key(i, l), l) for i, l in enumerate(self.layers)
+                if isinstance(l, RecurrentLayer)]
+
+    def init_carries(self, batch: int) -> Dict[str, object]:
+        """Zero carries of every recurrent layer, keyed as its params, in
+        the param dtype (``dtype``, not ``compute_dtype``: the reference's
+        contract, so a carried step promotes to f32)."""
+        out = {}
+        for i, layer in enumerate(self.layers):
+            if isinstance(layer, RecurrentLayer):
+                out[_layer_key(i, layer)] = layer.init_carry(
+                    batch, self._shapes[i], self.dtype, self.device)
+        return out
+
+    def forward_with_carry(self, params: Params, state: State, x, carries,
+                           *, training: bool = False,
+                           rng: Optional[torch.Generator] = None, mask=None):
+        """The forward with explicit carries for the recurrent layers:
+        returns ``(y, new_state, new_carries)``. As the reference's, it
+        neither casts to ``compute_dtype`` nor checkpoints."""
+        new_state, new_carries = dict(state), dict(carries)
+        for i, layer in enumerate(self.layers):
+            k = _layer_key(i, layer)
+            p = params.get(k, {})
+            if isinstance(layer, RecurrentLayer):
+                x = apply_input_dropout(layer, x, rng, training)
+                x, new_carries[k] = layer.apply_sequence(p, x, carries[k],
+                                                         mask=mask)
+            else:
+                x, s_out, mask = layer.apply(p, state.get(k, {}), x,
+                                             training=training, rng=rng,
+                                             mask=mask)
+                if s_out:
+                    new_state[k] = s_out
+        return x, new_state, new_carries
+
+    def score_with_carry(self, params: Params, state: State, x, labels,
+                         carries, *, training: bool = True,
+                         rng: Optional[torch.Generator] = None, mask=None,
+                         label_mask=None):
+        """The training loss of one tBPTT chunk from ``carries``: returns
+        ``(loss, new_state, new_carries)``. As the reference's, it casts
+        neither x nor the params to ``compute_dtype`` and does not
+        checkpoint, so a chunk trains in the param dtype whatever the
+        config's compute dtype; the recurrent layers take no input
+        dropout here. The loss reduces with ``label_mask`` when given,
+        else with the propagated feature mask."""
+        out_layer = self.layers[-1]
+        n = len(self.layers)
+        new_state, new_carries = dict(state), dict(carries)
+        h, m = x, mask
+        for i in range(n - 1):
+            layer = self.layers[i]
+            k = _layer_key(i, layer)
+            p = params.get(k, {})
+            if isinstance(layer, RecurrentLayer):
+                h, new_carries[k] = layer.apply_sequence(p, h, carries[k],
+                                                         mask=m)
+            else:
+                h, s_out, m = layer.apply(p, state.get(k, {}), h,
+                                          training=training, rng=rng, mask=m)
+                if s_out:
+                    new_state[k] = s_out
+        k = _layer_key(n - 1, out_layer)
+        loss = out_layer.score(params.get(k, {}), state.get(k, {}), h,
+                               labels,
+                               mask=label_mask if label_mask is not None
+                               else m)
+        return (loss + _collect_aux_losses(new_state, loss.device),
+                new_state, new_carries)
 
     def to_json(self) -> str:
         return json.dumps({

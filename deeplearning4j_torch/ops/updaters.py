@@ -8,7 +8,8 @@ own, with the same math and the same state layout:
   tensors, in the order :func:`tree_leaves` gives a params dict (keys
   sorted at every level, as ``jax.tree_util`` orders them);
 - the states are optax's: ``AdamState(count, mu, nu)``,
-  ``ScheduleState(count)`` and the empty tuple, chained in tuples, so
+  ``ScaleByRmsState(nu)``, ``ScheduleState(count)`` and the empty tuple,
+  chained in tuples, so
   ``tree_leaves(state)`` lists the leaves in optax's order and an updater
   state crosses between the packages leaf for leaf
   (``train/serialization.py``).
@@ -18,8 +19,11 @@ with ``decay ** count`` by squaring in f32 as XLA computes it, ``eps``
 outside the square root) then ``-learning_rate``; ``adamw`` adds
 ``weight_decay * param`` on EVERY param before the learning rate, as
 optax's ``adamw`` with no mask does (biases and LayerNorm gains decay
-too). ``build`` prepends the l2 and l1 terms in the reference's order. The
-other updaters and gradient normalization raise ``NotImplementedError``.
+too). ``rmsprop`` is optax's ``rmsprop`` as the reference configures it
+(``scale_by_rms``: ``nu`` from 0, ``nu = (1 - decay) g^2 + decay nu``, then
+``g * rsqrt(nu + eps)``; then ``-learning_rate``). ``build`` prepends the
+l2 and l1 terms in the reference's order. The other updaters and gradient
+normalization raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -83,6 +87,10 @@ class AdamState(NamedTuple):
     nu: List[torch.Tensor]
 
 
+class ScaleByRmsState(NamedTuple):
+    nu: List[torch.Tensor]
+
+
 class ScheduleState(NamedTuple):
     count: torch.Tensor
 
@@ -124,6 +132,23 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
         torch._foreach_add_(den, eps)
         torch._foreach_div_(out, den)
         return out, AdamState(count, mu, nu)
+
+    return Transform(init, update)
+
+
+def scale_by_rms(decay: float = 0.9, eps: float = 1e-8) -> Transform:
+    """optax's ``scale_by_rms`` (``initial_scale=0``, eps inside the
+    square root, no bias correction), op for op."""
+    def init(params):
+        return ScaleByRmsState([torch.zeros_like(p) for p in params])
+
+    def update(updates, state, params=None):
+        g = list(updates)
+        nu = torch._foreach_mul(g, g)
+        torch._foreach_mul_(nu, 1 - decay)
+        torch._foreach_add_(nu, torch._foreach_mul(state.nu, decay))
+        scale = [torch.rsqrt(n) for n in torch._foreach_add(nu, eps)]
+        return torch._foreach_mul(scale, g), ScaleByRmsState(nu)
 
     return Transform(init, update)
 
@@ -238,9 +263,16 @@ def adamw(learning_rate: ScalarOrSchedule = 1e-3, beta1: float = 0.9,
                  scale_by_learning_rate(learning_rate))
 
 
+@register("rmsprop")
+def rmsprop(learning_rate: ScalarOrSchedule = 1e-1, rms_decay: float = 0.95,
+            epsilon: float = 1e-8, **_):
+    return chain(scale_by_rms(rms_decay, epsilon),
+                 scale_by_learning_rate(learning_rate))
+
+
 # the JAX package's other updaters, refused by name rather than as unknown
 _UNPORTED = ("nesterovs", "amsgrad", "adamax", "nadam", "adagrad", "adadelta",
-             "rmsprop", "noop")
+             "noop")
 
 
 def _factory(kind: str):

@@ -59,7 +59,8 @@ import torch
 from ..nn.generation import (cache_spec, cast_bytes, categorical,
                              decode_forward, init_caches)
 from ..nn.layers import (EmbeddingSequence, MultiHeadAttention, Output,
-                         PositionalEmbedding, TransformerEncoderBlock)
+                         PositionalEmbedding, RecurrentLayer,
+                         TransformerEncoderBlock)
 from ..obs.metrics import MetricsRegistry
 from .engine import PrefillScheduler
 from .errors import (CapacityError, DeadlineExceededError, DrainTimeoutError,
@@ -238,13 +239,18 @@ class ContinuousBatcher:
                              or _default_prompt_buckets(self.capacity))
             if b <= self.capacity))) or (self.capacity,)
 
-        # --- model contract: embedding-front, causal ---
+        # --- model contract: embedding-front, causal, no recurrence ---
         if not isinstance(model.layers[0], EmbeddingSequence):
             raise ValueError(
                 "continuous batching requires an embedding-front token model "
                 "(CausalLM family); one-hot char models stay on "
                 "nn.generation.generate")
         for i, layer in enumerate(model.layers):
+            if isinstance(layer, RecurrentLayer):
+                raise ValueError(
+                    f"layer {i} {type(layer).__name__}: recurrent carries "
+                    f"cannot survive a right-padded prefill — use whole-batch "
+                    f"nn.generation.generate for RNN models")
             if isinstance(layer, (TransformerEncoderBlock,
                                   MultiHeadAttention)) and not layer.causal:
                 raise ValueError(

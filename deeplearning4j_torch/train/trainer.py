@@ -23,16 +23,26 @@ and the reference's two ways to batch work per update or per dispatch:
   window of K batches; on the CPU the same K steps run eagerly through the
   same code (:meth:`Trainer._k_steps`).
 
+Truncated BPTT (``NetConfig.tbptt_length``, the reference's
+``_fit_tbptt_batch``): a batch whose features have 3 or more dimensions is
+cut along time into chunks of that length (a ragged tail padded to it,
+with a feature mask of ones over its real steps and zeros over the pad,
+its labels padded too); each chunk is one update from the recurrent
+layers' carries (``Sequential.score_with_carry``), which are detached at
+the chunk's end; the batch's loss is the unweighted mean of the chunk
+losses. ``steps_per_execution`` is ignored under tBPTT, and a ``Graph``
+refuses it, as in the reference.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, Queue
-1): truncated BPTT, ``mesh=``, ``telemetry=``, ``Frozen`` layers, and a
-multi-input Graph fed ``MultiDataSet``-style batches (a list or dict of
-feature arrays).
+1): ``mesh=``, ``telemetry=``, ``Frozen`` layers, and a multi-input Graph
+fed ``MultiDataSet``-style batches (a list or dict of feature arrays).
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
 from ..data.iterators import AsyncIterator
@@ -65,6 +75,20 @@ def _clone_tree(tree):
     return upd.tree_unflatten(tree, [
         t.detach().clone().requires_grad_(t.requires_grad)
         for t in tree_leaves(tree)])
+
+
+def _detached(tree):
+    return upd.tree_unflatten(tree, [t.detach() for t in tree_leaves(tree)])
+
+
+def _pad_time(t, pad: int):
+    """``t`` with ``pad`` zero steps appended along axis 1."""
+    return torch.cat([t, t.new_zeros((t.shape[0], pad) + tuple(t.shape[2:]))],
+                     dim=1)
+
+
+def _ndim(a) -> int:
+    return a.ndim if hasattr(a, "ndim") else np.ndim(a)
 
 
 def _batch_sig(parts) -> tuple:
@@ -151,8 +175,6 @@ class Trainer:
                  seed: int = 0, mesh=None, rules=None, grad_accum: int = 1):
         if mesh is not None or rules is not None:
             raise NotImplementedError(f"training over a mesh is {_NOT_PORTED}")
-        if getattr(model.config, "tbptt_length", 0):
-            raise NotImplementedError(f"truncated BPTT is {_NOT_PORTED}")
         self.model = model
         self.grad_accum = max(1, int(grad_accum))
         self.tx = updater if updater is not None else build_updater(model)
@@ -195,6 +217,59 @@ class Trainer:
             grads = torch.autograd.grad(loss, trained, allow_unused=True)
         opt_state = self._apply_update(leaves, grads, opt_state)
         return params, opt_state, new_state, loss.detach()
+
+    def tbptt_step(self, params, opt_state, net_state, x, y, carries,
+                   gen=None, mask=None, label_mask=None):
+        """One tBPTT chunk: the loss from ``carries`` (no gradient flows
+        into them: they are detached first), its gradient, one updater
+        call. Returns ``(params, opt_state, net_state, new_carries,
+        loss)``, the new carries detached and the loss a 0-d device
+        tensor."""
+        carries = _detached(carries)
+        leaves = tree_leaves(params)
+        trained = [p for p in leaves if p.requires_grad]
+        with torch.enable_grad():
+            loss, new_state, new_carries = self.model.score_with_carry(
+                params, net_state, x, y, carries, training=True, rng=gen,
+                mask=mask, label_mask=label_mask)
+            grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        opt_state = self._apply_update(leaves, grads, opt_state)
+        return (params, opt_state, new_state, _detached(new_carries),
+                loss.detach())
+
+    def _fit_tbptt_batch(self, x, y, mask, label_mask):
+        """One batch as tBPTT chunks of ``tbptt_length`` steps (see the
+        module docstring). No host sync: returns the mean chunk loss as a
+        device tensor."""
+        if not isinstance(self.model, Sequential):
+            raise ValueError(
+                "tbptt_length is set but tBPTT is not supported for "
+                "MultiDataSet/Graph fit — train full-BPTT "
+                "(tbptt_length=0) or use a Sequential model")
+        chunk = int(self.model.config.tbptt_length)
+        x, y, mask, label_mask = (self._stage(a)
+                                  for a in (x, y, mask, label_mask))
+        B, T = x.shape[:2]
+        carries = self.model.init_carries(B)
+        total, n = None, 0
+        for t0 in range(0, T, chunk):
+            xc, yc = x[:, t0:t0 + chunk], y[:, t0:t0 + chunk]
+            mc = None if mask is None else mask[:, t0:t0 + chunk]
+            lmc = None if label_mask is None else label_mask[:, t0:t0 + chunk]
+            pad = chunk - xc.shape[1]
+            if pad:
+                if mc is None:
+                    mc = torch.ones((B, xc.shape[1]), dtype=torch.float32,
+                                    device=x.device)
+                xc, yc, mc = (_pad_time(t, pad) for t in (xc, yc, mc))
+                if lmc is not None:
+                    lmc = _pad_time(lmc, pad)
+            (self.params, self.opt_state, self.state, carries,
+             loss) = self.tbptt_step(self.params, self.opt_state, self.state,
+                                     xc, yc, carries, self._gen, mc, lmc)
+            total = loss if total is None else total + loss
+            n += 1
+        return total / max(n, 1)
 
     def _apply_update(self, leaves, grads, opt_state):
         """The updater on the trained leaves' gradients (zeros for the
@@ -292,7 +367,9 @@ class Trainer:
         ``PerformanceListener.step_begin`` gets the window's total samples.
         It is off with ``grad_accum`` > 1 and with any listener that
         ``requires_sync`` or ``snapshots_state`` (under a window such a
-        listener would act or read up to K steps late)."""
+        listener would act or read up to K steps late), and under
+        truncated BPTT (``tbptt_length`` set), whose batches of 3 or more
+        dimensions go through :meth:`_fit_tbptt_batch`."""
         if telemetry is not None or any(getattr(l, "telemetry", None) is not None
                                         for l in listeners):
             raise NotImplementedError(f"step telemetry is {_NOT_PORTED}")
@@ -300,6 +377,7 @@ class Trainer:
         perf = [l for l in listeners if isinstance(l, PerformanceListener)]
         spe = max(1, int(steps_per_execution))
         use_window = (spe > 1 and self.grad_accum == 1
+                      and not self.model.config.tbptt_length
                       and not any(getattr(l, "requires_sync", False)
                                   or getattr(l, "snapshots_state", False)
                                   for l in listeners))
@@ -341,7 +419,10 @@ class Trainer:
         for batch, n in buf:
             for lst in perf:
                 lst.step_begin(n)
-            loss = self._dispatch_train_step(*batch)
+            if self.model.config.tbptt_length and _ndim(batch[0]) >= 3:
+                loss = self._fit_tbptt_batch(*batch)
+            else:
+                loss = self._dispatch_train_step(*batch)
             reporter.report(self.iteration, epoch, loss)
             self.iteration += 1
 

@@ -285,11 +285,6 @@ class TestCausalLMDecode:
         with pytest.raises(ValueError, match="GlobalPooling"):
             tg.generate(build(True), ids, 3)
 
-    def test_one_hot_prompts_are_not_ported(self):
-        with pytest.raises(NotImplementedError, match="GravesLSTM"):
-            tg.generate(self.model, np.eye(50, dtype=np.float32)[None, :3],
-                        2)
-
     def test_repeated_calls_give_the_same_ids(self):
         a = tg.generate(self.model, self.prompt, 3, temperature=0.0)
         b = tg.generate(self.model, self.prompt, 3, temperature=0.0)

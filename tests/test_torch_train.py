@@ -226,7 +226,7 @@ def test_updater_matches_optax(name):
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("kind", ["nesterovs", "rmsprop", "noop"])
+@pytest.mark.parametrize("kind", ["nesterovs", "noop"])
 def test_unported_updater_raises(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         updaters.build({"type": kind})

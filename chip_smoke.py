@@ -149,6 +149,35 @@ last line):
    position unless the top-two gap there is at most RNN_GEN_GAP_TOL
    (counted), tokens/s and device ms a decode step.
 
+13. zoo — the rest of the CNN zoo (every kernel's launch count is zeroed
+   before each path and read after it, into the kernels line under
+   ``launches_by_path``). ``YOLO2(seed=0)`` at 416², 80 classes, the zoo's
+   five COCO anchors, bf16 compute, adam 1e-3, batch 64 (``yolov2.cfg``'s
+   ``batch=64``) on one synthetic batch from ``default_rng(0)`` (images
+   N(0, 1); labels (64, 13, 13, 5, 85), 1-8 objects an image, each in the
+   cell of its centre and the anchor of best IoU) repeated: 12 fit steps,
+   losses finite and the last below the first, K4a and K4b 21 launches
+   each a step; step ms, images/s, MFU, device ms and operations of a
+   step, idle share, peak memory. ``ServeEngine`` (buckets 1, 4, 16, no
+   length buckets) answering 1, 3, 16 and 5 images: in bf16 each answer
+   within ENGINE_RTOL (element by element, relative with a floor) of
+   ``Graph.output`` on its padded bucket batch and its x, y, confidence
+   and classes within 0.05 absolute of ``Graph.output`` on its images
+   alone, in f32 within ENGINE_RTOL of ``Graph.output`` on its images
+   alone; a control outside each. K4a (both modes, both routes) and K4b
+   against their plain versions at c1 (11,075,584 x 32), c14 and c21
+   (10,816 x 1024), then every BatchNorm's shape timed with CUDA events
+   beside the library's BatchNorm backward and the bytes bound, with the
+   routes the wrappers counted. 8 steps at
+   steps_per_execution=4 bit-equal to eager ones (K4a, K4b 21 x (1 + 1 +
+   4) launches), host ms eager and graphed, device ms of a replay, the
+   capture's time. f32 gradients at batch 2 (TF32 off) through K4a/K4b
+   within 1e-3 of each node's largest entry of the plain versions'
+   gradients. Then AlexNet, Darknet19, TinyYOLO, GoogLeNet
+   (3 fit steps each, losses finite) and InceptionResNetV1,
+   FaceNetNN4Small2 (embeddings served, unit norm within 1e-2) at their
+   zoo sizes, bf16, batch 8, each freed after.
+
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
@@ -1018,12 +1047,16 @@ def device_ms(fn, reps: int = 10):
     return us / 1e3 / reps, len(ev) / reps
 
 
-def bn_shape_times(shapes, reps=10):
-    """``bn_timing`` and ``device_ms`` of K4a, K4b, the whole BatchNorm
-    backward and the library's at every distinct (M, C) of ``shapes``
-    (bf16, random inputs), as {(M, C): {key: ms}}. Uses only
+def bn_shape_times(shapes, reps=10, device=True):
+    """``bn_timing`` of K4a, K4b, the whole BatchNorm backward and the
+    library's at every distinct (M, C) of ``shapes`` (bf16, random
+    inputs), with their ``device_ms`` when ``device``, as {(M, C): {key:
+    ms}}; each row also holds the routes that K4a's and K4b's wrappers
+    counted in its timed calls (``k4a_routes``, ``k4b_routes``). Uses only
     ``bn_reduce``, ``bn_dx`` and ``batch_norm_train``, so it times an older
     tree's kernels too."""
+    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce
+
     gen = torch.Generator(device="cuda").manual_seed(7)
     out = {}
     for M, C in shapes:
@@ -1032,10 +1065,17 @@ def bn_shape_times(shapes, reps=10):
         xb, dyb = (torch.randn((M, C), generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(2))
         cv = torch.randn((C,), generator=gen, device="cuda")
+        routes = [getattr(w, "routes", {}) for w in (bn_reduce, bn_dx)]
+        for r in routes:
+            r.update(dict.fromkeys(r, 0))
         tm = bn_timing(xb, dyb, cv, cv, cv, reps=reps)
         row = {k: v for k, v in tm.items() if not k.endswith("_fn")}
-        for key in ("k4a", "k4b", "bwd", "library"):
-            row[key + "_dev"], row[key + "_ops"] = device_ms(tm[key + "_fn"])
+        row["k4a_routes"], row["k4b_routes"] = (
+            sorted(k for k, n in r.items() if n) for r in routes)
+        if device:
+            for key in ("k4a", "k4b", "bwd", "library"):
+                row[key + "_dev"], row[key + "_ops"] = device_ms(
+                    tm[key + "_fn"])
         out[(M, C)] = row
         del xb, dyb, tm
     return out
@@ -1043,38 +1083,52 @@ def bn_shape_times(shapes, reps=10):
 
 def print_bn_shapes(shapes, per_shape, tag):
     """The per-shape table of ``bn_shape_times`` and its sums over
-    ``shapes`` (one entry per BatchNorm)."""
+    ``shapes`` (one entry per BatchNorm); device readings where it took
+    them."""
     tot = {k: sum(per_shape[sh][k] for sh in shapes)
-           for k in next(iter(per_shape.values()))}
+           for k, v in next(iter(per_shape.values())).items()
+           if not isinstance(v, list)}
+    dev = "k4a_dev" in tot
     elems = sum(M * C for M, C in shapes)
     # K4a reads x and dy, K4b reads them and writes dx: 5 bf16 tensors of
     # (M, C) a BatchNorm; the function itself needs only 3 (x, dy read once,
     # dx written once)
     bound = 5 * 2 * elems / PEAK_BYTES_PER_S * 1e3
     bound_fn = 3 * 2 * elems / PEAK_BYTES_PER_S * 1e3
+
+    def on_card(key, ops=False):
+        if not dev:
+            return ""
+        return (f", on the device {tot[key + '_dev']:.2f}"
+                + (f" in {tot[key + '_ops']:.0f} device operations"
+                   if ops else ""))
+
     print(f"[{tag}] over the {len(shapes)} BatchNorms, back to back: K4a "
           f"{tot['k4a_b2b']:.2f} ms, K4b {tot['k4b_b2b']:.2f}, K4a + K4b "
-          f"{tot['k4a_b2b'] + tot['k4b_b2b']:.2f} (bound {bound:.2f}); on the "
-          f"device (profiler) K4a {tot['k4a_dev']:.2f}, K4b "
-          f"{tot['k4b_dev']:.2f}, K4a + K4b "
-          f"{tot['k4a_dev'] + tot['k4b_dev']:.2f}; whole BatchNorm backward "
-          f"{tot['bwd']:.2f} ms, back to back {tot['bwd_b2b']:.2f}, on the "
-          f"device {tot['bwd_dev']:.2f} in {tot['bwd_ops']:.0f} device "
-          f"operations (the function's bound {bound_fn:.2f}); library BN "
-          f"backward {tot['library']:.2f}, back to back "
-          f"{tot['library_b2b']:.2f}, on the device {tot['library_dev']:.2f}")
-    print(f"[{tag}] per (M, C) x count, ms one call / back to back / on the "
-          f"device: K4a; K4b; whole BN backward (device operations); "
-          f"library; bytes bounds of K4a, K4b -- " + "; ".join(
-              f"{M}x{C} x{shapes.count((M, C))} "
-              f"{v['k4a']:.4f}/{v['k4a_b2b']:.4f}/{v['k4a_dev']:.4f}, "
-              f"{v['k4b']:.4f}/{v['k4b_b2b']:.4f}/{v['k4b_dev']:.4f}, "
-              f"{v['bwd']:.4f}/{v['bwd_b2b']:.4f}/{v['bwd_dev']:.4f} "
-              f"({v['bwd_ops']:.0f}), "
-              f"{v['library']:.4f}/{v['library_b2b']:.4f}/"
-              f"{v['library_dev']:.4f}, "
+          f"{tot['k4a_b2b'] + tot['k4b_b2b']:.2f} (bound {bound:.2f})"
+          + (f"; on the device (profiler) K4a {tot['k4a_dev']:.2f}, K4b "
+             f"{tot['k4b_dev']:.2f}, K4a + K4b "
+             f"{tot['k4a_dev'] + tot['k4b_dev']:.2f}" if dev else "")
+          + f"; whole BatchNorm backward {tot['bwd']:.2f} ms, back to back "
+          f"{tot['bwd_b2b']:.2f}{on_card('bwd', True)} (the function's "
+          f"bound {bound_fn:.2f}); library BN backward {tot['library']:.2f}"
+          f", back to back {tot['library_b2b']:.2f}{on_card('library')}")
+
+    def times(v, key):
+        return "/".join(f"{v[k]:.4f}" for k in (key, key + "_b2b",
+                                                 key + "_dev") if k in v)
+
+    print(f"[{tag}] per (M, C) x count, ms one call / back to back"
+          + (" / on the device" if dev else "") + ": K4a; K4b; whole BN "
+          "backward" + (" (device operations)" if dev else "") + "; library; "
+          "bytes bounds of K4a, K4b; routes K4a, K4b -- " + "; ".join(
+              f"{M}x{C} x{shapes.count((M, C))} {times(v, 'k4a')}, "
+              f"{times(v, 'k4b')}, {times(v, 'bwd')}"
+              + (f" ({v['bwd_ops']:.0f})" if dev else "")
+              + f", {times(v, 'library')}, "
               f"{4 * M * C / PEAK_BYTES_PER_S * 1e3:.4f}, "
-              f"{6 * M * C / PEAK_BYTES_PER_S * 1e3:.4f}"
+              f"{6 * M * C / PEAK_BYTES_PER_S * 1e3:.4f}, "
+              f"{'+'.join(v['k4a_routes'])}, {'+'.join(v['k4b_routes'])}"
               for (M, C), v in per_shape.items()))
     return tot, bound
 
@@ -2258,23 +2312,17 @@ def resnet_step_anatomy(trainer):
     return 1 - busy / span
 
 
-def phase_resnet_grad_gate():
-    """f32 gradients of every ResNet-50 param on one batch of 8 at 224²:
-    through K4a/K4b against through their plain versions. Each param's
-    largest difference is held to RN_GRAD_RTOL of the largest gradient
-    entry of its node (its layer's params together): a BatchNorm whose
-    output reaches only BatchNorms through ReLU and max pooling (the stem)
-    has a beta gradient that is zero up to rounding, whose own largest
-    entry is no scale."""
-    from deeplearning4j_torch.data import BenchmarkIterator
+def _bn_grad_gate(model, params, state, x, y, rtol, what, tag):
+    """f32 gradients of every param of ``model`` on (x, y): through
+    K4a/K4b against through their plain versions. Each param's largest
+    difference is held to ``rtol`` of the largest gradient entry of its
+    node (its layer's params together): a BatchNorm whose output reaches
+    only BatchNorms through ReLU and max pooling (ResNet-50's stem) has a
+    beta gradient that is zero up to rounding, whose own largest entry is
+    no scale."""
     from deeplearning4j_torch.ops import batch_norm
     from deeplearning4j_torch.ops.updaters import tree_leaves
 
-    model = _resnet50(None)
-    params, state = model.init(seed=0)
-    ds = next(iter(BenchmarkIterator((224, 224, 3), 1000, RN_GRAD_BATCH, 1,
-                                     seed=1)))
-    x, y = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
     names = [k for k in sorted(params) for _ in tree_leaves(params[k])]
     leaves = [p.requires_grad_() for p in tree_leaves(params)]
     loss, _ = model.score(params, state, x, y)
@@ -2291,17 +2339,31 @@ def phase_resnet_grad_gate():
     scale = {}
     for n, w in zip(names, want):
         scale[n] = max(scale.get(n, 0.0), w.abs().max().item())
-    rel_node = max(((g - w).abs().max().item() / scale[n])
-                   for n, g, w in zip(names, got, want))
+    rel_node, worst = max(((g - w).abs().max().item() / scale[n], n)
+                          for n, g, w in zip(names, got, want))
     rel_own = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
                   .item() for g, w in zip(got, want))
-    print(f"[resnet grad] f32, batch {RN_GRAD_BATCH} at 224x224x3, loss "
-          f"{loss.item():.6f} (plain {loss_p.item():.6f}): max over params "
-          f"of max |kernels - plain| / largest gradient entry of the node "
-          f"{rel_node:.3g} (gate {RN_GRAD_RTOL}); of the param itself "
-          f"{rel_own:.3g}")
-    check(rel_node <= RN_GRAD_RTOL, f"f32 ResNet-50 gradient, kernels vs "
-          f"plain BN backward, rel diff {rel_node:.3g}")
+    print(f"[{tag}] {what}, loss {loss.item():.6f} (plain "
+          f"{loss_p.item():.6f}): max over params of max |kernels - plain| "
+          f"/ largest gradient entry of the node {rel_node:.3g} at {worst} "
+          f"(gate {rtol}); of the param itself {rel_own:.3g}")
+    check(rel_node <= rtol, f"f32 {what} gradient, kernels vs plain BN "
+          f"backward, rel diff {rel_node:.3g}")
+
+
+def phase_resnet_grad_gate():
+    """f32 gradients of every ResNet-50 param on one batch of 8 at 224²,
+    through K4a/K4b against their plain versions (``_bn_grad_gate``)."""
+    from deeplearning4j_torch.data import BenchmarkIterator
+
+    model = _resnet50(None)
+    params, state = model.init(seed=0)
+    ds = next(iter(BenchmarkIterator((224, 224, 3), 1000, RN_GRAD_BATCH, 1,
+                                     seed=1)))
+    x, y = (torch.from_numpy(a).cuda() for a in (ds.features, ds.labels))
+    _bn_grad_gate(model, params, state, x, y, RN_GRAD_RTOL,
+                  f"ResNet-50, batch {RN_GRAD_BATCH} at 224x224x3",
+                  "resnet grad")
 
 
 # ----------------------------------------------------------------- breadth
@@ -3476,6 +3538,498 @@ def phase_rnn():
 
 
 
+# --- [zoo]: YOLO2 at full width, and the other zoo CNNs ---
+ZOO_B, ZOO_STEPS, ZOO_WARMUP = 64, 12, 2    # batch=64 as yolov2.cfg sets
+ZOO_SIZE, ZOO_GRID, ZOO_CLASSES = 416, 13, 80
+ZOO_SPE = 4
+ZOO_GRAD_B = 2
+ZOO_GRAD_RTOL = 1e-3    # f32 gradients, kernels vs plain BN backward
+ZOO_SERVE_BUCKETS = (1, 4, 16)
+ZOO_SERVE_REQS = (1, 3, 16, 5)
+ZOO_SERVE_FLOOR = 1e-3  # served vs direct: |diff| / (|direct| + floor)
+ZOO_SERVE_BF16_ATOL = 0.05  # bf16 x, y, confidence, classes: |diff|
+ZOO_EMB_TOL = 1e-2      # served embeddings: |norm - 1|
+ZOO_OTHER_B, ZOO_OTHER_STEPS = 8, 3
+# (zoo name, constructor arguments, trained (else served embeddings))
+ZOO_OTHERS = (
+    ("alexnet", dict(input_shape=(224, 224, 3)), True),
+    ("darknet19", dict(input_shape=(224, 224, 3)), True),
+    ("tinyyolo", dict(input_shape=(416, 416, 3), num_classes=20), True),
+    ("googlenet", dict(input_shape=(224, 224, 3)), True),
+    ("inceptionresnetv1", dict(input_shape=(160, 160, 3)), False),
+    ("facenetnn4small2", dict(input_shape=(96, 96, 3)), False),
+)
+
+
+class _Repeat:
+    """One batch served ``n`` times, as the bench repeats its batch."""
+
+    def __init__(self, x, y, n):
+        self.x, self.y, self.n = x, y, n
+
+    @property
+    def batch_size(self):
+        return self.x.shape[0]
+
+    def __len__(self):
+        return self.n
+
+    def __iter__(self):
+        from deeplearning4j_torch.data import DataSet
+
+        ds = DataSet(self.x, self.y)
+        for _ in range(self.n):
+            yield ds
+
+
+def _yolo2(compute_dtype):
+    from deeplearning4j_torch.models import YOLO2
+
+    model = YOLO2(seed=0, input_shape=(ZOO_SIZE, ZOO_SIZE, 3)).build()
+    model.config.compute_dtype = compute_dtype
+    return model
+
+
+def _yolo2_batch(n, seed=0):
+    """``n`` standard normal images at 416² and their labels, from
+    ``numpy.random.default_rng(seed)``."""
+    from deeplearning4j_torch.data import yolo_labels
+    from deeplearning4j_torch.models import YOLO2
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, ZOO_SIZE, ZOO_SIZE, 3)).astype(np.float32)
+    y = yolo_labels(rng, n, ZOO_GRID, YOLO2.anchors, ZOO_CLASSES)
+    return x, y
+
+
+def zoo_yolo2_train(where, x, y):
+    """YOLO2 (bf16, adam 1e-3) trained by ``Trainer.fit`` on the repeated
+    batch: ZOO_WARMUP steps, then the rest timed as one fit. Gated: losses
+    finite and the last below the first; K4a and K4b launch once per
+    BatchNorm (21) a step. Printed: params, model FLOP a step, step ms,
+    images/s, MFU, device ms and operations of one step (profiler) and
+    the idle share, peak memory."""
+    from deeplearning4j_torch.ops.batch_norm import bn_dx, bn_reduce_coeffs
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    t0 = time.perf_counter()
+    model = _yolo2("bfloat16")
+    model.init(seed=0)
+    torch.cuda.synchronize()
+    n_bn = len(_bn_nodes(model, ZOO_B))
+    flop = _model_flop(model, ZOO_B)
+    print(f"[zoo] YOLO2 graph of {len(model.nodes)} nodes ({n_bn} "
+          f"BatchNorms), {model.param_count()} params, initialized in "
+          f"{time.perf_counter() - t0:.2f} s; model FLOP/step = 6 x conv "
+          f"multiply-adds x batch {ZOO_B} = {flop:.4g} "
+          f"({flop / 6 / ZOO_B:.4g} forward an image)")
+    wrappers = _kernel_wrappers()
+    trainer = Trainer(model)
+    scores = CollectScoresListener()
+    timed = ZOO_STEPS - ZOO_WARMUP
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+        if hasattr(w, "routes"):
+            w.routes = dict.fromkeys(w.routes, 0)
+    t0 = time.perf_counter()
+    trainer.fit(_Repeat(x, y, ZOO_WARMUP), listeners=[scores])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    trainer.fit(_Repeat(x, y, timed), listeners=[scores])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss for _, loss in scores.scores]
+    check(len(losses) == ZOO_STEPS and all(np.isfinite(losses)),
+          f"YOLO2: losses {losses}")
+    check(losses[-1] < losses[0], f"YOLO2: the loss did not fall: {losses}")
+    check(counts["K4a"] == counts["K4b"] == n_bn * ZOO_STEPS
+          and counts["K4a_unfused"] == 0, f"YOLO2: launches {counts}, want "
+          f"fused K4a and K4b {n_bn} each a step over {ZOO_STEPS} steps")
+    step_ms = 1e3 * (t2 - t1) / timed
+    xb, yb = (torch.from_numpy(a).cuda() for a in (x, y))
+    p, o, s = trainer.params, trainer.opt_state, trainer.state
+    dev_ms, dev_ops = device_ms(lambda: trainer.step(p, o, s, xb, yb),
+                                reps=2)
+    print(f"[zoo] YOLO2 {ZOO_STEPS} steps of Trainer.fit (adam 1e-3, bf16 "
+          f"compute, f32 params), batch {ZOO_B} at {ZOO_SIZE}x{ZOO_SIZE}x3, "
+          f"labels ({ZOO_B}, {ZOO_GRID}, {ZOO_GRID}, 5, {5 + ZOO_CLASSES}) "
+          f"on {where}: losses " + " ".join(f"{l:.4f}" for l in losses))
+    print(f"[zoo] YOLO2 launches K4a (fused) {counts['K4a']}, K4b "
+          f"{counts['K4b']} ({n_bn} each a step); routes K4a "
+          f"{dict(bn_reduce_coeffs.routes)}, K4b {dict(bn_dx.routes)}; "
+          f"warm-up fit of {ZOO_WARMUP} steps {t1 - t0:.2f} s")
+    print(f"[zoo] YOLO2 step {step_ms:.2f} ms (one fit of {timed} steps "
+          f"after the warm-up, window / steps), {ZOO_B / step_ms * 1e3:.1f} "
+          f"images/s; MFU {flop / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.4f} of "
+          f"989 TFLOP/s; one step on the device {dev_ms:.2f} ms in "
+          f"{dev_ops:.0f} device operations (profiler), idle share "
+          f"{1 - dev_ms / step_ms:.4f}; peak memory {peak / 2**30:.2f} GiB")
+    out = {"step_ms": step_ms, "dev_ms": dev_ms, "dev_ops": dev_ops,
+           "peak_gib": peak / 2**30, "flop": flop, "counts": counts,
+           "n_bn": n_bn, "losses": losses}
+    return trainer, out
+
+
+def zoo_yolo2_graph(where, x, y, n_bn):
+    """YOLO2 at steps_per_execution=4: iteration 0 alone, then 8 steps as
+    2 replays of one graph, against 9 eager steps from the same start,
+    bit-equal (``_graph_vs_eager``); K4a and K4b launch 21 times for
+    iteration 0, the warm-up step and each captured step. Then host ms a
+    step eager and graphed over 8 steps, device ms of a replay, and the
+    time of one capture (its warm-up step included)."""
+    def build():
+        m = _yolo2("bfloat16")
+        m.init(seed=0)
+        return m
+
+    wrappers = _kernel_wrappers()
+    eager, graphed, total = _graph_vs_eager(
+        build, lambda k: _Repeat(x, y, k), 2 * ZOO_SPE, ZOO_SPE,
+        f"YOLO2 bf16 batch {ZOO_B}", wrappers=tuple(wrappers.values()),
+        tag="zoo")
+    total = dict(zip(wrappers, total))
+    want = n_bn * (1 + 1 + ZOO_SPE)
+    check(total["K4a"] == total["K4b"] == want, f"YOLO2 graph: launches "
+          f"{total}: want K4a, K4b {want} each (iteration 0, the warm-up "
+          f"step, {ZOO_SPE} captured steps)")
+    # what one capture launched, of each kernel: the run's launches less
+    # iteration 0's and the warm-up step's, which run the same kernels
+    captured = {k: n * ZOO_SPE // (2 + ZOO_SPE) for k, n in total.items()}
+    xb, yb = (torch.from_numpy(a).cuda() for a in (x, y))
+    window = [(xb, yb, None, None)] * ZOO_SPE
+    steps = 2 * ZOO_SPE
+    times = {"eager": [], "graph": []}
+    with _deterministic():
+        rep_dev, rep_ops = device_ms(lambda: graphed._replay(window), reps=2)
+        for which in ("eager", "graph"):
+            t = eager if which == "eager" else graphed
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit(_Repeat(x, y, steps),
+                  steps_per_execution=1 if which == "eager" else ZOO_SPE)
+            torch.cuda.synchronize()
+            times[which].append(1e3 * (time.perf_counter() - t0) / steps)
+        staged = [tuple(graphed._stage(a) for a in (xb, yb, None, None))] \
+            * ZOO_SPE
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cap = graphed._capture(staged)
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
+        del cap
+    print(f"[zoo] YOLO2 on {where}: host ms a step over {steps} steps eager "
+          f"{times['eager'][0]:.2f}, graphed {times['graph'][0]:.2f} "
+          f"(steps_per_execution={ZOO_SPE}); one replay ({ZOO_SPE} steps) "
+          f"{rep_dev:.2f} ms on the device in {rep_ops:.0f} operations "
+          f"({rep_dev / ZOO_SPE:.2f} ms, {rep_ops / ZOO_SPE:.0f} a step; "
+          f"idle share {1 - rep_dev / ZOO_SPE / times['graph'][0]:.4f}); "
+          f"capture of {ZOO_SPE} steps (its warm-up step included) "
+          f"{capture_s:.2f} s; K4a and K4b {n_bn * ZOO_SPE} launches "
+          f"captured, replayed {graphed.windows} times in the gate")
+    out = {"captured": captured, "replays": graphed.windows,
+           "eager_ms": times["eager"][0], "graph_ms": times["graph"][0],
+           "replay_dev_ms": rep_dev, "replay_ops": rep_ops,
+           "capture_s": capture_s}
+    del eager, graphed
+    _release()
+    return out
+
+
+def zoo_yolo2_grad_gate():
+    """f32 YOLO2 gradients on a batch of 2 at 416², through K4a/K4b
+    against their plain versions (``_bn_grad_gate``), with TF32 off
+    whatever the caller set: with it on, the convolutions' own rounding
+    moves a random YOLO2's gradients by more than the gate between two
+    row orders of the same batch."""
+    model = _yolo2(None)
+    params, state = model.init(seed=0)
+    x, y = (torch.from_numpy(a).cuda() for a in _yolo2_batch(ZOO_GRAD_B, 1))
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _bn_grad_gate(model, params, state, x, y, ZOO_GRAD_RTOL,
+                      f"YOLO2, batch {ZOO_GRAD_B} at {ZOO_SIZE}x{ZOO_SIZE}"
+                      f"x3", "zoo grad")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+    del model, params, state
+    _release()
+
+
+def zoo_bn_shapes(model):
+    """K4a (fused and sums modes, every route) and K4b against their plain
+    versions at YOLO2's narrowest BatchNorm (c1) and widest (c14; c21
+    normalizes the 1024 channels of its conv over the concat, the same
+    shape), bf16; then every BatchNorm's shape timed (``bn_shape_times``,
+    CUDA events only). Returns the per-shape rows for the kernels line,
+    each with the routes that K4a's and K4b's wrappers counted."""
+    from deeplearning4j_torch.ops.batch_norm import bn_reduce
+
+    nodes = _bn_nodes(model, ZOO_B)
+    by_name = {n: (M, C) for n, M, C in nodes}
+    gen = torch.Generator(device="cuda")
+    for i, name in enumerate(("c1", "c14", "c21")):
+        M, C = by_name[name]
+        gen.manual_seed(900 + i)
+        x, dy = (torch.randn((M, C), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        a = torch.randn((C,), generator=gen, device="cuda").to(torch.bfloat16)
+        c1, c2 = (1e-2 * torch.randn((C,), generator=gen, device="cuda")
+                  for _ in range(2))
+        gamma = (1 + 0.1 * torch.randn((C,), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+        before = dict(bn_reduce.routes)
+        err = _bn_compare(x, dy, a, c1, c2, f"YOLO2 {name} ({M}, {C})")
+        _bn_fused_compare(x, dy, gamma, f"YOLO2 {name} ({M}, {C})")
+        routes = [k for k, n in bn_reduce.routes.items() if n > before[k]]
+        print(f"[zoo] K4a (both modes, routes {' and '.join(routes)}) "
+              f"and K4b at YOLO2's {name} BatchNorm, bf16 ({M}, {C}): equal "
+              f"to their plain versions (K4a's sums within {BN_SUM_RTOL} of "
+              f"their terms; K4b and the coefficients bit for bit); composed "
+              f"dx vs the plain composition max abs err {err:.3g}")
+        del x, dy
+    shapes = [(M, C) for _, M, C in nodes]
+    # device readings left out: late in the whole script torch.profiler
+    # was seen to lose K4a's events here (readings under the bytes bound)
+    per_shape = bn_shape_times(shapes, device=False)
+    tot, bound = print_bn_shapes(shapes, per_shape, "zoo")
+    rows = []
+    for name, M, C in nodes:
+        if name not in ("c1", "c14", "c21") and (M, C) in {
+                tuple(r["shape"]) for r in rows}:
+            continue
+        v = per_shape[(M, C)]
+        rows.append({"bn": name, "shape": [M, C],
+                     "k4a_route": "+".join(v["k4a_routes"]),
+                     "k4b_route": "+".join(v["k4b_routes"]),
+                     "k4a_ms": v["k4a"], "k4a_ms_b2b": v["k4a_b2b"],
+                     "k4a_bound_ms": 4 * M * C / PEAK_BYTES_PER_S * 1e3,
+                     "k4b_ms": v["k4b"], "k4b_ms_b2b": v["k4b_b2b"],
+                     "k4b_bound_ms": 6 * M * C / PEAK_BYTES_PER_S * 1e3,
+                     "library_ms": v["library"],
+                     "library_ms_b2b": v["library_b2b"]})
+    return rows, tot
+
+
+def zoo_yolo2_serve(model, where):
+    """``ServeEngine`` over YOLO2 (params from seed 0; batch buckets 1, 4,
+    16, no length buckets) answering requests of 1, 3, 16 and 5 images,
+    in bf16 and in f32 compute. Gated, element by element (relative, with
+    a floor of ZOO_SERVE_FLOOR): each bf16 answer within ENGINE_RTOL of
+    ``Graph.output`` on its images padded with zero rows to the bucket the
+    engine ran; each f32 answer within ENGINE_RTOL of ``Graph.output`` on
+    its images alone; a control (another request's output) outside it.
+    Against the images alone, each bf16 answer's x, y, confidence and
+    classes (values in (0, 1)) within ZOO_SERVE_BF16_ATOL absolute, and
+    the control outside it: cuDNN rounds a bf16 convolution by the
+    batch's shape, and the sigmoid's and softmax's exponential tails turn
+    those few ulps of a pre-activation into up to 12% of a small value,
+    as ``exp`` does for a box size."""
+    from deeplearning4j_torch.serve import ServeEngine
+
+    rng = np.random.default_rng(5)
+    reqs = [rng.standard_normal((n, ZOO_SIZE, ZOO_SIZE, 3)).astype(np.float32)
+            for n in ZOO_SERVE_REQS]
+
+    def serve():
+        eng = ServeEngine(model, batch_buckets=ZOO_SERVE_BUCKETS,
+                          length_buckets=None)
+        t0 = time.perf_counter()
+        try:
+            answers = [eng.predict(x) for x in reqs]
+        finally:
+            eng.shutdown()
+        batches = int(eng.metrics.counter("serve_batches_total").value)
+        return answers, batches, time.perf_counter() - t0
+
+    def direct(x, rows):
+        pad = np.zeros((rows - len(x),) + x.shape[1:], x.dtype)
+        y = model.output(np.concatenate([x, pad]))[0]
+        return y[:len(x)].float().cpu().numpy()
+
+    def rel_gap(y, ref):
+        # a class probability or confidence rounds to 0 in bf16
+        n = min(len(y), len(ref))
+        return float((np.abs(y[:n] - ref[:n])
+                      / (np.abs(ref[:n]) + ZOO_SERVE_FLOOR)).max())
+
+    # each anchor's x, y, confidence and classes: the channels that no exp
+    # of a box size's pre-activation amplifies
+    plain = np.tile(np.arange(5 + ZOO_CLASSES) // 2 != 1, 5)
+
+    def abs_gap(y, ref):
+        n = min(len(y), len(ref))
+        return float(np.abs(y[:n, ..., plain] - ref[:n, ..., plain]).max())
+
+    gaps = {}
+    for cdt in ("bfloat16", None):
+        model.config.compute_dtype = cdt
+        answers, batches, wall = serve()
+        for x, y in zip(reqs, answers):
+            check(y.shape == (x.shape[0], ZOO_GRID, ZOO_GRID,
+                              5 * (5 + ZOO_CLASSES)) and np.isfinite(y).all(),
+                  f"YOLO2 served answer of shape {y.shape} for {x.shape}")
+        bucket = [next(b for b in ZOO_SERVE_BUCKETS if b >= len(x))
+                  for x in reqs]
+        alone = [direct(x, len(x)) for x in reqs]
+        gaps[cdt] = {
+            "bucket": [rel_gap(y, direct(x, b))
+                       for x, y, b in zip(reqs, answers, bucket)],
+            "alone": [rel_gap(y, ref) for y, ref in zip(answers, alone)],
+            "control": min(rel_gap(y, alone[(i + 1) % len(reqs)])
+                           for i, y in enumerate(answers)),
+            "plain_rel": [rel_gap(y[..., plain], ref[..., plain])
+                          for y, ref in zip(answers, alone)],
+            "plain_abs": [abs_gap(y, ref) for y, ref in zip(answers, alone)],
+            "plain_control": min(abs_gap(y, alone[(i + 1) % len(reqs)])
+                                 for i, y in enumerate(answers))}
+        g = gaps[cdt]
+        print(f"[zoo] YOLO2 served {cdt or 'float32'} on {where}: requests "
+              f"of {list(ZOO_SERVE_REQS)} images in {batches} batches "
+              f"(buckets {ZOO_SERVE_BUCKETS}), {wall:.3f} s wall; engine vs "
+              f"direct, max rel diff per request: on the bucket's padded "
+              f"batch " + " ".join(f"{v:.3g}" for v in g["bucket"])
+              + "; on the images alone " + " ".join(
+                  f"{v:.3g}" for v in g["alone"]) + f"; control (another "
+              f"request's output) least {g['control']:.3g}; x, y, "
+              f"confidence and classes alone, rel " + " ".join(
+                  f"{v:.3g}" for v in g["plain_rel"]) + ", abs " + " ".join(
+                  f"{v:.3g}" for v in g["plain_abs"]) + f" (control abs "
+              f"{g['plain_control']:.3g})")
+        check(g["control"] > ENGINE_RTOL, "the YOLO2 engine-vs-direct limit "
+              "accepts another request's output")
+    model.config.compute_dtype = "bfloat16"
+    check(max(gaps["bfloat16"]["bucket"]) <= ENGINE_RTOL, "a bf16 YOLO2 "
+          "engine answer differs from Graph.output on its padded batch")
+    check(max(gaps["bfloat16"]["plain_abs"]) <= ZOO_SERVE_BF16_ATOL
+          < gaps["bfloat16"]["plain_control"], "a bf16 YOLO2 engine "
+          "answer's x, y, confidence or classes differ from Graph.output on "
+          "its images, or the limit accepts another request's output")
+    check(max(gaps[None]["alone"]) <= ENGINE_RTOL, "an f32 YOLO2 engine "
+          "answer differs from Graph.output on its images")
+
+
+def zoo_others(where):
+    """The six other zoo CNNs at their zoo input sizes, bf16, batch 8, each
+    alone and freed after: forward finite; AlexNet, Darknet19, TinyYOLO
+    and GoogLeNet 3 ``Trainer.fit`` steps with finite losses (step ms and
+    peak memory printed); InceptionResNetV1 and FaceNetNN4Small2 serve
+    embeddings through ``ServeEngine``, each of unit L2 norm within
+    ZOO_EMB_TOL. Returns each model's kernel launches."""
+    from deeplearning4j_torch.data import BenchmarkIterator, yolo_labels
+    from deeplearning4j_torch.models import model_by_name
+    from deeplearning4j_torch.serve import ServeEngine
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    wrappers = _kernel_wrappers()
+    launches = {}
+    for name, kw, trained in ZOO_OTHERS:
+        zm = model_by_name(name, seed=0, **kw)
+        model = zm.build()
+        model.config.compute_dtype = "bfloat16"
+        model.init(seed=0)
+        shape = tuple(zm.input_shape)
+        rng = np.random.default_rng(3)
+        x = rng.standard_normal((ZOO_OTHER_B,) + shape).astype(np.float32)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        y0 = model.output(x)
+        y0 = (y0[0] if isinstance(y0, list) else y0).float()
+        check(bool(torch.isfinite(y0).all()), f"{name}: non-finite forward")
+        what = (f"[zoo] {name} ({model.param_count()} params) bf16 batch "
+                f"{ZOO_OTHER_B} at {'x'.join(map(str, shape))}: forward "
+                f"{tuple(y0.shape)} finite")
+        if trained:
+            if name == "tinyyolo":
+                lab = yolo_labels(rng, ZOO_OTHER_B, ZOO_GRID, zm.anchors,
+                                  zm.num_classes)
+                batches = lambda k: _Repeat(x, lab, k)
+            else:
+                batches = lambda k: BenchmarkIterator(
+                    shape, zm.num_classes, ZOO_OTHER_B, k, seed=0)
+            rec = CollectScoresListener()
+            trainer = Trainer(model)
+            trainer.fit(batches(1), listeners=[rec])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.fit(batches(ZOO_OTHER_STEPS - 1), listeners=[rec])
+            torch.cuda.synchronize()
+            step_ms = 1e3 * (time.perf_counter() - t0) / (ZOO_OTHER_STEPS - 1)
+            losses = [l for _, l in rec.scores]
+            check(len(losses) == ZOO_OTHER_STEPS
+                  and all(np.isfinite(losses)), f"{name}: losses {losses}")
+            what += (f"; {ZOO_OTHER_STEPS} fit steps, losses "
+                     + " ".join(f"{l:.4f}" for l in losses)
+                     + f", step {step_ms:.2f} ms (the last "
+                     f"{ZOO_OTHER_STEPS - 1})")
+            del trainer
+        else:
+            eng = ServeEngine(model, batch_buckets=(1, 4, 8),
+                              length_buckets=None)
+            try:
+                emb = np.concatenate([eng.predict(x[:3]), eng.predict(x[3:])])
+            finally:
+                eng.shutdown()
+            norms = np.linalg.norm(emb.astype(np.float64), axis=-1)
+            check(emb.shape == (ZOO_OTHER_B, zm.num_classes)
+                  and float(np.abs(norms - 1).max()) <= ZOO_EMB_TOL,
+                  f"{name}: served embeddings {emb.shape}, norms {norms}")
+            what += (f"; served embeddings {emb.shape} through ServeEngine, "
+                     f"L2 norms within {float(np.abs(norms - 1).max()):.3g} "
+                     f"of 1")
+        launches[name] = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{what}; peak memory {peak / 2**30:.2f} GiB; kernel launches "
+              f"{launches[name]}")
+        del model, y0
+        _release()
+    return launches
+
+
+def phase_zoo():
+    """[zoo]: YOLO2 trained at full width eagerly and under a captured
+    step, its f32 gradient gate, K4a/K4b at its shapes, YOLO2 served, and
+    the six other zoo CNNs. Kernel launch counts are zeroed before each
+    path and read after it. Returns what the kernels line needs."""
+    where = card()
+    print(f"[zoo] card: {where}")
+    x, y = _yolo2_batch(ZOO_B)
+    trainer, train = zoo_yolo2_train(where, x, y)
+    del trainer
+    _release()
+    model = _yolo2("bfloat16")
+    model.init(seed=0)
+    zoo_yolo2_serve(model, where)
+    shape_rows, shape_tot = zoo_bn_shapes(model)
+    del model
+    _release()
+    graph = zoo_yolo2_graph(where, x, y, train["n_bn"])
+    zoo_yolo2_grad_gate()
+    others = zoo_others(where)
+    print(f"[zoo] summary on {where}: YOLO2 batch {ZOO_B} at {ZOO_SIZE}²: "
+          f"step {train['step_ms']:.2f} ms eager "
+          f"({ZOO_B / train['step_ms'] * 1e3:.1f} images/s, MFU "
+          f"{train['flop'] / (train['step_ms'] * 1e-3) / PEAK_BF16_FLOPS:.4f}"
+          f"), {graph['graph_ms']:.2f} ms graphed; device "
+          f"{train['dev_ms']:.2f} ms a step in {train['dev_ops']:.0f} "
+          f"operations (idle share {1 - train['dev_ms'] / train['step_ms']:.4f}"
+          f"); peak {train['peak_gib']:.2f} GiB; K4a + K4b over the "
+          f"{train['n_bn']} BatchNorms back to back "
+          f"{shape_tot['k4a_b2b'] + shape_tot['k4b_b2b']:.2f} ms, library "
+          f"{shape_tot['library_b2b']:.2f} ms")
+    return {"yolo2": train["counts"], "graph": graph, "others": others,
+            "shapes": shape_rows}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3510,6 +4064,7 @@ def main() -> int:
     phase_resnet_grad_gate()
     breadth = phase_breadth()
     rnn_counts = phase_rnn()
+    zoo = phase_zoo()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -3535,6 +4090,16 @@ def main() -> int:
                         ("K1", "K2", "K3", "K5", "K4a", "K4b")):
         row.setdefault("launches_by_path", {"train": row["launches"]})
         row["launches_by_path"]["rnn"] = rnn_counts[key]
+        # the zoo: YOLO2's fit; under a graph, the launches captured x
+        # the replays (0 captured for a kernel the path does not run);
+        # each other zoo CNN's run
+        row["launches_by_path"]["yolo2"] = zoo["yolo2"][key]
+        row["launches_by_path"]["yolo2_graph"] = (
+            zoo["graph"]["captured"][key] * zoo["graph"]["replays"])
+        for name, counts in zoo["others"].items():
+            row["launches_by_path"][name] = counts[key]
+    for row in bn_rows:
+        row["yolo2_shapes"] = zoo["shapes"]
     print(json.dumps({"kernels": [k1] + bwd_rows + bn_rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {

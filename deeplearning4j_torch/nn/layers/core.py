@@ -1,12 +1,14 @@
-"""Core layers — counterpart of ``deeplearning4j_tpu/nn/layers/core.py``
-(Dense, ActivationLayer, DropoutLayer, GaussianNoise, GaussianDropout,
-AlphaDropout, EmbeddingSequence, Output, RnnOutput). Dense weights are
+"""Core layers — counterpart of ``deeplearning4j_tpu/nn/layers/core.py``,
+every layer of it: Dense, ActivationLayer, DropoutLayer, GaussianNoise,
+GaussianDropout, AlphaDropout, Embedding, EmbeddingSequence,
+ElementWiseMultiplication, PReLU, Output, LossLayer, RnnOutput,
+CnnLossLayer, RnnLossLayer and CenterLossOutput. Dense weights are
 (in, out), as in the reference, so params cross between the packages
 unchanged. Dense and Output apply their ``dropout`` to their input in
 training; the noise layers draw from the ``rng`` generator in training and
 are the identity otherwise.
 Output layers score with the reference's fusion: softmax + MCXENT becomes
-``mcxent_logits`` on the preactivation.
+``mcxent_logits`` on the preactivation, sigmoid + XENT ``xent_logits``.
 """
 
 from __future__ import annotations
@@ -172,17 +174,85 @@ class EmbeddingSequence(Layer):
         return params["w"][ids], state, mask
 
 
+@register_layer
+@dataclass(frozen=True)
+class Embedding(Layer):
+    """EmbeddingLayer.java: (B,) or (B, 1) integer ids -> (B, n_out).
+    ``one_hot_matmul`` takes the lookup as a one-hot product, as the
+    reference does for tiny vocabularies."""
+
+    n_in: int = 0  # vocab size
+    n_out: int = 0
+    use_bias: bool = False
+    activation: str = "identity"
+    one_hot_matmul: bool = False
+
+    def output_shape(self, input_shape: Shape) -> Shape:
+        return (self.n_out,)
+
+    def init(self, gen, input_shape, dtype=torch.float32, device=None):
+        return _dense_params(self, gen, self.n_in, self.n_out, self.use_bias,
+                             dtype, device), {}
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        ids = x.long()
+        if ids.ndim >= 2 and ids.shape[-1] == 1:
+            ids = ids[..., 0]
+        w = params["w"]
+        if self.one_hot_matmul:
+            y = torch.nn.functional.one_hot(ids, self.n_in).to(w.dtype) @ w
+        else:
+            y = w[ids]
+        if self.use_bias:
+            y = y + params["b"]
+        return activations.get(self.activation)(y), state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class ElementWiseMultiplication(Layer):
+    """ElementWiseMultiplicationLayer: y = act(x * w + b), a learned
+    per-feature scale and shift."""
+
+    activation: str = "identity"
+
+    def init(self, gen, input_shape, dtype=torch.float32, device=None):
+        n = input_shape[-1]
+        return {"w": torch.ones((n,), dtype=dtype, device=device),
+                "b": torch.zeros((n,), dtype=dtype, device=device)}, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        y = x * params["w"] + params["b"]
+        return activations.get(self.activation)(y), state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class PReLU(Layer):
+    """PReLULayer: ReLU with a learned negative slope per feature,
+    ``where(x >= 0, x, x * alpha)``."""
+
+    def init(self, gen, input_shape, dtype=torch.float32, device=None):
+        return {"alpha": torch.zeros((input_shape[-1],), dtype=dtype,
+                                     device=device)}, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        return torch.where(x >= 0, x, x * params["alpha"]), state, mask
+
+
 class _LossMixin:
     """Shared scoring for output layers (DL4J BaseOutputLayer.computeScore).
     Softmax + MCXENT (or NLL) is fused into the stable ``mcxent_logits`` on
-    the preactivation; ``apply`` still emits probabilities. Sigmoid + XENT
-    (``xent_logits``) and the other losses are not ported yet."""
+    the preactivation, sigmoid + XENT into ``xent_logits``; ``apply`` still
+    emits the activation."""
 
     def _loss_fn_and_preact(self):
         act = getattr(self, "activation", "identity")
         loss = str(getattr(self, "loss", "mse")).lower()
         if act == "softmax" and loss in ("mcxent", "negativeloglikelihood"):
             return losses.get("mcxent_logits"), True
+        if act == "sigmoid" and loss == "xent":
+            return losses.get("xent_logits"), True
         return losses.get(loss), False
 
     def score_from_preactivation(self, preact, labels, mask=None):
@@ -231,3 +301,61 @@ class Output(Layer, _LossMixin):
 @dataclass(frozen=True)
 class RnnOutput(Output):
     """Per-timestep Output over (B, T, F), with time masking in score."""
+
+
+@register_layer
+@dataclass(frozen=True)
+class LossLayer(Layer, _LossMixin):
+    """LossLayer.java: a loss without params; its input is already n_out
+    wide."""
+
+    activation: str = "identity"
+    loss: str = "mse"
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        return activations.get(self.activation)(x), state, mask
+
+    def score(self, params, state, x, labels, *, mask=None):
+        return self.score_from_preactivation(x, labels, mask)
+
+
+@register_layer
+@dataclass(frozen=True)
+class CnnLossLayer(LossLayer):
+    """CnnLossLayer.java: a per-pixel loss over (B, H, W, C)."""
+
+
+@register_layer
+@dataclass(frozen=True)
+class RnnLossLayer(LossLayer):
+    """RnnLossLayer.java: a per-timestep loss over (B, T, F), with time
+    masking."""
+
+
+@register_layer
+@dataclass(frozen=True)
+class CenterLossOutput(Output):
+    """CenterLossOutputLayer.java: softmax cross-entropy plus ``lambda_``
+    times the center loss of the input features; the class centers live in
+    ``state`` and move with :meth:`update_centers`."""
+
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def init(self, gen, input_shape, dtype=torch.float32, device=None):
+        params, _ = super().init(gen, input_shape, dtype, device)
+        return params, {"centers": torch.zeros(
+            (self.n_out, input_shape[-1]), dtype=dtype, device=device)}
+
+    def score(self, params, state, x, labels, *, mask=None):
+        ce = self.score_from_preactivation(self.preactivation(params, x),
+                                           labels, mask)
+        label_idx = torch.argmax(labels, dim=-1)
+        cl, _ = losses.center_loss(x, label_idx, state["centers"], self.alpha)
+        return ce + self.lambda_ * cl
+
+    def update_centers(self, state, x, labels):
+        label_idx = torch.argmax(labels, dim=-1)
+        _, centers = losses.center_loss(x, label_idx, state["centers"],
+                                        self.alpha)
+        return {**state, "centers": centers}

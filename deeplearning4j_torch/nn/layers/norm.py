@@ -1,13 +1,15 @@
-"""Normalization — counterpart of ``BatchNorm`` and ``LayerNorm`` in
-``deeplearning4j_tpu/nn/layers/norm.py`` (LRN and RMSNorm are not ported
-yet: ROADMAP.md, Queue 1, "The rest of
-``nn/layers/{conv,norm,pooling}``")."""
+"""Normalization — counterpart of ``deeplearning4j_tpu/nn/layers/norm.py``:
+``BatchNorm``, ``LRN``, ``LayerNorm`` and ``RMSNorm``. Each writes the
+reference's ops in its order, so that in bf16 each intermediate rounds
+where the reference's does; an ``rsqrt`` runs in f32 and rounds once, as
+XLA's does (torch's CPU bf16 ``rsqrt`` is an ulp off on some inputs)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 
 from ...ops import activations
 from ...ops.activations import weak_scalar
@@ -104,3 +106,49 @@ class LayerNorm(Layer):
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
         return (layer_norm(x, params["gamma"], params.get("beta"), self.eps),
                 state, mask)
+
+
+@register_layer
+@dataclass(frozen=True)
+class LRN(Layer):
+    """LocalResponseNormalization.java — cross-channel:
+    ``x / (k + alpha/n * sum_{window} x_j^2) ** beta`` over a window of
+    ``n`` channels centred on each (zero-padded at the edges). The window
+    sum is taken in x's dtype, one channel after another in window order,
+    as the reference's ``reduce_window`` adds."""
+
+    n: int = 5
+    k: float = 2.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        half = self.n // 2
+        sq = F.pad(x * x, (half, self.n - 1 - half))
+        C = x.shape[-1]
+        ssum = sq[..., 0:C]
+        for j in range(1, self.n):
+            ssum = ssum + sq[..., j: j + C]
+        dt = x.dtype
+        base = weak_scalar(self.k, dt) + weak_scalar(self.alpha / self.n,
+                                                     dt) * ssum
+        return x / base ** weak_scalar(self.beta, dt), state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class RMSNorm(Layer):
+    """RMS normalization: ``x * rsqrt(mean(x^2) + eps) * gamma``, the mean
+    accumulated in f32 and stored in x's dtype."""
+
+    eps: float = 1e-6
+
+    def init(self, gen, input_shape, dtype=torch.float32, device=None):
+        return {"gamma": torch.ones((input_shape[-1],), dtype=dtype,
+                                    device=device)}, {}
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        ms = (x * x).float().mean(dim=-1, keepdim=True).to(x.dtype)
+        inv = torch.rsqrt((ms + weak_scalar(self.eps, x.dtype)).float()
+                          ).to(x.dtype)
+        return x * inv * params["gamma"], state, mask

@@ -1,5 +1,5 @@
-"""Global pooling and Flatten — counterpart of ``GlobalPooling`` and
-``Flatten`` in ``deeplearning4j_tpu/nn/layers/pooling.py``.
+"""Global pooling, Flatten and Reshape — counterpart of
+``deeplearning4j_tpu/nn/layers/pooling.py``.
 
 Reductions accumulate in f32 and round once to the input's dtype, as
 ``jnp.mean``/``jnp.sum`` do for bf16. A (B, T, F) input with a (B, T) mask
@@ -10,6 +10,7 @@ carries no mask.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Sequence
 
 import torch
 
@@ -74,3 +75,17 @@ class Flatten(Layer):
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
         return x.reshape(x.shape[0], -1), state, mask
+
+
+@register_layer
+@dataclass(frozen=True)
+class Reshape(Layer):
+    """ReshapeVertex as a layer: (B, ...) -> (B, *shape)."""
+
+    shape: Sequence[int] = ()
+
+    def output_shape(self, input_shape: Shape) -> Shape:
+        return tuple(self.shape)
+
+    def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        return x.reshape((x.shape[0],) + tuple(self.shape)), state, mask

@@ -2,7 +2,7 @@
 ``deeplearning4j_tpu/ops/activations.py``.
 
 Configs name activations as strings, so the registry keys are the
-reference's; the port carries the ones its layers use so far. ``gelu`` is the
+reference's, every one of them. ``gelu`` is the
 tanh approximation, which is what ``jax.nn.gelu`` computes by default
 (torch's default is the erf form).
 
@@ -21,6 +21,16 @@ the same and is bit-equal to ``jax.nn.sigmoid``; in f32 the two packages'
 ``exp`` differ by an ulp, and ``torch.sigmoid`` lands closer to JAX than
 the expansion (1 ulp on 90 of 20,001 points in [-8, 8], against 907), so
 f32 takes it.
+
+The others follow JAX's definitions op for op, each constant a weak
+scalar rounded to x's dtype (:func:`weak_scalar`), and JAX's gradients
+where they are defined by hand: ``leakyrelu`` (and ``rrelu``, its mean
+slope) is ``where(x >= 0, x, αx)``, so its gradient at exactly 0 is 1
+(``F.leaky_relu``'s is α); ``relu6`` has a zero gradient at 0 and 6;
+``softplus`` is ``logaddexp(x, 0)``, ``max(x, 0) + log1p(exp(-|x|))``,
+with its gradient ``exp(x - y)``; ``hardtanh`` and ``rectified_tanh``
+are ``maximum``/``minimum`` chains, whose gradient at a tie is split in
+half in both packages.
 """
 
 from __future__ import annotations
@@ -125,10 +135,138 @@ def hard_sigmoid(x):
     return torch.where(inside, u, torch.clamp(u, 0.0, 6.0).detach()) * (1 / 6)
 
 
+def clip(x, lo=None, hi=None):
+    """``jnp.clip``: ``maximum`` with ``lo``, then ``minimum`` with ``hi``,
+    each bound a 0-d tensor in x's dtype (made by a fill, so a CUDA graph
+    can record it); a tie splits the gradient in half, as JAX's does
+    (``torch.clamp`` passes it whole)."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full((), lo, dtype=x.dtype,
+                                        device=x.device))
+    if hi is not None:
+        x = torch.minimum(x, torch.full((), hi, dtype=x.dtype,
+                                        device=x.device))
+    return x
+
+
+def leaky_relu(x, alpha: float = 0.01):
+    """``jax.nn.leaky_relu``: ``where(x >= 0, x, alpha * x)``; the gradient
+    at 0 is 1."""
+    return torch.where(x >= 0, x, weak_scalar(alpha, x.dtype) * x)
+
+
+def relu6(x):
+    """``jax.nn.relu6``, with its zero gradient at 0 and at 6."""
+    inside = (x > 0) & (x < 6)
+    return torch.where(inside, x, torch.clamp(x, 0.0, 6.0).detach())
+
+
+class _Softplus(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-torch.abs(x)))
+        y = torch.where(torch.isnan(x), x, y)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        xs = torch.where(torch.isinf(x), zero, x)
+        ys = torch.where(torch.isinf(y), zero, y)
+        return g * torch.exp(xs - ys)
+
+
+def softplus(x):
+    """``jax.nn.softplus`` = ``logaddexp(x, 0)``, with logaddexp's
+    gradient ``exp(x - y)`` (infinities replaced by 0)."""
+    return _Softplus.apply(x)
+
+
+def softsign(x):
+    """``jax.nn.soft_sign``: x / (|x| + 1)."""
+    return x / (torch.abs(x) + 1.0)
+
+
+def elu(x, alpha: float = 1.0):
+    """``jax.nn.elu``: ``where(x > 0, x, alpha * expm1(where(x > 0, 0,
+    x)))``."""
+    pos = x > 0
+    neg = torch.expm1(torch.where(pos, torch.zeros_like(x), x))
+    return torch.where(pos, x, weak_scalar(alpha, x.dtype) * neg)
+
+
+def selu(x):
+    """``jax.nn.selu``: scale * elu(x, alpha)."""
+    alpha = 1.6732632423543772848170429916717
+    scale = 1.0507009873554804934193349852946
+    return weak_scalar(scale, x.dtype) * elu(x, alpha)
+
+
+def silu(x):
+    """``jax.nn.silu`` (``swish``): x * sigmoid(x)."""
+    return x * sigmoid(x)
+
+
+def mish(x):
+    """The reference's mish: x * tanh(softplus(x))."""
+    return x * tanh(softplus(x))
+
+
+def hardtanh(x):
+    """The reference's ``jnp.clip(x, -1, 1)``: maximum, then minimum."""
+    return clip(x, -1.0, 1.0)
+
+
+def rational_tanh(x):
+    """The reference's rational_tanh: 1.7159 * tanh(2/3 * x)."""
+    return weak_scalar(1.7159, x.dtype) * tanh(
+        weak_scalar(2.0 / 3.0, x.dtype) * x)
+
+
+def rectified_tanh(x):
+    """The reference's rectified_tanh: maximum(0, tanh(x))."""
+    return clip(tanh(x), 0.0)
+
+
+def rrelu(x, lower: float = 1.0 / 8, upper: float = 1.0 / 3):
+    """Deterministic RReLU, as the reference's: leaky with the mean slope
+    of the range."""
+    return leaky_relu(x, (lower + upper) / 2.0)
+
+
+def thresholded_relu(x, theta: float = 1.0):
+    """``where(x > theta, x, 0)``."""
+    return torch.where(x > theta, x, torch.zeros_like(x))
+
+
+def names():
+    return sorted(_REGISTRY)
+
+
 register("identity")(lambda x: x)
+register("linear")(lambda x: x)
 register("relu")(torch.relu)
-register("softmax")(softmax)
-register("gelu")(gelu)
+register("relu6")(relu6)
 register("sigmoid")(sigmoid)
 register("tanh")(tanh)
+register("softmax")(softmax)
+register("softplus")(softplus)
+register("softsign")(softsign)
+register("elu")(elu)
+register("selu")(selu)
+register("gelu")(gelu)
+register("swish")(silu)
+register("silu")(silu)
+register("mish")(mish)
 register("hardsigmoid")(hard_sigmoid)
+register("hardtanh")(hardtanh)
+register("cube")(lambda x: x * x * x)
+register("rational_tanh")(rational_tanh)
+register("rectified_tanh")(rectified_tanh)
+register("sin")(torch.sin)
+register("exp")(torch.exp)
+register("leakyrelu")(leaky_relu)
+register("rrelu")(rrelu)
+register("thresholdedrelu")(thresholded_relu)

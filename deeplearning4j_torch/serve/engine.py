@@ -45,6 +45,14 @@ from .registry import ModelRegistry
 _OCCUPANCY_BUCKETS = (0.125, 0.25, 0.375, 0.5, 0.625, 0.75, 0.875, 1.0)
 
 
+def example_shape(model) -> tuple:
+    """The shape of one example: a ``Sequential``'s ``input_shape``, a
+    ``Graph``'s first input's."""
+    if hasattr(model, "input_shapes"):
+        return tuple(model.input_shapes[model.inputs[0]])
+    return tuple(model.input_shape)
+
+
 def _to_numpy(y) -> np.ndarray:
     """A forward's result on the host (a bf16 tensor widens to f32)."""
     if isinstance(y, torch.Tensor):
@@ -133,7 +141,8 @@ class ServeEngine:
 
     ``forward``: override the device function ``(params, state, x) -> y``
     (``x`` a numpy batch; ``y`` a tensor or array). By default
-    ``model.forward`` runs on the model's device.
+    ``model.forward`` runs on the model's device (a ``Graph`` answers with
+    its first output, as the reference's engine does).
     """
 
     def __init__(self, model, registry: Optional[ModelRegistry] = None,
@@ -174,6 +183,8 @@ class ServeEngine:
                     y = model.forward(params, state,
                                       torch.from_numpy(x).to(dev),
                                       training=False)[0]
+                    if isinstance(y, list):  # a Graph: its first output
+                        y = y[0]
                     return _to_numpy(y)
 
         self._fwd = forward
@@ -304,7 +315,7 @@ class ServeEngine:
         size — oversized batches are split across bucket-sized requests.
         Raises typed :class:`~.errors.ServeError`s."""
         x = np.asarray(x)
-        if x.ndim == len(self.model.input_shape):  # single example
+        if x.ndim == len(example_shape(self.model)):  # single example
             x = x[None]
         cap = self.batch_buckets[-1]
         if x.shape[0] <= cap:

@@ -46,7 +46,7 @@ import numpy as np
 from ..obs.metrics import MetricsRegistry
 from ..utils.httpd import JsonHTTPServerMixin, JsonRequestHandler
 from .continuous import ContinuousBatcher
-from .engine import ServeEngine
+from .engine import ServeEngine, example_shape
 from .errors import ServeError
 from .health import Health
 from .registry import ModelRegistry
@@ -301,7 +301,7 @@ class ModelServer(JsonHTTPServerMixin):
             def _predict(self, req):
                 x = np.asarray(req["ndarray"], server.input_dtype)
                 handle = None
-                if x.ndim > len(server.model.input_shape) \
+                if x.ndim > len(example_shape(server.model)) \
                         and x.shape[0] <= server.engine.batch_buckets[-1]:
                     handle = server.engine.submit(
                         x, timeout_ms=req.get("timeout_ms"))

@@ -9,7 +9,8 @@ Tolerances, relative to the largest entry of the reference's array:
 
 - layers and vertices in f32, forward and gradients: 1e-5 (the two sum in
   other orders; measured 1e-6 at most); max pooling's gradient and the
-  vertices' exactly; bf16 pooling one bf16 ulp (2**-8 relative);
+  vertices' exactly; bf16 pooling one bf16 ulp (2**-8 relative), pnorm
+  pooling two;
 - the narrow residual graph (the node kinds of ResNet-50 at 32x32x3,
   batch 4), loss and gradients in f32: 5e-5 of the largest gradient entry
   of each param's node (its layer's params together; the stem BatchNorm's
@@ -224,10 +225,27 @@ def test_subsampling_bf16_matches_reference(mode, padding):
         assert _rel(yt.float().numpy(), yj) <= 4 * ULP
 
 
-def test_pnorm_pooling_is_not_ported_yet():
-    layer = TL.Subsampling2D(mode="pnorm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        layer.apply({}, {}, torch.zeros((1, 4, 4, 2)))
+@pytest.mark.parametrize("pnorm", [2, 3])
+@pytest.mark.parametrize("padding", ["valid", "same", (1, 1)])
+def test_pnorm_pooling_matches_reference(pnorm, padding):
+    """|x| ** p as XLA's integer_pow (square and multiply), summed over
+    the window in window order, ** (1/p): forward and gradient in f32, and
+    bf16 forward within 2 ulps of the largest output."""
+    kw = dict(kernel=(3, 3), stride=(2, 2), padding=padding, mode="pnorm",
+              pnorm=pnorm)
+    jl, tl = JL.Subsampling2D(**kw), TL.Subsampling2D(**kw)
+    shape = (7, 8, 3)
+    assert tuple(tl.output_shape(shape)) == tuple(jl.output_shape(shape))
+    rng = np.random.default_rng(pnorm)
+    x = rng.standard_normal((2,) + shape).astype(np.float32)
+    dy = rng.standard_normal((2,) + jl.output_shape(shape)).astype(np.float32)
+    got, want = _layer_grads(jl, tl, {}, x, dy)
+    assert _rel(got["y"], want["y"]) <= F32_TOL
+    assert _rel(got["x"], want["x"]) <= F32_TOL
+    yj, _, _ = jl.apply({}, {}, jnp.asarray(x, jnp.bfloat16))
+    yt, _, _ = tl.apply({}, {}, torch.from_numpy(x).to(torch.bfloat16))
+    assert yt.dtype == torch.bfloat16
+    assert _rel(yt.float().numpy(), np.asarray(yj, np.float32)) <= 2 * ULP
 
 
 @pytest.mark.parametrize("mode", ["avg", "max", "sum", "pnorm"])
@@ -311,10 +329,12 @@ def test_merge_vertex_and_vertex_registry():
         TV.Merge().apply([torch.from_numpy(a) for a in xs]).numpy(),
         np.asarray(JV.Merge().apply([jnp.asarray(a) for a in xs])))
     assert TV.Merge().output_shape([(3, 2), (3, 5)]) == (3, 7)
-    for v in (JV.Merge(), JV.ElementWise(op="max")):
+    for kind, cls in sorted(JV.VERTEX_REGISTRY.items()):
+        v = cls()
+        assert TV.vertex_from_dict(v.to_dict()).to_dict() == v.to_dict(), kind
+        assert type(TV.vertex_from_dict(v.to_dict())).__name__ == kind
+    for v in (JV.ElementWise(op="max"), JV.Scale(factor=2.0)):
         assert TV.vertex_from_dict(v.to_dict()).to_dict() == v.to_dict()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TV.vertex_from_dict(JV.Scale(factor=2.0).to_dict())
     with pytest.raises(ValueError, match="Unknown vertex"):
         TV.vertex_from_dict({"@type": "Nope"})
 

@@ -128,7 +128,7 @@ def test_ambiguous_integer_labels_raise_like_reference():
 
 def test_unknown_loss_raises():
     with pytest.raises(ValueError, match="Unknown loss"):
-        losses.get("hinge")
+        losses.get("no_such_loss")
 
 
 def test_sparse_gradient_matches_dense_one_hot():

@@ -178,6 +178,45 @@ last line):
    FaceNetNN4Small2 (embeddings served, unit norm within 1e-2) at their
    zoo sizes, bf16, batch 8, each freed after.
 
+14. transfer — fine-tuning a frozen zoo network (every kernel's launch
+   count is zeroed before each path and read after it, into the kernels
+   line under ``launches_by_path``). ``ResNet50(seed=0)`` at 224², bf16,
+   through ``TransferGraphBuilder``: frozen through ``s2b5`` (the stem and
+   stages 0-2), a 5-way head, Nesterovs 1e-3 with RenormalizeL2PerLayer;
+   synthetic uint8 images (5 classes, each a colour and a stripe frequency
+   under noise, ``default_rng(0)``) through ``ImageScaler``; 4 training
+   and 2 held-out batches of 128 under ``EarlyStoppingTrainer``
+   (MaxEpochs 3, ScoreImprovementEpoch, InvalidScore, the held-out loss,
+   in memory), then ``Trainer.evaluate``. Gated: K4a and K4b 10 launches
+   a step (stage 3's BatchNorms), 0 in an inference forward, K1-K3 and K5
+   0; frozen params and running statistics bit-equal to the source's,
+   every unfrozen leaf changed; losses finite, the held-out score falling;
+   the best model saved with its normalizer, loaded, and served through
+   ``ServeEngine`` to raw uint8 images (normalized once, on the card)
+   bit-equal to the forward of its padded bucket batch, within 0.05 of
+   the images alone, a twice-normalized control outside; 8 steps at
+   steps_per_execution=4 bit-equal to eager ones; f32 gradients of the
+   unfrozen nodes through K4a/K4b within 1e-3 of the plain versions'; K4a
+   and K4b against their plain versions at 6272 x 512 and 6272 x 2048,
+   timed beside the library's BatchNorm backward. VGG16(seed=0) frozen
+   through fc2 with ``TransferLearningBuilder``, a 5-way head,
+   ``VGG16Preprocessor``: ``TransferLearningHelper.featurize`` of 2
+   batches of 64 (timed), one head step on the features equal to one step
+   of the full frozen network on the raw images, the head fitted and
+   merged back. Printed: step ms eager and graphed, images/s, model FLOP
+   (every layer's forward, the unfrozen ones' backward) and MFU, device
+   ms and operations and the idle share, peak memory, the early-stopping
+   result and the evaluation's accuracy and F1.
+15. train_api — the rest of the training surface at small sizes: the
+   seven new updaters and the five gradient normalizations (3 updates on
+   the card within 1e-6 of the CPU's from the same gradients),
+   ``pretrain_layer`` of an AutoEncoder and a VAE (784 wide, batch 256;
+   the loss falls), ``Solver`` with L-BFGS and conjugate gradient (the
+   loss falls), a two-input Graph on MultiDataSet batches, a ``Lambda``
+   layer; an LM of two ``MoETransformerBlock`` (d_model 512, 8 heads, 8
+   experts, top-2, T 1024, batch 4, bf16, flash): K1, K2, K3 once each a
+   block and step, the aux loss finite and in the loss.
+
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
@@ -2312,8 +2351,9 @@ def resnet_step_anatomy(trainer):
     return 1 - busy / span
 
 
-def _bn_grad_gate(model, params, state, x, y, rtol, what, tag):
-    """f32 gradients of every param of ``model`` on (x, y): through
+def _bn_grad_gate(model, params, state, x, y, rtol, what, tag, keys=None):
+    """f32 gradients of every param of ``model`` on (x, y) (of the nodes
+    in ``keys`` when given: a frozen node's params get none): through
     K4a/K4b against through their plain versions. Each param's largest
     difference is held to ``rtol`` of the largest gradient entry of its
     node (its layer's params together): a BatchNorm whose output reaches
@@ -2323,8 +2363,10 @@ def _bn_grad_gate(model, params, state, x, y, rtol, what, tag):
     from deeplearning4j_torch.ops import batch_norm
     from deeplearning4j_torch.ops.updaters import tree_leaves
 
-    names = [k for k in sorted(params) for _ in tree_leaves(params[k])]
-    leaves = [p.requires_grad_() for p in tree_leaves(params)]
+    keys = sorted(params) if keys is None else sorted(keys)
+    names = [k for k in keys for _ in tree_leaves(params[k])]
+    leaves = [p.requires_grad_() for k in keys
+              for p in tree_leaves(params[k])]
     loss, _ = model.score(params, state, x, y)
     got = torch.autograd.grad(loss, leaves)
     # the BatchNorm Function's backward calls the module's bn_backward:
@@ -4030,6 +4072,791 @@ def phase_zoo():
             "shapes": shape_rows}
 
 
+# ---------------------------------------------------------------- transfer
+TR_B, TR_TRAIN, TR_VAL = 128, 4, 2      # batch, training and held-out batches
+TR_SIZE, TR_CLASSES = 224, 5
+TR_FROZEN_TILL = "s2b5"
+TR_MAX_EPOCHS = 3
+TR_SPE = 4
+TR_GRAD_B = 8
+TR_GRAD_RTOL = 1e-3     # f32 gradients, kernels vs plain BN backward
+TR_BN_SHAPES = ((TR_B * 7 * 7, 512), (TR_B * 7 * 7, 2048))
+TR_SERVE_BUCKETS = (1, 4, 16)
+TR_SERVE_REQS = (1, 3, 16, 5)
+TR_VGG_B, TR_VGG_BATCHES, TR_VGG_EPOCHS = 64, 2, 5
+TR_VGG_RTOL = 1e-2      # the helper's head step against the full net's
+TR_FTC = dict(updater={"type": "nesterovs", "learning_rate": 1e-3,
+                       "momentum": 0.9},
+              gradient_normalization="RenormalizeL2PerLayer")
+
+
+def _transfer_images(n, seed):
+    """``n`` synthetic uint8 images at TR_SIZE² of TR_CLASSES classes from
+    ``numpy.random.default_rng(seed)``: each class a colour and a stripe
+    frequency of its own under per-pixel noise (sd 40), and its one-hot
+    labels."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, TR_CLASSES, n)
+    colours = np.array([[190, 70, 70], [70, 190, 70], [70, 70, 190],
+                        [190, 190, 70], [70, 190, 190]], np.float32)
+    yy, xx = np.mgrid[0:TR_SIZE, 0:TR_SIZE].astype(np.float32)
+    x = np.empty((n, TR_SIZE, TR_SIZE, 3), np.uint8)
+    for c in range(TR_CLASSES):
+        idx = np.flatnonzero(labels == c)
+        stripes = 40 * np.sin(2 * np.pi * (3 + 4 * c) * (xx + yy) / TR_SIZE)
+        base = colours[c] + stripes[..., None]
+        noise = 40 * rng.standard_normal((len(idx), TR_SIZE, TR_SIZE, 3),
+                                         dtype=np.float32)
+        x[idx] = np.clip(base + noise, 0, 255).astype(np.uint8)
+    return x, np.eye(TR_CLASSES, dtype=np.float32)[labels]
+
+
+def _transfer_net(compute_dtype="bfloat16"):
+    """The zoo's ResNet50(seed=0) (its params from seed 0 on the card) and
+    the transfer network: frozen through TR_FROZEN_TILL, a TR_CLASSES-way
+    head, Nesterovs with RenormalizeL2PerLayer."""
+    from deeplearning4j_torch.nn.transfer import (FineTuneConfiguration,
+                                                  TransferGraphBuilder)
+
+    src = _resnet50(compute_dtype)
+    src.init(seed=0)
+    net, _, _ = (TransferGraphBuilder(src)
+                 .fine_tune_configuration(FineTuneConfiguration(**TR_FTC))
+                 .set_feature_extractor(TR_FROZEN_TILL)
+                 .n_out_replace("out", TR_CLASSES).build())
+    return src, net
+
+
+def _frozen_keys(net):
+    from deeplearning4j_torch.nn.layers import Frozen
+
+    return {n for n in net.topo_order if isinstance(net.nodes[n].spec, Frozen)}
+
+
+def _clones(tree, keys):
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    return {k: [t.detach().clone() for t in tree_leaves(tree[k])]
+            for k in keys if k in tree}
+
+
+def _transfer_flop(net, batch):
+    """Model FLOP of one fine-tune step, 2 a multiply-add: every conv's and
+    dense layer's forward; the backward of the unfrozen ones only, their
+    weight gradient always and their input gradient where the input needs
+    one (not for the first unfrozen stage's two convs, whose input comes
+    from the frozen trunk)."""
+    from deeplearning4j_torch.nn.layers import Conv2D, Frozen, Output
+
+    frozen = _frozen_keys(net)
+    fwd = bwd = 0
+    for name in net.topo_order:
+        node = net.nodes[name]
+        spec = node.spec._sub() if isinstance(node.spec, Frozen) else node.spec
+        if isinstance(spec, Conv2D):
+            oh, ow, co = net.node_shape(name)
+            kh, kw = spec.kernel
+            ci = net.node_shape(node.inputs[0])[-1] // spec.groups
+            macs = oh * ow * co * kh * kw * ci
+        elif isinstance(spec, Output):
+            macs = net.node_shape(node.inputs[0])[-1] * spec.n_out
+        else:
+            continue
+        fwd += macs
+        if name not in frozen:
+            src = node.inputs[0]
+            while src in net.nodes and not net.nodes[src].is_layer():
+                src = net.nodes[src].inputs[0]
+            bwd += macs * (1 if src == TR_FROZEN_TILL else 2)
+    return 2 * (fwd + bwd) * batch, 2 * fwd * batch
+
+
+def transfer_fine_tune(where, xtr, ytr, xva, yva):
+    """The ResNet-50 fine-tune under ``EarlyStoppingTrainer``
+    (MaxEpochsTermination(TR_MAX_EPOCHS), ScoreImprovementEpochTermination(1),
+    InvalidScoreIterationTermination, DataSetLossCalculator on the held-out
+    batches, InMemoryModelSaver), then ``Trainer.evaluate``. Gated: K4a and
+    K4b launch 10 times a step (the unfrozen stage's BatchNorms) over the
+    whole run and 0 times in an inference forward; frozen leaves and
+    frozen running statistics bit-equal to the source's, every unfrozen
+    leaf changed; losses finite; the last epoch's held-out score below the
+    first. Printed: step ms, images/s, model FLOP and MFU, device ms and
+    operations of a step and the idle share, peak memory, the result."""
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.train import (CollectScoresListener, Trainer,
+                                            earlystopping as es)
+
+    src, net = _transfer_net()
+    frozen = _frozen_keys(net)
+    n_bn = sum(1 for n, _, _ in _bn_nodes(net, TR_B) if n not in frozen)
+    check(n_bn == 10, f"transfer: {n_bn} unfrozen BatchNorms, want 10")
+    frozen_params = _clones(net.params, frozen)
+    frozen_stats = _clones(net.state, frozen)
+    start = _clones(net.params, set(net.params) - frozen)
+    flop, flop_fwd = _transfer_flop(net, TR_B)
+    n_frozen = sum(t.numel() for k in frozen_params
+                   for t in frozen_params[k])
+    print(f"[transfer] ResNet-50 source (seed 0, {src.param_count()} params) "
+          f"-> frozen through {TR_FROZEN_TILL} ({len(frozen)} frozen nodes, "
+          f"{n_frozen} frozen params), a {TR_CLASSES}-way head; unfrozen "
+          f"stage s3 with {n_bn} BatchNorms; model FLOP a step {flop:.4g} "
+          f"(forward of every layer {flop_fwd:.4g}, backward of the "
+          f"unfrozen ones)")
+    wrappers = _kernel_wrappers()
+    trainer = Trainer(net)
+    cfg = es.EarlyStoppingConfiguration(
+        score_calculator=es.DataSetLossCalculator(
+            ArrayIterator(xva, yva, batch_size=TR_B)),
+        epoch_terminations=[es.MaxEpochsTermination(TR_MAX_EPOCHS),
+                            es.ScoreImprovementEpochTermination(1)],
+        iteration_terminations=[es.InvalidScoreIterationTermination()],
+        model_saver=es.InMemoryModelSaver())
+    rec = CollectScoresListener()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = es.EarlyStoppingTrainer(cfg, trainer).fit(
+        ArrayIterator(xtr, ytr, batch_size=TR_B), max_epochs=10,
+        listeners=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [l for _, l in rec.scores]
+    steps = len(losses)
+    scores = [result.score_vs_epoch[e] for e in sorted(result.score_vs_epoch)]
+    check(steps == result.total_epochs * TR_TRAIN and all(np.isfinite(losses)),
+          f"transfer: losses {losses}")
+    check(counts["K4a"] == counts["K4b"] == n_bn * steps
+          and counts["K4a_unfused"] == 0
+          and all(counts[k] == 0 for k in ("K1", "K2", "K3", "K5")),
+          f"transfer: launches {counts} over {steps} steps, want fused K4a "
+          f"and K4b {n_bn} each a step, no other kernel")
+    check(len(scores) >= 2 and scores[-1] < scores[0],
+          f"transfer: held-out scores by epoch {scores} did not fall")
+    for k, leaves in frozen_params.items():
+        check(all(torch.equal(a, b) for a, b in
+                  zip(leaves, tree_leaves(trainer.params[k]))),
+              f"transfer: frozen params of {k} changed")
+    for k, leaves in frozen_stats.items():
+        check(all(torch.equal(a, b) for a, b in
+                  zip(leaves, tree_leaves(trainer.state[k]))),
+              f"transfer: frozen running statistics of {k} changed")
+    for k, leaves in start.items():
+        for i, (a, b) in enumerate(zip(leaves, tree_leaves(trainer.params[k]))):
+            check(not torch.equal(a, b), f"transfer: unfrozen leaf {i} of "
+                  f"{k} did not change")
+    # one step and one inference forward, launches counted alone
+    xb, yb = (torch.from_numpy(a).cuda() for a in (xtr[:TR_B], ytr[:TR_B]))
+    p, o, s = trainer.params, trainer.opt_state, trainer.state
+    for w in wrappers.values():
+        w.launches = 0
+    trainer.step(p, o, s, xb, yb)
+    torch.cuda.synchronize()
+    one = {k: w.launches for k, w in wrappers.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    with torch.no_grad():
+        net.score(p, s, xb, yb, training=True)
+    torch.cuda.synchronize()
+    fwd = {k: w.launches for k, w in wrappers.items()}
+    check(one["K4a"] == one["K4b"] == n_bn and fwd["K4a"] == fwd["K4b"] == 0,
+          f"transfer: one step launched {one}, a forward {fwd}")
+    ev = trainer.evaluate(ArrayIterator(xva, yva, batch_size=TR_B))
+    # the step timed on its own: TR_TRAIN steps in one fit
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(ArrayIterator(xtr, ytr, batch_size=TR_B))
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / TR_TRAIN
+    dev_ms, dev_ops = device_ms(lambda: trainer.step(p, o, s, xb, yb),
+                                reps=2)
+    print(f"[transfer] EarlyStoppingTrainer on {where}: {result.total_epochs} "
+          f"epochs of {TR_TRAIN} batches of {TR_B} ({wall:.2f} s with the "
+          f"scoring), reason {result.termination_reason} "
+          f"({result.termination_details}), best epoch {result.best_epoch}, "
+          f"held-out score by epoch " + " ".join(f"{v:.5f}" for v in scores)
+          + "; training losses " + " ".join(f"{l:.4f}" for l in losses))
+    print(f"[transfer] evaluate on the held-out batches: accuracy "
+          f"{ev.accuracy():.4f}, F1 {ev.f1():.4f}")
+    print(f"[transfer] launches over the run: K4a {counts['K4a']}, K4b "
+          f"{counts['K4b']} ({n_bn} each a step x {steps} steps); one step "
+          f"{one['K4a']}/{one['K4b']}; an inference forward of the whole "
+          f"network {fwd['K4a']}/{fwd['K4b']}; K1-K3, K5 0")
+    print(f"[transfer] step {step_ms:.2f} ms (a fit of {TR_TRAIN} steps, "
+          f"window / steps), {TR_B / step_ms * 1e3:.1f} images/s; MFU "
+          f"{flop / (step_ms * 1e-3) / PEAK_BF16_FLOPS:.4f} of 989 TFLOP/s; "
+          f"one step on the device {dev_ms:.2f} ms in {dev_ops:.0f} device "
+          f"operations (profiler), idle share {1 - dev_ms / step_ms:.4f}; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    best_params, best_state, best_score = cfg.model_saver.get_best()
+    out = {"counts": counts, "steps": steps, "step_ms": step_ms,
+           "dev_ms": dev_ms, "dev_ops": dev_ops, "peak_gib": peak / 2**30,
+           "flop": flop, "n_bn": n_bn, "scores": scores,
+           "best_epoch": result.best_epoch,
+           "reason": result.termination_reason,
+           "accuracy": ev.accuracy(), "f1": ev.f1()}
+    return net, best_params, best_state, out
+
+
+def transfer_serve(net, params, state, where, tmp):
+    """The best model saved with its ImageScaler (``save_model(...,
+    normalizer=)``), loaded back on the card with ``load_model`` and
+    ``load_normalizer``, and served through ``ServeEngine`` (buckets 1, 4,
+    16) to raw uint8 images, the normalizer applied on the card inside the
+    engine's forward. Gated: every answer bit-equal to ``Graph.output`` on
+    its images padded to the bucket the engine ran (normalized once);
+    within ZOO_SERVE_BF16_ATOL of ``Graph.output`` on its images alone; and
+    a forward normalized twice, the control, outside that."""
+    from deeplearning4j_torch.data import ImageScaler
+    from deeplearning4j_torch.serve import ServeEngine
+    from deeplearning4j_torch.train import (load_model, load_normalizer,
+                                            save_model)
+
+    path = os.path.join(tmp, "transfer.zip")
+    save_model(path, net, params=params, state=state,
+               normalizer=ImageScaler())
+    model, _, _ = load_model(path)
+    scaler = load_normalizer(path)
+    check(isinstance(scaler, ImageScaler), f"loaded normalizer {scaler}")
+    model.config.compute_dtype = "bfloat16"
+    reqs = [_transfer_images(n, 20 + i)[0]
+            for i, n in enumerate(TR_SERVE_REQS)]
+    dev = model.device
+
+    def forward(p, s, x):
+        with torch.inference_mode():
+            xt = scaler.transform(torch.from_numpy(x).to(dev))
+            return model.forward(p, s, xt, training=False)[0][0] \
+                .float().cpu().numpy()
+
+    def direct(x, rows, times=1):
+        xt = torch.from_numpy(np.concatenate(
+            [x, np.zeros((rows - len(x),) + x.shape[1:], x.dtype)])).to(dev)
+        for _ in range(times):
+            xt = scaler.transform(xt)
+        return model.output(xt)[0][:len(x)].float().cpu().numpy()
+
+    with _deterministic():
+        eng = ServeEngine(model, batch_buckets=TR_SERVE_BUCKETS,
+                          length_buckets=None, forward=forward)
+        t0 = time.perf_counter()
+        try:
+            answers = [eng.predict(x) for x in reqs]
+        finally:
+            eng.shutdown()
+        wall = time.perf_counter() - t0
+        bucket = [next(b for b in TR_SERVE_BUCKETS if b >= len(x))
+                  for x in reqs]
+        exact = [float(np.abs(y - direct(x, b)).max())
+                 for x, y, b in zip(reqs, answers, bucket)]
+        alone = [float(np.abs(y - direct(x, len(x))).max())
+                 for x, y in zip(reqs, answers)]
+        twice = [float(np.abs(y - direct(x, b, 2)).max())
+                 for x, y, b in zip(reqs, answers, bucket)]
+    for x, y in zip(reqs, answers):
+        check(y.shape == (len(x), TR_CLASSES) and np.isfinite(y).all()
+              and np.allclose(y.sum(-1), 1, atol=1e-2),
+              f"transfer served answer of shape {y.shape}")
+    print(f"[transfer] the best model saved with its normalizer, loaded and "
+          f"served on {where}: requests of {list(TR_SERVE_REQS)} raw uint8 "
+          f"images, {wall:.3f} s wall; max |served - Graph.output| on the "
+          f"padded bucket batch " + " ".join(f"{v:.3g}" for v in exact)
+          + "; on the images alone " + " ".join(f"{v:.3g}" for v in alone)
+          + f" (gate {ZOO_SERVE_BF16_ATOL}); normalized twice (control) "
+          + " ".join(f"{v:.3g}" for v in twice))
+    check(max(exact) == 0.0, "a served answer differs from Graph.output on "
+          "its padded bucket batch")
+    check(max(alone) <= ZOO_SERVE_BF16_ATOL < min(twice), "served answers "
+          "against the images alone, or the twice-normalized control")
+
+
+def transfer_graph(where, x, y):
+    """The fine-tune eagerly and at steps_per_execution=TR_SPE (one
+    captured graph): iteration 0 alone, then 2 x TR_SPE steps as 2 replays,
+    against as many eager steps from the same start, bit-equal
+    (``_graph_vs_eager``); K4a and K4b 10 launches for iteration 0, the
+    warm-up step and each captured step. Then host ms a step eager and
+    graphed and device ms of a replay."""
+    from deeplearning4j_torch.data import ArrayIterator
+
+    def build():
+        return _transfer_net()[1]
+
+    wrappers = _kernel_wrappers()
+    n = 2 * TR_SPE
+    eager, graphed, total = _graph_vs_eager(
+        build, lambda k: _Repeat(x, y, k), n, TR_SPE,
+        f"ResNet-50 fine-tune bf16 batch {TR_B}",
+        wrappers=tuple(wrappers.values()), tag="transfer")
+    total = dict(zip(wrappers, total))
+    want = 10 * (1 + 1 + TR_SPE)
+    check(total["K4a"] == total["K4b"] == want, f"transfer graph: launches "
+          f"{total}: want K4a, K4b {want} each")
+    captured = {k: v * TR_SPE // (2 + TR_SPE) for k, v in total.items()}
+    xb, yb = (torch.from_numpy(a).cuda() for a in (x, y))
+    window = [(xb, yb, None, None)] * TR_SPE
+    times = {}
+    with _deterministic():
+        rep_dev, rep_ops = device_ms(lambda: graphed._replay(window), reps=2)
+        for which, t in (("eager", eager), ("graph", graphed)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.fit(_Repeat(x, y, n),
+                  steps_per_execution=1 if which == "eager" else TR_SPE)
+            torch.cuda.synchronize()
+            times[which] = 1e3 * (time.perf_counter() - t0) / n
+    print(f"[transfer] on {where}: host ms a step over {n} steps eager "
+          f"{times['eager']:.2f}, graphed {times['graph']:.2f} "
+          f"(steps_per_execution={TR_SPE}); one replay ({TR_SPE} steps) "
+          f"{rep_dev:.2f} ms on the device in {rep_ops:.0f} operations "
+          f"({rep_dev / TR_SPE:.2f} ms a step; idle share "
+          f"{1 - rep_dev / TR_SPE / times['graph']:.4f})")
+    out = {"captured": captured, "replays": graphed.windows,
+           "eager_ms": times["eager"], "graph_ms": times["graph"],
+           "replay_dev_ms": rep_dev}
+    del eager, graphed
+    _release()
+    return out
+
+
+def transfer_grad_gate(x, y):
+    """f32 gradients of the unfrozen nodes of the transfer network on a
+    batch of TR_GRAD_B, through K4a/K4b against their plain versions
+    (``_bn_grad_gate``), TF32 off."""
+    _, net = _transfer_net(None)
+    keys = set(net.params) - _frozen_keys(net)
+    xb, yb = (torch.from_numpy(a[:TR_GRAD_B]).cuda() for a in (x, y))
+    _bn_grad_gate(net, net.params, net.state, xb, yb, TR_GRAD_RTOL,
+                  f"the transfer network's unfrozen nodes, batch {TR_GRAD_B}",
+                  "transfer grad", keys=keys)
+    del net
+    _release()
+
+
+def transfer_bn_shapes():
+    """K4a and K4b at the unfrozen stage's two BatchNorm shapes, bf16,
+    against their plain versions and timed one call at a time and back to
+    back beside the library's BatchNorm backward (``bn_shape_times``, CUDA
+    events). Returns the rows for the kernels line."""
+    gen = torch.Generator(device="cuda")
+    for i, (M, C) in enumerate(TR_BN_SHAPES):
+        gen.manual_seed(950 + i)
+        x, dy = (torch.randn((M, C), generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        a = torch.randn((C,), generator=gen, device="cuda").to(torch.bfloat16)
+        c1, c2 = (1e-2 * torch.randn((C,), generator=gen, device="cuda")
+                  for _ in range(2))
+        gamma = (1 + 0.1 * torch.randn((C,), generator=gen, device="cuda")
+                 ).to(torch.bfloat16)
+        err = _bn_compare(x, dy, a, c1, c2, f"transfer ({M}, {C})")
+        _bn_fused_compare(x, dy, gamma, f"transfer ({M}, {C})")
+        print(f"[transfer] K4a (both modes) and K4b at ({M}, {C}) bf16: equal "
+              f"to their plain versions; composed dx max abs err {err:.3g}")
+    shapes = [TR_BN_SHAPES[0]] * 6 + [TR_BN_SHAPES[1]] * 4
+    per_shape = bn_shape_times(shapes, device=False)
+    print_bn_shapes(shapes, per_shape, "transfer")
+    return [{"shape": [M, C], "count": shapes.count((M, C)),
+             "k4a_ms": v["k4a"], "k4a_ms_b2b": v["k4a_b2b"],
+             "k4a_bound_ms": 4 * M * C / PEAK_BYTES_PER_S * 1e3,
+             "k4b_ms": v["k4b"], "k4b_ms_b2b": v["k4b_b2b"],
+             "k4b_bound_ms": 6 * M * C / PEAK_BYTES_PER_S * 1e3,
+             "library_ms": v["library"], "library_ms_b2b": v["library_b2b"]}
+            for (M, C), v in per_shape.items()]
+
+
+def transfer_vgg_helper(where):
+    """DL4J's EditLastLayerOthersFrozen / FitFromFeaturized on the zoo's
+    VGG16(seed=0) at 224²: ``TransferLearningBuilder`` frozen through fc2
+    (layer 20), a TR_CLASSES-way output (layer 21), Nesterovs; the images
+    through ``VGG16Preprocessor`` on the card;
+    ``TransferLearningHelper.featurize`` on TR_VGG_BATCHES batches of
+    TR_VGG_B (each timed), the unfrozen head fitted on the features, then
+    ``merge_back``. Gated: one step of the helper's head on the features
+    equals one step of the full frozen network on the raw images within
+    TR_VGG_RTOL (bf16 compute); after ``merge_back`` the full network's
+    head is the helper's."""
+    from deeplearning4j_torch.data import ArrayIterator, VGG16Preprocessor
+    from deeplearning4j_torch.models import VGG16
+    from deeplearning4j_torch.nn.transfer import (FineTuneConfiguration,
+                                                  TransferLearningBuilder,
+                                                  TransferLearningHelper)
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+    from deeplearning4j_torch.train import Trainer
+
+    src = VGG16(num_classes=1000, seed=0,
+                input_shape=(TR_SIZE, TR_SIZE, 3)).build()
+    src.config.compute_dtype = "bfloat16"
+    src.init(seed=0)
+    net, _, _ = (TransferLearningBuilder(src)
+                 .fine_tune_configuration(FineTuneConfiguration(
+                     updater=TR_FTC["updater"]))
+                 .set_feature_extractor(20).n_out_replace(21, TR_CLASSES)
+                 .build())
+    pre = VGG16Preprocessor()
+    batches = [_transfer_images(TR_VGG_B, 40 + i)
+               for i in range(TR_VGG_BATCHES)]
+    raw = [pre.transform(torch.from_numpy(x).cuda()) for x, _ in batches]
+    helper = TransferLearningHelper(net)
+    feats, feat_ms = [], []
+    for xr in raw:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats.append(helper.featurize(xr))
+        torch.cuda.synchronize()
+        feat_ms.append(1e3 * (time.perf_counter() - t0))
+    head = helper.unfrozen_network()
+    key = "layer_21"
+
+    def copy(tree):
+        return tree_unflatten(tree, [t.detach().clone()
+                                     for t in tree_leaves(tree)])
+
+    start = copy(net.params[key])
+    # one step each from the same head: the helper's on the features, the
+    # full frozen network's on the raw images
+    head.params = {"layer_0": copy(start)}
+    th = Trainer(head)
+    th.fit(ArrayIterator(feats[0].cpu().numpy(), batches[0][1],
+                         batch_size=TR_VGG_B))
+    full_params = dict(net.params)
+    full_params[key] = copy(start)
+    net.params = full_params
+    tf = Trainer(net)
+    tf.step(tf.params, tf.opt_state, tf.state, raw[0], batches[0][1])
+    diff = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+        (t.detach() for t in tree_leaves(th.params["layer_0"])),
+        (t.detach() for t in tree_leaves(tf.params[key]))))
+    moved = max(float((a.detach() - b).abs().max()) for a, b in zip(
+        tree_leaves(tf.params[key]), tree_leaves(start)))
+    check(diff <= TR_VGG_RTOL and moved > 0, f"VGG16 helper: the head's step "
+          f"on the features differs from the full network's by {diff:.3g}")
+    # the head fitted on the features, then merged back
+    helper = TransferLearningHelper(net)
+    th = Trainer(helper.unfrozen_network())
+    xf = torch.cat(feats).cpu().numpy()
+    yf = np.concatenate([y for _, y in batches])
+    from deeplearning4j_torch.train import CollectScoresListener
+    rec = CollectScoresListener()
+    th.fit(ArrayIterator(xf, yf, batch_size=TR_VGG_B), epochs=TR_VGG_EPOCHS,
+           listeners=[rec])
+    merged = helper.merge_back()
+    check(all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(merged[key]), tree_leaves(th.params["layer_0"]))),
+        "VGG16 helper: merge_back did not write the trained head")
+    losses = [l for _, l in rec.scores]
+    check(all(np.isfinite(losses)), f"VGG16 head losses {losses}")
+    print(f"[transfer] VGG16 helper on {where}: frozen through fc2 (layer 20), "
+          f"head {TR_CLASSES}-way; featurize of {TR_VGG_B} images (bf16, to "
+          f"the (B, 4096) fc2 output) " + ", ".join(f"{v:.2f}" for v in
+                                                    feat_ms) + " ms a batch; "
+          f"one head step on the features vs one step of the full frozen "
+          f"network on the raw images: rel diff {diff:.3g} (gate "
+          f"{TR_VGG_RTOL}); head fitted on the features for {TR_VGG_EPOCHS} "
+          f"epochs, losses " + " ".join(f"{l:.4f}" for l in losses)
+          + "; merge_back wrote it into the full network")
+    del src, net, raw, feats
+    _release()
+    return feat_ms
+
+
+def phase_transfer():
+    """[transfer]: the frozen ResNet-50 fine-tune under early stopping,
+    evaluated, saved with its normalizer and served; the same fine-tune
+    graphed against eager; its f32 gradient gate; K4a/K4b at its shapes;
+    the VGG16 helper path. Kernel launch counts are zeroed before each
+    path and read after it. Returns what the kernels line needs."""
+    import tempfile
+
+    where = card()
+    print(f"[transfer] card: {where}")
+    from deeplearning4j_torch.data import ImageScaler
+
+    scaler = ImageScaler()
+    x, y = _transfer_images(TR_B * (TR_TRAIN + TR_VAL), 0)
+    xf = scaler.transform(x)
+    xtr, ytr = xf[:TR_B * TR_TRAIN], y[:TR_B * TR_TRAIN]
+    xva, yva = xf[TR_B * TR_TRAIN:], y[TR_B * TR_TRAIN:]
+    net, best_p, best_s, fine = transfer_fine_tune(where, xtr, ytr, xva, yva)
+    with tempfile.TemporaryDirectory() as tmp:
+        transfer_serve(net, best_p, best_s, where, tmp)
+    del net, best_p, best_s
+    _release()
+    graph = transfer_graph(where, xtr[:TR_B], ytr[:TR_B])
+    transfer_grad_gate(xtr, ytr)
+    shape_rows = transfer_bn_shapes()
+    feat_ms = transfer_vgg_helper(where)
+    print(f"[transfer] summary on {where}: ResNet-50 fine-tune, batch {TR_B} "
+          f"at {TR_SIZE}²: step {fine['step_ms']:.2f} ms eager "
+          f"({TR_B / fine['step_ms'] * 1e3:.1f} images/s, MFU "
+          f"{fine['flop'] / (fine['step_ms'] * 1e-3) / PEAK_BF16_FLOPS:.4f}), "
+          f"{graph['graph_ms']:.2f} ms graphed; device {fine['dev_ms']:.2f} ms "
+          f"a step in {fine['dev_ops']:.0f} operations (idle share "
+          f"{1 - fine['dev_ms'] / fine['step_ms']:.4f}); peak "
+          f"{fine['peak_gib']:.2f} GiB; early stopping "
+          f"{fine['reason']}, best epoch {fine['best_epoch']}, scores "
+          + " ".join(f"{v:.5f}" for v in fine["scores"])
+          + f"; accuracy {fine['accuracy']:.4f}, F1 {fine['f1']:.4f}; VGG16 "
+          f"featurize " + ", ".join(f"{v:.2f}" for v in feat_ms) + " ms")
+    return {"fine": fine, "graph": graph, "shapes": shape_rows}
+
+
+# --------------------------------------------------------------- train_api
+API_UPDATERS = ("nesterovs", "amsgrad", "adamax", "nadam", "adagrad",
+                "adadelta", "noop")
+API_NORMS = ("RenormalizeL2PerLayer", "RenormalizeL2PerParamType",
+             "ClipElementWiseAbsoluteValue", "ClipL2PerLayer",
+             "ClipL2PerParamType")
+API_RTOL = 1e-6         # card params vs the CPU's, of each leaf's largest
+API_STEPS = 3
+MOE_B, MOE_T, MOE_D, MOE_H, MOE_E, MOE_BLOCKS = 4, 1024, 512, 8, 8, 2
+MOE_VOCAB, MOE_STEPS = 8192, 3
+MOE_AUX_RTOL = 1e-5     # loss - (head loss + aux), of the loss
+
+
+def _api_mlp(updater, norm, device):
+    from deeplearning4j_torch.nn import layers as L
+    from deeplearning4j_torch.nn.model import NetConfig, Sequential
+
+    cfg = NetConfig(seed=0, updater=updater, gradient_normalization=norm,
+                    gradient_normalization_threshold=0.5)
+    return Sequential(cfg, [L.Dense(n_out=64, activation="tanh"),
+                            L.Dense(n_out=32, activation="tanh"),
+                            L.Output(n_out=10, activation="softmax")], (48,),
+                      device=device)
+
+
+def api_updaters(where):
+    """Each new updater (and adam under each gradient normalization), as
+    ``build_updater`` makes it for a small MLP: 3 updates on the card and
+    on the CPU from the same params and the same gradients (the CPU
+    model's, at the CPU's params: the card's own matmuls would round the
+    gradients apart); every param within API_RTOL of the CPU's relative to
+    its leaf's largest entry."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.train import build_updater
+
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((API_STEPS, 32, 48))
+                         .astype(np.float32))
+    y = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (API_STEPS, 32))])
+    cases = [({"type": u} if u in ("adadelta", "noop")
+              else {"type": u, "learning_rate": 1e-2}, None)
+             for u in API_UPDATERS]
+    cases += [({"type": "adam", "learning_rate": 1e-2}, n) for n in API_NORMS]
+    worst = []
+    for upd_cfg, norm in cases:
+        cpu = _api_mlp(dict(upd_cfg), norm, "cpu")
+        cpu.init(seed=0)
+        leaves = [t.requires_grad_() for t in tree_leaves(cpu.params)]
+        dev = [t.detach().clone().cuda() for t in leaves]
+        tx_cpu, tx_dev = build_updater(cpu), build_updater(cpu)
+        s_cpu, s_dev = tx_cpu.init(leaves), tx_dev.init(dev)
+        for i in range(API_STEPS):
+            loss, _ = cpu.score(cpu.params, {}, x[i], y[i])
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                u_cpu, s_cpu = tx_cpu.update(list(grads), s_cpu, leaves)
+                u_dev, s_dev = tx_dev.update([g.cuda() for g in grads],
+                                             s_dev, dev)
+                for p, u in zip(leaves, u_cpu):
+                    if u is not None:
+                        p.add_(u)
+                for p, u in zip(dev, u_dev):
+                    if u is not None:
+                        p.add_(u)
+        err = max(float((a.cpu() - b.detach()).abs().max()
+                        / b.detach().abs().max().clamp_min(1e-30))
+                  for a, b in zip(dev, leaves))
+        worst.append((err, f"{upd_cfg['type']}+{norm}" if norm
+                      else upd_cfg["type"]))
+        check(err <= API_RTOL, f"{worst[-1][1]}: card params differ from the "
+              f"CPU's by {err:.3g} of a leaf's largest entry")
+    print(f"[train_api] {len(API_UPDATERS)} updaters and {len(API_NORMS)} "
+          f"gradient normalizations, {API_STEPS} updates on {where} against "
+          f"the CPU's from the same gradients: max rel diff "
+          + ", ".join(f"{n} {e:.2g}" for e, n in worst)
+          + f" (gate {API_RTOL})")
+
+
+def api_pretrain(where):
+    """``pretrain_layer`` of an AutoEncoder and of a VAE at 784-wide inputs
+    (values in [0, 1]), batch 256, 4 batches an epoch, 5 epochs: the loss
+    of the last epoch's last batch below the first epoch's."""
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.nn import layers as L
+    from deeplearning4j_torch.nn.model import NetConfig, Sequential
+    from deeplearning4j_torch.train import Trainer
+
+    rng = np.random.default_rng(1)
+    protos = rng.random((10, 784)) < 0.2
+    labels = rng.integers(0, 10, 1024)
+    x = np.where(rng.random((1024, 784)) < 0.05, ~protos[labels],
+                 protos[labels]).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[labels]
+    out = {}
+    for name, layer in (("AutoEncoder", L.AutoEncoder(n_out=256)),
+                        ("VAE", L.VAE(n_out=32, encoder_sizes=(256,),
+                                      decoder_sizes=(256,),
+                                      reconstruction="bernoulli"))):
+        m = Sequential(NetConfig(seed=0), [layer, L.Output(n_out=10)], (784,))
+        m.init(seed=0)
+        t = Trainer(m)
+        losses = [t.pretrain_layer(0, ArrayIterator(x, y, batch_size=256),
+                                   learning_rate=1e-3) for _ in range(5)]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"pretrain_layer {name}: losses {losses}")
+        out[name] = losses
+    print(f"[train_api] pretrain_layer on {where}, 784-wide, batch 256: "
+          + "; ".join(f"{n} " + " ".join(f"{l:.4f}" for l in ls)
+                      for n, ls in out.items()))
+
+
+def api_solvers_graph_lambda(where):
+    """``lbfgs_minimize`` and ``cg_minimize`` (through ``Solver``) on a
+    small net: the loss falls. A two-input, two-output Graph fitted on
+    MultiDataSet batches: losses finite and falling. A ``Lambda`` layer:
+    its forward on the card equals the CPU's."""
+    from deeplearning4j_torch.data import MultiDataSet
+    from deeplearning4j_torch.nn import layers as L
+    from deeplearning4j_torch.nn import vertices as V
+    from deeplearning4j_torch.nn.model import (GraphBuilder, NetConfig,
+                                               Sequential)
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+    from deeplearning4j_torch.train.solvers import Solver
+
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((256, 16)).astype(np.float32)
+    y = np.eye(4, dtype=np.float32)[(x[:, :2].sum(1) > 0) + 2 * (x[:, 2] > 0)]
+    for algo in ("lbfgs", "conjugate_gradient"):
+        m = Sequential(NetConfig(seed=0), [L.Dense(n_out=32, activation="tanh"),
+                                           L.Output(n_out=4)], (16,))
+        m.init(seed=0)
+        before = float(m.score(m.params, {}, torch.from_numpy(x).cuda(),
+                               torch.from_numpy(y).cuda(),
+                               training=False)[0])
+        res = Solver(m, algo, max_iterations=20).optimize(x, y)
+        check(res.score < before, f"{algo}: {before} -> {res.score}")
+        print(f"[train_api] Solver({algo}) on {where}: loss {before:.4f} -> "
+              f"{res.score:.4f} in {res.iterations} iterations")
+    g = GraphBuilder(NetConfig(seed=0, updater={"type": "adam",
+                                                "learning_rate": 1e-2}))
+    g.add_input("a", (16,)).add_input("b", (8,))
+    g.add_layer("da", L.Dense(n_out=32, activation="tanh"), "a")
+    g.add_layer("db", L.Dense(n_out=16, activation="tanh"), "b")
+    g.add_vertex("m", V.Merge(), "da", "db")
+    g.add_layer("cls", L.Output(n_out=4), "m")
+    g.add_layer("reg", L.Output(n_out=2, activation="identity", loss="mse"),
+                "m")
+    gm = g.set_outputs("cls", "reg").build()
+    gm.init(seed=0)
+    b = rng.standard_normal((256, 8)).astype(np.float32)
+    r = np.stack([x[:, 0] - b[:, 0], b[:, 1]], 1).astype(np.float32)
+    batches = [MultiDataSet([x[i:i + 64], b[i:i + 64]],
+                            [y[i:i + 64], r[i:i + 64]])
+               for i in range(0, 256, 64)]
+    rec = CollectScoresListener()
+    Trainer(gm).fit(batches, epochs=5, listeners=[rec])
+    losses = [l for _, l in rec.scores]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"MultiDataSet Graph fit: losses {losses}")
+    print(f"[train_api] a two-input Graph fit on MultiDataSet batches on "
+          f"{where}: losses {losses[0]:.4f} -> {losses[-1]:.4f} over "
+          f"{len(losses)} steps")
+    lam = Sequential(NetConfig(seed=0), [
+        L.Dense(n_out=8), L.Lambda(fn="torch:tanh"), L.Output(n_out=4)],
+        (16,))
+    lam.init(seed=0)
+    cpu = Sequential.from_json(lam.to_json(), device="cpu")
+    cpu.params = {k: {n: t.cpu() for n, t in v.items()}
+                  for k, v in lam.params.items()}
+    cpu.state = {}
+    diff = float((lam.output(x).cpu() - cpu.output(x)).abs().max())
+    check(diff <= 1e-5, f"Lambda layer: card vs CPU {diff:.3g}")
+    print(f"[train_api] a Lambda layer (torch:tanh) on {where}: card vs CPU "
+          f"max abs diff {diff:.3g}")
+
+
+def api_moe(where):
+    """An LM of MOE_BLOCKS MoETransformerBlocks (d_model MOE_D, MOE_H heads
+    of 64, MOE_E experts, top-2, causal, flash=True) at T MOE_T, batch
+    MOE_B, bf16 compute, adam, MOE_STEPS fit steps. Gated: K1, K2 and K3
+    launch once each per block per step; losses finite; the aux loss
+    finite, positive and in the loss (the loss less the head's loss is the
+    blocks' aux losses, within MOE_AUX_RTOL of the loss). Returns the
+    launches."""
+    from deeplearning4j_torch.nn import layers as L
+    from deeplearning4j_torch.nn.model import NetConfig, Sequential
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    blocks = [L.MoETransformerBlock(num_heads=MOE_H, num_experts=MOE_E,
+                                    top_k=2, causal=True, flash=True)
+              for _ in range(MOE_BLOCKS)]
+    m = Sequential(NetConfig(seed=0, compute_dtype="bfloat16",
+                             updater={"type": "adam", "learning_rate": 1e-3}),
+                   [L.EmbeddingSequence(n_in=MOE_VOCAB, n_out=MOE_D), *blocks,
+                    L.RnnOutput(n_out=MOE_VOCAB)], (MOE_T,))
+    m.init(seed=0)
+    rng = np.random.default_rng(3)
+    ids = rng.integers(0, MOE_VOCAB, (MOE_B, MOE_T)).astype(np.int32)
+    lab = rng.integers(0, MOE_VOCAB, (MOE_B, MOE_T)).astype(np.int64)
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    rec = CollectScoresListener()
+    trainer = Trainer(m)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(_Repeat(ids, lab, MOE_STEPS), listeners=[rec])
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / MOE_STEPS
+    counts = {k: w.launches for k, w in wrappers.items()}
+    losses = [l for _, l in rec.scores]
+    check(all(np.isfinite(losses)), f"MoE LM losses {losses}")
+    check(all(counts[k] == MOE_BLOCKS * MOE_STEPS for k in ("K1", "K2", "K3"))
+          and counts["K4a"] == counts["K4b"] == 0,
+          f"MoE LM launches {counts}: want K1, K2, K3 {MOE_BLOCKS} each a "
+          f"step over {MOE_STEPS} steps")
+    xb = torch.from_numpy(ids).cuda()
+    yb = torch.from_numpy(lab).cuda()
+    with torch.no_grad():
+        loss, st = m.score(trainer.params, trainer.state, xb, yb,
+                           training=True)
+        aux = sum(float(s["aux_loss"]) for s in st.values()
+                  if isinstance(s, dict) and "aux_loss" in s)
+        feats, _ = m.forward(trainer.params, trainer.state, xb,
+                             training=True, up_to=len(m.layers) - 1)
+        head = m.layers[-1].score(trainer.params[f"layer_{len(m.layers) - 1}"],
+                                  {}, feats, yb)
+    gap = abs(float(loss) - float(head) - aux) / abs(float(loss))
+    check(np.isfinite(aux) and aux > 0 and gap <= MOE_AUX_RTOL,
+          f"MoE aux loss {aux}, loss {float(loss)}, head {float(head)}")
+    print(f"[train_api] MoE LM on {where}: {MOE_BLOCKS} x "
+          f"MoETransformerBlock(d {MOE_D}, {MOE_H} heads, {MOE_E} experts, "
+          f"top-2, flash), T {MOE_T}, batch {MOE_B}, bf16: losses "
+          + " ".join(f"{l:.4f}" for l in losses) + f"; {step_ms:.1f} ms a "
+          f"step; aux loss {aux:.6f} (loss {float(loss):.6f} = head "
+          f"{float(head):.6f} + aux, rel gap {gap:.2g}); launches K1 "
+          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']}")
+    del m, trainer
+    _release()
+    return counts
+
+
+def phase_train_api():
+    """[train_api]: smoke runs of the trainer surface this slice adds, at
+    small sizes, on the card. Returns the MoE LM's launches."""
+    where = card()
+    api_updaters(where)
+    api_pretrain(where)
+    api_solvers_graph_lambda(where)
+    return api_moe(where)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4065,6 +4892,8 @@ def main() -> int:
     breadth = phase_breadth()
     rnn_counts = phase_rnn()
     zoo = phase_zoo()
+    transfer = phase_transfer()
+    moe_counts = phase_train_api()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -4098,8 +4927,18 @@ def main() -> int:
             zoo["graph"]["captured"][key] * zoo["graph"]["replays"])
         for name, counts in zoo["others"].items():
             row["launches_by_path"][name] = counts[key]
+    for row, key in zip([k1] + bwd_rows + bn_rows,
+                        ("K1", "K2", "K3", "K5", "K4a", "K4b")):
+        # the ResNet-50 fine-tune's early-stopping run (every step's
+        # launches); under a graph, the launches captured x the replays;
+        # the MoE LM's fit
+        row["launches_by_path"]["transfer"] = transfer["fine"]["counts"][key]
+        row["launches_by_path"]["transfer_graph"] = (
+            transfer["graph"]["captured"][key] * transfer["graph"]["replays"])
+        row["launches_by_path"]["moe"] = moe_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
+        row["transfer_shapes"] = transfer["shapes"]
     print(json.dumps({"kernels": [k1] + bwd_rows + bn_rows}))
     print(card())
     print(json.dumps({"ok": True, "device": {

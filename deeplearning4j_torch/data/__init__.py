@@ -1,9 +1,19 @@
-"""Data pipeline of the port (so far: in-memory, prefetching and benchmark
-iterators, the char-RNN corpus and synthetic YOLOv2 labels)."""
+"""Data pipeline of the port: in-memory, prefetching, benchmark, capped,
+repeating and exported-file iterators, ``MultiDataSet``, the normalizers,
+the char-RNN corpus and synthetic YOLOv2 labels."""
 
 from .datasets import char_rnn_corpus, yolo_labels
 from .iterators import (ArrayIterator, AsyncIterator, BenchmarkIterator,
-                        DataSet, DataSetIterator)
+                        DataSet, DataSetIterator, EarlyTerminationIterator,
+                        FileDataSetIterator, MultiDataSet,
+                        MultipleEpochsIterator, export_batches,
+                        split_iterator)
+from .normalizers import (ImageScaler, MinMaxScaler, Normalizer, Standardize,
+                          VGG16Preprocessor)
 
 __all__ = ["ArrayIterator", "AsyncIterator", "BenchmarkIterator", "DataSet",
-           "DataSetIterator", "char_rnn_corpus", "yolo_labels"]
+           "DataSetIterator", "EarlyTerminationIterator",
+           "FileDataSetIterator", "ImageScaler", "MinMaxScaler",
+           "MultiDataSet", "MultipleEpochsIterator", "Normalizer",
+           "Standardize", "VGG16Preprocessor", "char_rnn_corpus",
+           "export_batches", "split_iterator", "yolo_labels"]

@@ -48,6 +48,24 @@ class Layer:
     weight_init: Optional[str] = None
     constraint: Optional[Any] = None
 
+    # False on the layers the reference marks param-less (pooling,
+    # reshaping, activation, noise and loss layers)
+    _HAS_PARAMS = True
+
+    def has_params(self) -> bool:
+        return self._HAS_PARAMS
+
+    def param_count(self, input_shape: Shape) -> int:
+        """The number of param entries at ``input_shape`` (shapes only: the
+        params are made on the meta device)."""
+        p, _ = self.init(None, tuple(input_shape), device=torch.device("meta"))
+
+        def count(t):
+            return (sum(count(v) for v in t.values()) if isinstance(t, dict)
+                    else t.numel())
+
+        return count(p)
+
     def output_shape(self, input_shape: Shape) -> Shape:
         """Feature shape (without batch dim) given input feature shape."""
         return input_shape

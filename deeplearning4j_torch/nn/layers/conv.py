@@ -218,6 +218,8 @@ class Subsampling2D(Layer):
     ``1/pnorm`` power, with the reference's gradient (infinite where a
     whole window is 0)."""
 
+    _HAS_PARAMS = False
+
     kernel: IntPair = (2, 2)
     stride: IntPair = (2, 2)
     padding: Union[str, IntPair] = "valid"
@@ -452,6 +454,8 @@ class Subsampling1D(Layer):
     (divided by the kernel for avg; any other mode sums, as the
     reference's does); a stride subsamples the mask."""
 
+    _HAS_PARAMS = False
+
     kernel: int = 2
     stride: int = 2
     padding: Union[str, int] = "valid"
@@ -476,6 +480,8 @@ class Subsampling1D(Layer):
 class Upsampling2D(Layer):
     """Upsampling2D.java — nearest-neighbour repeat of rows and columns."""
 
+    _HAS_PARAMS = False
+
     size: IntPair = (2, 2)
 
     def output_shape(self, input_shape: Shape) -> Shape:
@@ -494,6 +500,8 @@ class Upsampling2D(Layer):
 class Upsampling1D(Layer):
     """Upsampling1D.java — repeat each time step ``size`` times (the mask
     passes unchanged, as the reference's does)."""
+
+    _HAS_PARAMS = False
 
     size: int = 2
 
@@ -527,6 +535,8 @@ class ZeroPadding2D(Layer):
     """ZeroPaddingLayer.java — (top, bottom, left, right); a scalar or an
     (h, w) pair pads symmetrically per axis."""
 
+    _HAS_PARAMS = False
+
     padding: Sequence[int] = (1, 1, 1, 1)
 
     def output_shape(self, input_shape: Shape) -> Shape:
@@ -545,6 +555,8 @@ class ZeroPadding1D(Layer):
     """Zero padding of the time axis of (B, T, C), (left, right); a scalar
     pads both sides."""
 
+    _HAS_PARAMS = False
+
     padding: Sequence[int] = (1, 1)
 
     def output_shape(self, input_shape: Shape) -> Shape:
@@ -561,6 +573,8 @@ class ZeroPadding1D(Layer):
 @dataclass(frozen=True)
 class Cropping2D(Layer):
     """Cropping2D.java — (top, bottom, left, right)."""
+
+    _HAS_PARAMS = False
 
     cropping: Sequence[int] = (0, 0, 0, 0)
 
@@ -580,6 +594,8 @@ class Cropping2D(Layer):
 class Cropping1D(Layer):
     """Cropping1D.java — crop (left, right) time steps of (B, T, C) and of
     the mask."""
+
+    _HAS_PARAMS = False
 
     cropping: Sequence[int] = (0, 0)
 
@@ -602,6 +618,8 @@ class SpaceToDepth(Layer):
     """SpaceToDepthLayer.java — (H*b, W*b, C) -> (H, W, b*b*C), the new
     channels in (row in block, column in block, C) order."""
 
+    _HAS_PARAMS = False
+
     block_size: int = 2
 
     def output_shape(self, input_shape: Shape) -> Shape:
@@ -622,6 +640,8 @@ class SpaceToDepth(Layer):
 class SpaceToBatch(Layer):
     """SpaceToBatchLayer.java — spatial blocks into the batch axis:
     (B, H*b, W*b, C) -> (b*b*B, H, W, C), block offsets outermost."""
+
+    _HAS_PARAMS = False
 
     block_size: int = 2
 

@@ -60,6 +60,8 @@ class Dense(Layer):
 class ActivationLayer(Layer):
     """A standalone activation (ActivationLayer.java)."""
 
+    _HAS_PARAMS = False
+
     activation: str = "relu"
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
@@ -82,6 +84,8 @@ class DropoutLayer(Layer):
     """A standalone dropout layer (DropoutLayer.java); ``rate`` is the
     drop probability."""
 
+    _HAS_PARAMS = False
+
     rate: float = 0.5
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
@@ -94,6 +98,8 @@ class DropoutLayer(Layer):
 class GaussianNoise(Layer):
     """Additive zero-mean Gaussian noise in training
     (conf/dropout/GaussianNoise.java)."""
+
+    _HAS_PARAMS = False
 
     stddev: float = 0.1
 
@@ -109,6 +115,8 @@ class GaussianNoise(Layer):
 class GaussianDropout(Layer):
     """Multiplicative 1-mean Gaussian noise of stddev
     sqrt(rate / (1 - rate)) (conf/dropout/GaussianDropout.java)."""
+
+    _HAS_PARAMS = False
 
     rate: float = 0.5
 
@@ -129,6 +137,8 @@ class AlphaDropout(Layer):
     """SELU-preserving dropout (conf/dropout/AlphaDropout.java): dropped
     units take alpha' and the output is rescaled affinely, with the
     reference layer's constants."""
+
+    _HAS_PARAMS = False
 
     rate: float = 0.5
 
@@ -308,6 +318,8 @@ class RnnOutput(Output):
 class LossLayer(Layer, _LossMixin):
     """LossLayer.java: a loss without params; its input is already n_out
     wide."""
+
+    _HAS_PARAMS = False
 
     activation: str = "identity"
     loss: str = "mse"

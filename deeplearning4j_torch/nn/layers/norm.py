@@ -117,6 +117,8 @@ class LRN(Layer):
     sum is taken in x's dtype, one channel after another in window order,
     as the reference's ``reduce_window`` adds."""
 
+    _HAS_PARAMS = False
+
     n: int = 5
     k: float = 2.0
     alpha: float = 1e-4

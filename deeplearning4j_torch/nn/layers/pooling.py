@@ -23,6 +23,8 @@ class GlobalPooling(Layer):
     """GlobalPoolingLayer.java — reduce every axis but batch and
     features; mode max, avg, sum or pnorm."""
 
+    _HAS_PARAMS = False
+
     mode: str = "avg"  # max | avg | sum | pnorm
     pnorm: int = 2
     collapse_dimensions: bool = True
@@ -67,6 +69,8 @@ class GlobalPooling(Layer):
 class Flatten(Layer):
     """CnnToFeedForwardPreProcessor equivalent: (B, ...) -> (B, prod)."""
 
+    _HAS_PARAMS = False
+
     def output_shape(self, input_shape: Shape) -> Shape:
         n = 1
         for s in input_shape:
@@ -81,6 +85,8 @@ class Flatten(Layer):
 @dataclass(frozen=True)
 class Reshape(Layer):
     """ReshapeVertex as a layer: (B, ...) -> (B, *shape)."""
+
+    _HAS_PARAMS = False
 
     shape: Sequence[int] = ()
 

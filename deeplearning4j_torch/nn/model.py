@@ -111,7 +111,30 @@ def _apply_layer(cfg: NetConfig, layer: Layer, p, s, x, *, training, rng,
     return layer.apply(p, s, x, training=training, rng=rng, mask=mask)
 
 
-class Sequential:
+class _Evaluable:
+    """The Trainer-free evaluation of a model at its own params and state
+    (no updater state is made)."""
+
+    def evaluate(self, iterator, evaluation=None):
+        """Streaming evaluation of the primary output (an ``Evaluation``
+        unless one is given)."""
+        from ..train.trainer import evaluate_model
+
+        if self.params is None:
+            self.init()
+        return evaluate_model(self, self.params, self.state, iterator,
+                              evaluation)
+
+    def score_iterator(self, iterator) -> float:
+        """The average inference-mode loss over an iterator."""
+        from ..train.trainer import score_model
+
+        if self.params is None:
+            self.init()
+        return score_model(self, self.params, self.state, iterator)
+
+
+class Sequential(_Evaluable):
     """An ordered stack of layers on one device (the card unless
     ``device`` names another)."""
 
@@ -131,6 +154,9 @@ class Sequential:
     @property
     def output_shape(self) -> Shape:
         return self._shapes[-1]
+
+    def layer_input_shape(self, i: int) -> Shape:
+        return self._shapes[i]
 
     def _init_on(self, gen, device) -> Tuple[Params, State]:
         params: Params = {}
@@ -212,6 +238,8 @@ class Sequential:
         eff_mask = label_mask if label_mask is not None else prop_mask
         loss = out_layer.score(params.get(k, {}), state.get(k, {}), feats,
                                labels, mask=eff_mask)
+        if _has_aux_losses(new_state):  # an MoE's load-balancing loss
+            loss = loss + _collect_aux_losses(new_state, loss.device)
         if with_mass:
             return loss, new_state, reduction_mass(labels, eff_mask)
         return loss, new_state
@@ -304,6 +332,22 @@ class Sequential:
         return (loss + _collect_aux_losses(new_state, loss.device),
                 new_state, new_carries)
 
+    def summary(self) -> str:
+        """MultiLayerNetwork.summary(): one row per layer (index, key,
+        type, input and output shapes, params), then the total; the
+        reference's text."""
+        lines = [f"{'idx':<4}{'name':<24}{'type':<26}{'in':<18}{'out':<18}"
+                 f"{'params':<10}"]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            n = layer.param_count(self._shapes[i]) if layer.has_params() else 0
+            total += n
+            lines.append(f"{i:<4}{_layer_key(i, layer):<24}"
+                         f"{type(layer).__name__:<26}{str(self._shapes[i]):<18}"
+                         f"{str(self._shapes[i + 1]):<18}{n:<10}")
+        lines.append(f"Total params: {total}")
+        return "\n".join(lines)
+
     def to_json(self) -> str:
         return json.dumps({
             "format": FORMAT,
@@ -349,6 +393,11 @@ class SequentialBuilder:
                           device=self.device)
 
 
+def _has_aux_losses(new_state) -> bool:
+    return any(isinstance(s, dict) and "aux_loss" in s
+               for s in new_state.values())
+
+
 def _collect_aux_losses(new_state, device) -> torch.Tensor:
     """Sum of per-layer auxiliary training losses surfaced through layer
     state (``state["aux_loss"]``), as f32; zero when no layer adds one."""
@@ -364,8 +413,10 @@ def _wants_flat_input(spec) -> bool:
     conv-shaped (H, W, C) activations (the reference's implicit
     CnnToFeedForwardPreProcessor)."""
     from .layers.core import Dense, Output, RnnOutput
+    from .layers.special import VAE, AutoEncoder
 
-    return isinstance(spec, (Dense, Output)) and not isinstance(spec, RnnOutput)
+    return (isinstance(spec, (Dense, Output, AutoEncoder, VAE))
+            and not isinstance(spec, RnnOutput))
 
 
 @dataclass(frozen=True)
@@ -380,7 +431,7 @@ class GraphNode:
         return isinstance(self.spec, Layer)
 
 
-class Graph:
+class Graph(_Evaluable):
     """ComputationGraph equivalent: a DAG of layers and vertices on one
     device (the card unless ``device`` names another).
 
@@ -600,6 +651,17 @@ class Graph:
         with torch.inference_mode():
             ys, _ = self.forward(p, s, inputs, training=False, masks=masks)
         return ys
+
+    def summary(self) -> str:
+        """ComputationGraph.summary(): one row per node in topological
+        order (name, type, inputs, output shape); the reference's text."""
+        lines = [f"{'name':<28}{'type':<26}{'inputs':<36}{'out shape':<18}"]
+        for name in self.topo_order:
+            node = self.nodes[name]
+            lines.append(f"{name:<28}{type(node.spec).__name__:<26}"
+                         f"{','.join(node.inputs):<36}"
+                         f"{str(self._shapes[name]):<18}")
+        return "\n".join(lines)
 
     def to_json(self) -> str:
         nodes = {name: {"kind": "layer" if node.is_layer() else "vertex",

@@ -1,16 +1,26 @@
-"""Training-side modules of the port: the trainer, its listeners and model
-serialization (params, state and updater state)."""
+"""Training-side modules of the port: the trainer, its listeners, early
+stopping, the line-search solvers and model serialization (params, state,
+updater state and the data normalizer)."""
 
-from .listeners import (CollectScoresListener, DeferredScoreReporter,
+from .earlystopping import (EarlyStoppingConfiguration, EarlyStoppingResult,
+                            EarlyStoppingTrainer)
+from .listeners import (CheckpointListener, CollectScoresListener,
+                        DeferredScoreReporter, EvaluativeListener,
                         PerformanceListener, ScoreIterationListener,
+                        SleepyTrainingListener, TimeIterationListener,
                         TrainingListener)
-from .serialization import (load_model, load_opt_state, model_from_json,
-                            opt_state_from_numpy, params_from_numpy,
-                            save_model, state_from_numpy)
-from .trainer import Trainer, build_updater
+from .serialization import (load_model, load_normalizer, load_opt_state,
+                            model_from_json, opt_state_from_numpy,
+                            params_from_numpy, save_model, state_from_numpy)
+from .trainer import Trainer, build_updater, evaluate_model, score_model
 
-__all__ = ["CollectScoresListener", "DeferredScoreReporter",
-           "PerformanceListener", "ScoreIterationListener", "Trainer",
-           "TrainingListener", "build_updater", "load_model",
-           "load_opt_state", "model_from_json", "opt_state_from_numpy",
-           "params_from_numpy", "save_model", "state_from_numpy"]
+__all__ = ["CheckpointListener", "CollectScoresListener",
+           "DeferredScoreReporter", "EarlyStoppingConfiguration",
+           "EarlyStoppingResult", "EarlyStoppingTrainer",
+           "EvaluativeListener", "PerformanceListener",
+           "ScoreIterationListener", "SleepyTrainingListener",
+           "TimeIterationListener", "Trainer", "TrainingListener",
+           "build_updater", "evaluate_model", "load_model",
+           "load_normalizer", "load_opt_state", "model_from_json",
+           "opt_state_from_numpy", "params_from_numpy", "save_model",
+           "score_model", "state_from_numpy"]

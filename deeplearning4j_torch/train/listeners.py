@@ -1,7 +1,8 @@
 """Training listeners — counterpart of
 ``deeplearning4j_tpu/train/listeners.py`` (TrainingListener,
 DeferredScoreReporter, ScoreIterationListener, CollectScoresListener,
-PerformanceListener).
+PerformanceListener, EvaluativeListener, TimeIterationListener,
+SleepyTrainingListener, CheckpointListener).
 
 Listeners observe between steps (``iteration_done``) and at epoch edges.
 The loss of step k is a tensor on the card; :class:`DeferredScoreReporter`
@@ -14,6 +15,7 @@ its K losses read back together after the next dispatch.
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -152,3 +154,112 @@ class PerformanceListener(TrainingListener):
                      f"{self.batches_per_sec:.2f} batches/sec, "
                      f"ETL {self.last_etl_ms:.2f} ms")
             self._window_start, self._window_iters, self._window_samples = now, 0, 0
+
+
+class EvaluativeListener(TrainingListener):
+    """EvaluativeListener.java — evaluate on ``test_iterator`` every
+    ``frequency`` epochs (``invocation="epoch_end"``) or iterations
+    (``"iteration"``; it then reads the params in ``iteration_done``, so
+    it ``snapshots_state``)."""
+
+    def __init__(self, test_iterator, frequency: int = 1,
+                 invocation: str = "epoch_end", evaluation_factory=None,
+                 log_fn=None):
+        self.test_iterator = test_iterator
+        self.frequency = frequency
+        self.invocation = invocation
+        self.snapshots_state = invocation == "iteration"
+        self.evaluation_factory = evaluation_factory
+        self.log = log_fn or (lambda s: logger.info(s))
+        self.last_evaluation = None
+
+    def _run(self, trainer):
+        ev = trainer.evaluate(
+            self.test_iterator,
+            evaluation=(self.evaluation_factory()
+                        if self.evaluation_factory else None))
+        self.last_evaluation = ev
+        self.log(f"eval accuracy={ev.accuracy():.4f} f1={ev.f1():.4f}")
+
+    def on_epoch_end(self, trainer, epoch):
+        if self.invocation == "epoch_end" and (epoch + 1) % self.frequency == 0:
+            self._run(trainer)
+
+    def iteration_done(self, trainer, iteration, epoch, loss):
+        if self.invocation == "iteration" and iteration > 0 \
+                and iteration % self.frequency == 0:
+            self._run(trainer)
+
+
+class TimeIterationListener(TrainingListener):
+    """TimeIterationListener.java — log the estimated time left every
+    ``frequency`` iterations."""
+
+    def __init__(self, total_iterations: int, frequency: int = 100,
+                 log_fn=None):
+        self.total = total_iterations
+        self.frequency = frequency
+        self.log = log_fn or (lambda s: logger.info(s))
+        self.start = time.perf_counter()
+
+    def iteration_done(self, trainer, iteration, epoch, loss):
+        if iteration and iteration % self.frequency == 0:
+            rate = iteration / (time.perf_counter() - self.start)
+            remaining = (self.total - iteration) / max(rate, 1e-9)
+            self.log(f"iter {iteration}/{self.total} ETA {remaining:.0f}s")
+
+
+class SleepyTrainingListener(TrainingListener):
+    """SleepyTrainingListener.java — sleep ``sleep_ms`` after every
+    iteration."""
+
+    def __init__(self, sleep_ms: float = 0.0):
+        self.sleep_ms = sleep_ms
+
+    def iteration_done(self, trainer, iteration, epoch, loss):
+        if self.sleep_ms > 0:
+            time.sleep(self.sleep_ms / 1e3)
+
+
+class CheckpointListener(TrainingListener):
+    """CheckpointListener.java — a model zip (with the updater state
+    unless ``save_updater=False``) every N iterations and/or epochs as
+    ``checkpoint_iter<i>.zip`` / ``checkpoint_epoch<e>.zip``, keeping the
+    last ``keep_last``. Per-iteration checkpoints read the params in
+    ``iteration_done``, so such an instance ``snapshots_state``."""
+
+    def __init__(self, directory: str, every_n_iterations: Optional[int] = None,
+                 every_n_epochs: Optional[int] = None,
+                 keep_last: Optional[int] = None, save_updater: bool = True):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self.snapshots_state = every_n_iterations is not None
+        self.every_n_iterations = every_n_iterations
+        self.every_n_epochs = every_n_epochs
+        self.keep_last = keep_last
+        self.save_updater = save_updater
+        self.saved: List[str] = []
+
+    def _save(self, trainer, tag: str):
+        from .serialization import save_model
+
+        path = os.path.join(self.directory, f"checkpoint_{tag}.zip")
+        save_model(path, trainer.model, params=trainer.params,
+                   state=trainer.state,
+                   opt_state=trainer.opt_state if self.save_updater else None)
+        self.saved.append(path)
+        if self.keep_last and len(self.saved) > self.keep_last:
+            old = self.saved.pop(0)
+            try:
+                os.remove(old)
+            except OSError:
+                pass
+
+    def iteration_done(self, trainer, iteration, epoch, loss):
+        if self.every_n_iterations and iteration > 0 \
+                and iteration % self.every_n_iterations == 0:
+            self._save(trainer, f"iter{iteration}")
+
+    def on_epoch_end(self, trainer, epoch):
+        if self.every_n_epochs and (epoch + 1) % self.every_n_epochs == 0:
+            self._save(trainer, f"epoch{epoch + 1}")

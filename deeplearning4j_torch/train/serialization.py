@@ -7,9 +7,10 @@ and state trees flattened to ``/``-joined key paths, e.g.
 statistics are ``<node>/mean`` and ``<node>/var`` in ``state.npz``) and
 ``updater_state.npz`` (the updater state's leaves under their index,
 ``"0"``, ``"1"``, ..., in ``jax.tree_util.tree_leaves`` order — the order
-``ops.updaters.tree_leaves`` gives the port's optax-shaped state). A zip
-written by either package loads in the other, and training resumes from it
-in either. The normalizer is not ported yet.
+``ops.updaters.tree_leaves`` gives the port's optax-shaped state) and
+``normalizer.json`` (the data normalizer's ``to_dict``, when one was
+saved). A zip written by either package loads in the other, and training
+resumes from it in either.
 
 :func:`params_from_numpy` carries a params tree of numpy arrays (the JAX
 package's tree: keys ``layer_i/...`` or a Graph's node names, dense
@@ -134,9 +135,9 @@ def state_from_numpy(tree: dict, device: DeviceLike = None) -> dict:
 
 
 def save_model(path: str, model: Union[Sequential, Graph], *, params=None,
-               state=None, opt_state=None) -> None:
+               state=None, opt_state=None, normalizer=None) -> None:
     """Write ``model``'s config and params (default: its own), and the
-    updater state when given, as a zip."""
+    updater state and the data normalizer when given, as a zip."""
     params = params if params is not None else model.params
     state = state if state is not None else model.state
     with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
@@ -148,6 +149,19 @@ def save_model(path: str, model: Union[Sequential, Graph], *, params=None,
             _save_npz(zf, "updater_state.npz",
                       {str(i): leaf for i, leaf in
                        enumerate(tree_leaves(opt_state))})
+        if normalizer is not None:
+            zf.writestr("normalizer.json", json.dumps(normalizer.to_dict()))
+
+
+def load_normalizer(path: str):
+    """The data normalizer saved in the zip at ``path``, or None."""
+    from ..data.normalizers import Normalizer
+
+    with zipfile.ZipFile(path) as zf:
+        if "normalizer.json" not in zf.namelist():
+            return None
+        return Normalizer.from_dict(json.loads(
+            zf.read("normalizer.json").decode()))
 
 
 def load_opt_state(path: str, template, device: DeviceLike = None):

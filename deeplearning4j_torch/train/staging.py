@@ -25,7 +25,7 @@ _DEPTH = 2  # pinned buffers per (shape, dtype), used in turn
 
 
 class BatchStager:
-    """Moves batch arrays (numpy or tensors, or lists of them) to
+    """Moves batch arrays (numpy or tensors, or lists or dicts of them) to
     ``device``; ``None`` stays ``None``."""
 
     def __init__(self, device: torch.device):
@@ -39,6 +39,8 @@ class BatchStager:
             return None
         if isinstance(a, (list, tuple)):
             return [self(t) for t in a]
+        if isinstance(a, dict):
+            return {k: self(t) for k, t in a.items()}
         if self.device.type != "cuda":
             return torch.as_tensor(a, device=self.device)
         if isinstance(a, torch.Tensor) and a.is_cuda:

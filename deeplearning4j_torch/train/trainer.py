@@ -33,9 +33,21 @@ the chunk's end; the batch's loss is the unweighted mean of the chunk
 losses. ``steps_per_execution`` is ignored under tBPTT, and a ``Graph``
 refuses it, as in the reference.
 
+Frozen layers (``nn.layers.special.Frozen``, made by ``nn.transfer``)
+take the ``noop`` updater, as the reference labels them: their leaves are
+kept out of autograd (no gradient is computed or stored for them) and out
+of the in-place add, and their (empty) updater state sits where optax
+puts it. A ``Graph`` fits on ``MultiDataSet`` batches (:func:`unpack_batch`:
+features by input name, labels and label masks by output); such batches
+run as single steps under ``steps_per_execution``.
+
+Beside training: :func:`evaluate_model` (``Trainer.evaluate`` and the
+model's own ``evaluate``), :func:`score_model`, ``save(path,
+normalizer=)`` and ``pretrain_layer`` (layerwise unsupervised fit of an
+``AutoEncoder`` or ``VAE`` with adam, as the reference's).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, Queue
-1): ``mesh=``, ``telemetry=``, ``Frozen`` layers, and a multi-input Graph
-fed ``MultiDataSet``-style batches (a list or dict of feature arrays).
+1): ``mesh=`` (item 14) and ``telemetry=`` (item 15).
 """
 
 from __future__ import annotations
@@ -45,7 +57,8 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..data.iterators import AsyncIterator
+from ..data.iterators import AsyncIterator, MultiDataSet
+from ..nn.layers.special import Frozen
 from ..nn.model import Graph, Sequential, _layer_key
 from ..ops import updaters as upd
 from ..ops.updaters import Transform, tree_leaves
@@ -53,8 +66,8 @@ from .listeners import DeferredScoreReporter, PerformanceListener, TrainingListe
 from .serialization import load_model, load_opt_state, save_model
 from .staging import BatchStager
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, Queue 1: slice 2 left-outs)"
-_NOT_PORTED_GRAPH = "not ported yet (ROADMAP.md, Queue 1: slice 3 left-outs)"
+_NOT_PORTED_MESH = "not ported yet (ROADMAP.md, Queue 1: item 14)"
+_NOT_PORTED_TELEMETRY = "not ported yet (ROADMAP.md, Queue 1: item 15)"
 
 
 def accum_supported(model, mask, label_mask) -> bool:
@@ -137,33 +150,138 @@ def _score(model, params, state, x, y, *, training, rng, mask, label_mask):
 
 def build_updater(model) -> Transform:
     """The update pipeline from ``NetConfig`` (updater, l1, l2, gradient
-    normalization) and per-layer ``updater`` overrides, which become a
-    multi-transform keyed by layer (a Graph's by node name), labelled as
-    the reference labels them (``__default__``, ``override_<key>``)."""
+    normalization) and per-layer ``updater`` overrides and ``Frozen``
+    layers, which become a multi-transform keyed by layer (a Graph's by
+    node name), labelled as the reference labels them (``__default__``,
+    ``noop`` for frozen layers, ``override_<key>``). Each branch's
+    per-layer gradient normalization sees its own leaves only."""
     cfg = model.config
+    owners = _leaf_owners(model.param_shapes())
 
-    def base_tx(updater_cfg):
+    def base_tx(updater_cfg, idx):
         return upd.build(updater_cfg,
                          gradient_normalization=cfg.gradient_normalization,
                          gradient_normalization_threshold=cfg.gradient_normalization_threshold,
-                         l1=cfg.l1, l2=cfg.l2)
+                         l1=cfg.l1, l2=cfg.l2,
+                         owners=[owners[i] for i in idx])
 
+    labels_by_name: Dict[str, str] = {}
     overrides: Dict[str, Any] = {}
     for key, layer in _named_layers(model):
-        if type(layer).__name__ == "Frozen":
-            raise NotImplementedError(f"Frozen layers are {_NOT_PORTED}")
-        if getattr(layer, "updater", None) is not None:
-            overrides[key] = layer.updater
-    if not overrides:
-        return base_tx(cfg.updater)
-    transforms = {"__default__": base_tx(cfg.updater)}
-    labels_by_name = {}
-    for name, ov in overrides.items():
-        transforms[f"override_{name}"] = base_tx(ov)
-        labels_by_name[name] = f"override_{name}"
-    labels = [labels_by_name.get(k, "__default__")
-              for k in _leaf_owners(model.param_shapes())]
+        if isinstance(layer, Frozen):
+            labels_by_name[key] = "noop"
+        elif getattr(layer, "updater", None) is not None:
+            labels_by_name[key] = f"override_{key}"
+            overrides[f"override_{key}"] = layer.updater
+    if not labels_by_name:
+        return base_tx(cfg.updater, range(len(owners)))
+    labels = [labels_by_name.get(k, "__default__") for k in owners]
+
+    def idx(label):
+        return [i for i, lb in enumerate(labels) if lb == label]
+
+    transforms = {"__default__": base_tx(cfg.updater, idx("__default__"))}
+    if "noop" in labels:
+        transforms["noop"] = upd.set_to_zero()
+    for label, ov in overrides.items():
+        transforms[label] = base_tx(ov, idx(label))
     return upd.multi_transform(transforms, labels)
+
+
+def frozen_leaves(model) -> List[bool]:
+    """Whether each leaf of ``model``'s params (in ``tree_leaves`` order)
+    belongs to a ``Frozen`` layer."""
+    frozen = {k for k, l in _named_layers(model) if isinstance(l, Frozen)}
+    return [k in frozen for k in _leaf_owners(model.param_shapes())]
+
+
+def _model_output_width(model) -> int:
+    return (model.output_shape[-1] if isinstance(model, Sequential)
+            else model.output_shapes[0][-1])
+
+
+def default_evaluation(model):
+    """A multiclass ``Evaluation`` sized to the model's primary output."""
+    from ..eval import Evaluation
+
+    return Evaluation(_model_output_width(model))
+
+
+def unpack_batch(model, ds):
+    """(x, y, feature mask, label mask) of a ``DataSet`` or a
+    ``MultiDataSet`` (the reference's rule): a MultiDataSet's features map
+    onto a Graph's inputs by position (a dict by input name), its labels
+    and label masks stay lists in output order."""
+    if not isinstance(ds, MultiDataSet):
+        return ds.features, ds.labels, ds.features_mask, ds.labels_mask
+    if not isinstance(model, Graph):
+        raise TypeError("MultiDataSet batches require a Graph model")
+    names, outs = model.inputs, model.outputs
+    for what, seq, want in (("feature arrays", ds.features, names),
+                            ("feature masks", ds.features_masks, names),
+                            ("label arrays", ds.labels, outs),
+                            ("label masks", ds.labels_masks, outs)):
+        if seq is not None and len(seq) != len(want):
+            raise ValueError(f"MultiDataSet has {len(seq)} {what}; Graph "
+                             f"expects {want}")
+    if getattr(model.config, "tbptt_length", 0):
+        raise ValueError(
+            "tbptt_length is set but tBPTT is not supported for "
+            "MultiDataSet/Graph fit — train full-BPTT "
+            "(tbptt_length=0) or use a Sequential model")
+    x = dict(zip(names, ds.features))
+    fm = (dict(zip(names, ds.features_masks))
+          if ds.features_masks is not None else None)
+    lm = list(ds.labels_masks) if ds.labels_masks is not None else None
+    return x, list(ds.labels), fm, lm
+
+
+def _inference(model, params, state, x, mask):
+    """The primary output of an inference forward."""
+    with torch.no_grad():
+        if isinstance(model, Sequential):
+            return model.forward(params, state, x, training=False,
+                                 mask=mask)[0]
+        return model.forward(params, state, x, training=False,
+                             masks=mask)[0][0]
+
+
+def evaluate_model(model, params, state, iterator, evaluation=None,
+                   stage=None):
+    """Streaming evaluation of ``model`` at (params, state) over an
+    iterator, on the model's device (the engine behind
+    ``Trainer.evaluate`` and the model's own ``evaluate``): a multi-output
+    Graph is evaluated on its first output, with its first label mask."""
+    if evaluation is None:
+        evaluation = default_evaluation(model)
+    stage = stage or BatchStager(model.device)
+    for ds in iterator:
+        x, y, fm, lm = unpack_batch(model, ds)
+        preds = _inference(model, params, state, stage(x), stage(fm))
+        if isinstance(y, list):
+            y = y[0]
+            lm = lm[0] if lm else None
+        evaluation.eval(y, preds, mask=lm)
+    if hasattr(iterator, "reset"):
+        iterator.reset()
+    return evaluation
+
+
+def score_model(model, params, state, iterator, stage=None) -> float:
+    """Average inference-mode loss over an iterator
+    (``model.score(DataSetIterator)``)."""
+    stage = stage or BatchStager(model.device)
+    total, n = 0.0, 0
+    with torch.no_grad():
+        for ds in iterator:
+            x, y, fm, lm = (stage(a) for a in unpack_batch(model, ds))
+            loss, _ = _score(model, params, state, x, y, training=False,
+                             rng=None, mask=fm, label_mask=lm)
+            total += float(loss)
+            n += 1
+    if hasattr(iterator, "reset"):
+        iterator.reset()
+    return total / max(n, 1)
 
 
 class Trainer:
@@ -174,7 +292,7 @@ class Trainer:
                  updater: Optional[Transform] = None,
                  seed: int = 0, mesh=None, rules=None, grad_accum: int = 1):
         if mesh is not None or rules is not None:
-            raise NotImplementedError(f"training over a mesh is {_NOT_PORTED}")
+            raise NotImplementedError(f"training over a mesh is {_NOT_PORTED_MESH}")
         self.model = model
         self.grad_accum = max(1, int(grad_accum))
         self.tx = updater if updater is not None else build_updater(model)
@@ -183,9 +301,14 @@ class Trainer:
         self.device = model.device
         # leaf tensors updated in place by every step (the counterpart of
         # the reference's donated buffers)
+        # frozen leaves take no gradient; under build_updater's noop they
+        # take no update either (a caller's own updater gets their zeros,
+        # as the reference's stop-gradient gives it)
+        self._frozen = frozen_leaves(model)
+        self._noop = updater is None
         self.params = upd.tree_unflatten(model.params, [
-            p.detach().requires_grad_(p.is_floating_point())
-            for p in tree_leaves(model.params)])
+            p.detach().requires_grad_(p.is_floating_point() and not frozen)
+            for p, frozen in zip(tree_leaves(model.params), self._frozen)])
         self.state = model.state if model.state is not None else {}
         self.opt_state = self.tx.init(tree_leaves(self.params))
         self.iteration = 0
@@ -272,16 +395,24 @@ class Trainer:
         return total / max(n, 1)
 
     def _apply_update(self, leaves, grads, opt_state):
-        """The updater on the trained leaves' gradients (zeros for the
-        others and for unused params), added to the params in place."""
+        """The updater on the trained leaves' gradients (zeros for unused
+        params and the other leaves; None for frozen leaves under the
+        ``noop`` of ``build_updater``, whose update is None), added to the
+        params in place where the update is not None."""
         grads = iter(grads)
         with torch.no_grad():
             full = []
-            for p in leaves:
+            for p, frozen in zip(leaves, self._frozen):
+                if frozen and self._noop:
+                    full.append(None)
+                    continue
                 g = next(grads) if p.requires_grad else None
                 full.append(torch.zeros_like(p) if g is None else g)
             updates, opt_state = self.tx.update(full, opt_state, leaves)
-            torch._foreach_add_(leaves, list(updates))
+            pairs = [(p, u) for p, u in zip(leaves, updates) if u is not None]
+            if pairs:
+                torch._foreach_add_([p for p, _ in pairs],
+                                    [u for _, u in pairs])
         return opt_state
 
     def accum_step(self, params, opt_state, net_state, x, y, gen=None,
@@ -372,7 +503,7 @@ class Trainer:
         dimensions go through :meth:`_fit_tbptt_batch`."""
         if telemetry is not None or any(getattr(l, "telemetry", None) is not None
                                         for l in listeners):
-            raise NotImplementedError(f"step telemetry is {_NOT_PORTED}")
+            raise NotImplementedError(f"step telemetry is {_NOT_PORTED_TELEMETRY}")
         reporter = DeferredScoreReporter(self, listeners)
         perf = [l for l in listeners if isinstance(l, PerformanceListener)]
         spe = max(1, int(steps_per_execution))
@@ -388,21 +519,19 @@ class Trainer:
                 lst.on_epoch_start(self, epoch)
             it = AsyncIterator(iterator) if prefetch else iterator
             for ds in it:
-                if isinstance(ds.features, (list, tuple, dict)):
-                    raise NotImplementedError(
-                        f"multi-input (MultiDataSet) batches are "
-                        f"{_NOT_PORTED_GRAPH}")
-                batch = (ds.features, ds.labels, ds.features_mask,
-                         ds.labels_mask)
-                if use_window and self.iteration > 0:
+                batch = unpack_batch(self.model, ds)
+                if use_window and self.iteration > 0 \
+                        and not isinstance(ds, MultiDataSet):
                     buf.append((tuple(self._stage(a) for a in batch),
                                 ds.num_examples))
                     if len(buf) == spe:
                         self._exec_window(buf, reporter, epoch, perf)
                         buf.clear()
                     continue
-                self._exec_singles([(batch, ds.num_examples)], reporter,
-                                   epoch, perf)
+                # a MultiDataSet batch runs alone, after what is buffered
+                self._exec_singles(buf + [(batch, ds.num_examples)],
+                                   reporter, epoch, perf)
+                buf.clear()
             if buf:  # ragged tail: fewer than K buffered at epoch end
                 self._exec_singles(buf, reporter, epoch, perf)
                 buf.clear()
@@ -570,25 +699,64 @@ class Trainer:
 
     def score_iterator(self, iterator) -> float:
         """Average loss over an iterator (model.score(DataSetIterator))."""
-        total, n = 0.0, 0
-        with torch.no_grad():
-            for ds in iterator:
-                loss, _ = _score(
-                    self.model, self.params, self.state,
-                    self._stage(ds.features), self._stage(ds.labels),
-                    training=False, rng=None,
-                    mask=self._stage(ds.features_mask),
-                    label_mask=self._stage(ds.labels_mask))
-                total += float(loss)
-                n += 1
-        if hasattr(iterator, "reset"):
-            iterator.reset()
-        return total / max(n, 1)
+        return score_model(self.model, self.params, self.state, iterator,
+                           self._stage)
 
-    def save(self, path: str) -> None:
-        """The model zip with params, state and updater state."""
+    def evaluate(self, iterator, evaluation=None):
+        """Streaming evaluation (an ``Evaluation`` of the primary output
+        unless one is given) at the trainer's params and state."""
+        return evaluate_model(self.model, self.params, self.state, iterator,
+                              evaluation, self._stage)
+
+    def pretrain_layer(self, layer_index: int, iterator, epochs: int = 1,
+                       learning_rate: float = 1e-2, noise=None) -> float:
+        """MultiLayerNetwork.pretrainLayer: unsupervised fit of one
+        ``AutoEncoder`` or ``VAE`` layer of a Sequential on the inference
+        activations of the layers below it, with its own adam at
+        ``learning_rate``, one update per batch. ``noise(step, feats)``,
+        when given, supplies the layer's noise for step ``step`` (the
+        AutoEncoder's ``keep`` mask, the VAE's ``eps``) instead of the
+        trainer's generator. Returns the last batch's loss."""
+        model = self.model
+        if not isinstance(model, Sequential):
+            raise TypeError("pretrain_layer needs a Sequential model")
+        layer = model.layers[layer_index]
+        if not hasattr(layer, "pretrain_loss"):
+            raise TypeError(f"{type(layer).__name__} is not pretrainable")
+        key = _layer_key(layer_index, layer)
+        kw_name = "eps" if hasattr(layer, "encode") else "keep"
+        tx = upd.adam(learning_rate)
+        lp = upd.tree_unflatten(self.params[key], [
+            t.detach().requires_grad_() for t in tree_leaves(self.params[key])])
+        leaves = tree_leaves(lp)
+        opt = tx.init(leaves)
+        loss, step = None, 0
+        for _ in range(epochs):
+            for ds in iterator:
+                x = self._stage(ds.features)
+                with torch.no_grad():
+                    feats, _ = model.forward(self.params, self.state, x,
+                                             training=False, up_to=layer_index)
+                kw = ({kw_name: noise(step, feats)} if noise is not None
+                      else {"rng": self._gen})
+                with torch.enable_grad():
+                    loss = layer.pretrain_loss(lp, feats, **kw)
+                    grads = torch.autograd.grad(loss, leaves)
+                with torch.no_grad():
+                    updates, opt = tx.update(list(grads), opt, leaves)
+                    torch._foreach_add_(leaves, list(updates))
+                step += 1
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+        self.params = {**self.params, key: lp}
+        self.model.params = self.params
+        return float(loss.detach())
+
+    def save(self, path: str, normalizer=None) -> None:
+        """The model zip with params, state and updater state, and the
+        data normalizer when given (``normalizer.json``)."""
         save_model(path, self.model, params=self.params, state=self.state,
-                   opt_state=self.opt_state)
+                   opt_state=self.opt_state, normalizer=normalizer)
 
     @classmethod
     def load(cls, path: str, seed: int = 0, device=None) -> "Trainer":

@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import torch
 
-from deeplearning4j_torch.data import BenchmarkIterator, DataSet
+from deeplearning4j_torch.data import BenchmarkIterator, DataSet, MultiDataSet
 from deeplearning4j_torch.models import ResNet50
 from deeplearning4j_torch.nn import layers as TL
 from deeplearning4j_torch.nn import vertices as TV
@@ -726,9 +726,16 @@ def test_graph_updater_overrides_are_keyed_by_node():
 
 
 def test_multi_input_batches_are_not_ported_yet():
-    tm = _port_narrow()
-    tm.init()
-    x = np.zeros((2, 32, 32, 3), np.float32)
+    # ported since: a MultiDataSet batch (features by input, labels by
+    # output) trains a Graph as its DataSet does
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
     y = np.eye(5, dtype=np.float32)[[0, 1]]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(tm).fit([DataSet([x], [y])])
+    losses = []
+    for batch in (DataSet(x, y), MultiDataSet([x], [y])):
+        tm = _port_narrow()
+        tm.init(seed=0)
+        rec = CollectScoresListener()
+        Trainer(tm).fit([batch, batch], listeners=[rec])
+        losses.append([loss for _, loss in rec.scores])
+    assert losses[0] == losses[1]

@@ -242,6 +242,11 @@ class TestContinuousBatcher:
             assert cb.restart_worker(reason="test") is True
             np.testing.assert_array_equal(
                 _wait(cb.submit(prompt, 4, temperature=0.0)), ref)
+            # the batcher releases a request's lease after it delivers the
+            # answer, as the reference does: wait for the release
+            deadline = time.monotonic() + WAIT_S
+            while cb.registry.inflight() and time.monotonic() < deadline:
+                time.sleep(0.01)
             assert cb.registry.inflight() == {}
         finally:
             cb.shutdown(timeout=WAIT_S)

@@ -228,13 +228,29 @@ def test_updater_matches_optax(name):
 
 @pytest.mark.parametrize("kind", ["nesterovs", "noop"])
 def test_unported_updater_raises(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        updaters.build({"type": kind})
+    # ported since: the updater builds, with optax's state leaves
+    # (tests/test_torch_updaters.py holds its math against optax)
+    params = {"a": jnp.ones((2, 3)), "b": jnp.zeros((3,))}
+    tx = updaters.build({"type": kind})
+    state = tx.init([torch.ones(2, 3), torch.zeros(3)])
+    want = jax.tree_util.tree_leaves(jupdaters.build({"type": kind})
+                                     .init(params))
+    assert [tuple(t.shape) for t in tree_leaves(state)] == \
+        [tuple(a.shape) for a in want]
 
 
 def test_gradient_normalization_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        updaters.build("sgd", gradient_normalization="ClipL2PerLayer")
+    # ported since: ClipL2PerLayer clips each layer's update to the
+    # threshold's norm, as the reference's does
+    tx = updaters.build("sgd", gradient_normalization="ClipL2PerLayer",
+                        gradient_normalization_threshold=0.5,
+                        owners=["a", "a", "b"])
+    grads = [torch.full((2,), 3.0), torch.full((2,), 4.0),
+             torch.full((1,), 0.1)]
+    updates, _ = tx.update(grads, tx.init(grads), grads)
+    assert float(torch.sqrt(sum((u ** 2).sum() for u in updates[:2]))) == \
+        pytest.approx(0.05, rel=1e-6)  # 0.1 x the clipped norm 0.5
+    assert float(updates[2][0]) == pytest.approx(-0.01, rel=1e-6)
 
 
 def test_tree_unflatten_round_trip():

@@ -217,12 +217,52 @@ last line):
    experts, top-2, T 1024, batch 4, bf16, flash): K1, K2, K3 once each a
    block and step, the aux loss finite and in the loss.
 
+16. fleet — multi-model serving (every kernel's launch count is zeroed
+   before the phase and read after it, into the kernels line under
+   ``launches_by_path["fleet"]``). Three full-width CausalLMs (the serve
+   phase's model, seeds 0, 1, 2: alpha, beta, gamma) in a
+   ``FleetRegistry`` whose weight budget is 2.2 models, so at most two
+   are resident; pinned host copies; page-ins on the one page-in stream.
+   Predicts at the model's 1024 tokens (the HTTP predict at 16: its JSON
+   answer). Tenants as
+   ``bench.py:_bench_fleet`` registers them: gold (500/s, SLO gold)
+   predicting on alpha and beta, standard (500/s) greedy-generating 8
+   tokens on gamma with the generate phase's batcher options, free (2/s,
+   burst 2, class batch) predicting on alpha; closed loop, one thread a
+   tenant, for FLEET_SECONDS, with request traces and a flight recorder
+   installed. Gated: every predict bit-equal to its model's direct
+   forward at the bucket it ran in, every generation equal to the
+   batcher's tokens computed before the fleet (and ``generate()``'s under
+   the gap rule); at least 3 page-ins and 2 evictions; generations that
+   never repeat (page-ins 1, 2, 3... per model; a publish while resident
+   adds one, and only then does the page-out copy the weights back, which
+   a published cycle of each model shows); every page-out frees at least
+   the weights (the
+   allocator's freed counter during traffic, ``memory_allocated`` itself
+   over quiet cycles); the free tenant shed; an injected
+   ``fleet.page_in_transfer`` error and a copy torn part way each retried
+   with bit-equal answers; injected ``serve.dispatch`` failures open beta's
+   breaker, which sheds 503 with Retry-After until a half-open probe
+   closes it; memory back to its level after the faults; a
+   ``FleetServer``: a traced predict on a cold model (bit-equal, its
+   stages and the ``fleet.page_in`` span), generate, ``/v1/fleet``
+   residency, 404, 429 with Retry-After; K1 12 launches a predict batch,
+   no other kernel. Printed with the card: page-in and page-out ms and
+   GB/s beside the pinned-copy bound, the pinned allocation time, gold
+   p50/p99 in the window, at rest, while other models page and while
+   their page-outs copy back (each request's stage medians, and a
+   torch.profiler summary of each: the card's streams, copies and the
+   host's waiting calls), gamma's
+   time to first token and tokens/s, peak allocated and reserved memory
+   against the budget.
+
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -4857,6 +4897,882 @@ def phase_train_api():
     return api_moe(where)
 
 
+# --- [fleet]: three full-width CausalLMs paged under one weight budget ---
+FLEET_NAMES = ("alpha", "beta", "gamma")     # seeds 0, 1, 2
+FLEET_DEVICE = "cuda"
+FLEET_SECONDS = 15.0        # the closed-loop window
+# predict prompt tokens (gold and free): the model's T, as
+# bench.py:_bench_fleet predicts at its model's whole input length
+FLEET_T = 1024
+# the HTTP predict's prompt, cut: its JSON answer carries FLEET_VOCAB
+# floats a token (the phase prints its bytes)
+FLEET_HTTP_T = 16
+FLEET_PROMPTS = 4
+FLEET_BUCKETS = (1, 2, 4)
+FLEET_VOCAB = 32000
+FLEET_GEN_PROMPT = 6        # gamma's prompt, as bench.py:_bench_fleet
+FLEET_GEN_TOKENS = 8
+FLEET_BUDGET_MODELS = 2.2   # bench.py:712-715: at most two resident
+FLEET_BREAKER = dict(breaker_failures=2, breaker_reset_s=3.0)
+FLEET_WATCHDOG_S = 4.0
+FLEET_CYCLES = 3            # quiet page cycles for the raw memory gate
+FLEET_REST_N = 30           # gold predicts at rest and during page-ins
+FLEET_PROF_N = 8            # of them again under torch.profiler, each way
+
+
+def _fleet_lm(seed):
+    """``_lm(flash=True)``'s model with its own seed: 12 layers, d_model
+    2048, 32 heads, vocab 32000, T 1024, bf16 compute."""
+    from deeplearning4j_torch.models import CausalLM
+
+    model = CausalLM(seed=seed, input_shape=(1024,), num_layers=12,
+                     d_model=2048, num_heads=32, vocab=32000, flash=True,
+                     device=FLEET_DEVICE).build()
+    model.config.compute_dtype = "bfloat16"
+    model.init(seed=seed)
+    return model
+
+
+def _fleet_gen_opts():
+    """The [generate] phase's measured batcher options."""
+    return dict(kv="paged", slots=GEN_SLOTS, capacity=GEN_CAPACITY,
+                block_size=GEN_BLOCK, prefill_chunk=GEN_CHUNK,
+                prefix_cache=True, seed=0)
+
+
+def _fleet_mem():
+    """The caching allocator's counters on the card."""
+    return {"allocated": torch.cuda.memory_allocated(),
+            "reserved": torch.cuda.memory_reserved(),
+            "peak_allocated": torch.cuda.max_memory_allocated(),
+            "peak_reserved": torch.cuda.max_memory_reserved()}
+
+
+def _fleet_link_rates():
+    """Host-link rates (bytes/s) of one pinned 1 GiB copy each way, by CUDA
+    events, median of 5."""
+    n = 1 << 30
+    h = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    d = torch.empty(n, dtype=torch.uint8, device="cuda")
+    h2d = time_ms(lambda: d.copy_(h, non_blocking=True), reps=5, warmup=1)
+    d2h = time_ms(lambda: h.copy_(d, non_blocking=True), reps=5, warmup=1)
+    del h, d
+    return n / (h2d / 1e3), n / (d2h / 1e3)
+
+
+def _fleet_refs(model, prompts):
+    """Each prompt's direct forward at each bucket, as the engine runs it
+    (the prompt in one row of a zero-padded bucket batch), row by row
+    position: ``{(j, bucket): [distinct answers]}`` and whether an answer
+    was the same at every row position."""
+    from deeplearning4j_torch.serve.engine import _to_numpy
+
+    refs, same = {}, True
+    with torch.inference_mode():
+        for b in FLEET_BUCKETS:
+            for j, p in enumerate(prompts):
+                rows = []
+                for r in range(b):
+                    x = np.zeros((b,) + p.shape[1:], np.int32)
+                    x[r] = p[0]
+                    y = _to_numpy(model.forward(
+                        model.params, model.state,
+                        torch.from_numpy(x).to(model.device),
+                        training=False)[0][r])
+                    if not any(np.array_equal(y, z) for z in rows):
+                        rows.append(y)
+                same = same and len(rows) == 1
+                refs[(j, b)] = rows
+    return refs, same
+
+
+def _fleet_gen_refs(model, prompt):
+    """gamma's greedy tokens from a ContinuousBatcher with the fleet's
+    options run on its own (the gate), and ``generate``'s direct greedy
+    tokens held to them under the [generate] phase's gap rule. Returns the
+    tokens and the batcher's cast bytes."""
+    from deeplearning4j_torch.nn.generation import generate
+    from deeplearning4j_torch.serve import ContinuousBatcher
+
+    cb = ContinuousBatcher(model, **_fleet_gen_opts())
+    try:
+        want = cb.generate(prompt, FLEET_GEN_TOKENS, temperature=0.0)
+        cast = cb.cast_bytes()
+    finally:
+        cb.shutdown()
+        cb.release_device()
+    direct = generate(model, prompt[None], FLEET_GEN_TOKENS,
+                      temperature=0.0)[0]
+    lp = _teacher_logp(model, np.concatenate([prompt, want[:-1]]))
+    met = _same_tokens(direct, want, lp, len(prompt),
+                       "[fleet] generate() vs the batcher",
+                       GEN_GAP_TOL_BF16)
+    return [int(t) for t in want], cast, met
+
+
+def fleet_build(where):
+    """The three models, their references, and the fleet (budget 2.2 x one
+    model's weight bytes) holding pinned host copies; each model's device
+    params are dropped once the fleet holds them."""
+    from deeplearning4j_torch.fleet import FleetRegistry
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    rng = np.random.RandomState(0)
+    prompts = [rng.randint(0, FLEET_VOCAB, (1, FLEET_T)).astype(np.int32)
+               for _ in range(FLEET_PROMPTS)]
+    http_prompt = rng.randint(0, FLEET_VOCAB, (1, FLEET_HTTP_T)).astype(
+        np.int32)
+    gen_prompt = rng.randint(0, FLEET_VOCAB, FLEET_GEN_PROMPT).astype(
+        np.int32)
+    fleet, refs, same_rows = None, {}, True
+    gen_want = cast_bytes = gen_met = None
+    t_alloc = t_fill = 0.0
+    for seed, name in enumerate(FLEET_NAMES):
+        t0 = time.perf_counter()
+        m = _fleet_lm(seed)
+        n_params = m.param_count()
+        check(n_params == 737_504_512, f"{name} has {n_params} params")
+        if name != "gamma":
+            refs[name], same = _fleet_refs(m, prompts)
+            same_rows = same_rows and same
+        else:
+            gen_want, cast_bytes, gen_met = _fleet_gen_refs(m, gen_prompt)
+        if name == "alpha":
+            refs["alpha_http"], _ = _fleet_refs(m, [http_prompt])
+        if fleet is None:
+            wb = sum(t.numel() * t.element_size() for t in
+                     tree_leaves((m.params, m.state)))
+            fleet = FleetRegistry(
+                hbm_budget_bytes=int(FLEET_BUDGET_MODELS * wb),
+                watchdog_s=FLEET_WATCHDOG_S, device=FLEET_DEVICE,
+                **FLEET_BREAKER)
+        entry = fleet.add(name, m, input_dtype=np.int32,
+                          engine_opts={"batch_buckets": FLEET_BUCKETS,
+                                       "queue_limit": 64},
+                          gen_opts=_fleet_gen_opts()
+                          if name == "gamma" else None)
+        t_alloc += entry.host_alloc_s
+        t_fill += entry.host_fill_s
+        m.params, m.state = None, {}
+        gc.collect()
+        print(f"[fleet] {name}: {n_params} params (seed {seed}), "
+              f"{entry.weight_bytes} weight bytes, references and host copy "
+              f"in {time.perf_counter() - t0:.2f} s")
+    print(f"[fleet] pinned host copies of {len(FLEET_NAMES)} models "
+          f"({sum(fleet.get(n).weight_bytes for n in FLEET_NAMES)} bytes): "
+          f"allocation {t_alloc:.3f} s, fill {t_fill:.3f} s on {where}")
+    print(f"[fleet] direct answers the same at every row position of a "
+          f"bucket: {same_rows}; gamma's batcher tokens {gen_want}, "
+          f"generate() equal before a near-tie: {gen_met[0]} of "
+          f"{FLEET_GEN_TOKENS} ({gen_met[1]} near-ties met, gap <= "
+          f"{GEN_GAP_TOL_BF16})")
+    return {"fleet": fleet, "prompts": prompts, "http_prompt": http_prompt,
+            "gen_prompt": gen_prompt, "gen_want": gen_want, "refs": refs,
+            "cast_bytes": cast_bytes}
+
+
+def _fleet_bucket(ctx):
+    return next(st["args"]["bucket"] for st in ctx.stages
+                if st["name"] == "device")
+
+
+def fleet_predict(st, name, j, tenant, rt, stages=None):
+    """One traced predict; returns (latency s, generation, bucket, bit-equal
+    to the direct forward at that bucket). Appends the request's stage
+    durations ({name: ms}) to ``stages`` when given."""
+    ctx = rt.begin("predict", model=name, tenant=tenant)
+    t0 = time.perf_counter()
+    try:
+        res = st["fleet"].predict(name, st["prompts"][j], tenant=tenant,
+                                  ctx=ctx)
+    except BaseException as e:
+        ctx.finish(error=getattr(e, "cause", "internal"))
+        raise
+    dt = time.perf_counter() - t0
+    ctx.finish()
+    if stages is not None:
+        stages.append({s["name"]: s["dur_ms"] for s in ctx.stages})
+    bucket = _fleet_bucket(ctx)
+    ok = any(np.array_equal(res.output[0], r)
+             for r in st["refs"][name][(j, bucket)])
+    return dt, res.generation, bucket, ok
+
+
+def fleet_window(st, where):
+    """FLEET_SECONDS of closed-loop traffic, one thread a tenant: gold
+    predicts on alpha and beta, standard greedy generates on gamma, free
+    predicts on alpha at 20/s offered against its 2/s quota."""
+    from deeplearning4j_torch.fleet import QuotaError
+    from deeplearning4j_torch.obs import reqtrace
+    from deeplearning4j_torch.serve import ServeError
+
+    fleet, rt = st["fleet"], reqtrace.ACTIVE
+    fleet.tenants.register("gold", rate_per_s=500, slo="gold")
+    fleet.tenants.register("standard", rate_per_s=500, slo="standard")
+    fleet.tenants.register("free", rate_per_s=2.0, burst=2.0, slo="batch")
+    lock = threading.Lock()
+    rec = {"gold": [], "free": [], "gen": [], "wrong": [], "errors": [],
+           "quota": [], "gens": {n: set() for n in FLEET_NAMES}}
+    stop_at = [0.0]
+
+    def note(key, item):
+        with lock:
+            rec[key].append(item)
+
+    def predictor(tenant, pick, pause):
+        r = np.random.RandomState(10 if tenant == "gold" else 11)
+        while time.perf_counter() < stop_at[0]:
+            name, j = pick(r), int(r.randint(FLEET_PROMPTS))
+            try:
+                dt, gen, bucket, ok = fleet_predict(st, name, j, tenant, rt)
+            except QuotaError as e:
+                note("quota", e.retry_after_s)
+            except ServeError as e:
+                note("errors", f"{tenant} {name}: {e.cause}: {e}")
+            else:
+                note(tenant, (dt, name, bucket))
+                with lock:
+                    rec["gens"][name].add(gen)
+                if not ok:
+                    note("wrong", f"{tenant} {name} prompt {j} bucket "
+                         f"{bucket} generation {gen}")
+            time.sleep(pause)
+
+    def generator():
+        while time.perf_counter() < stop_at[0]:
+            t0 = time.perf_counter()
+            stamps = []
+            try:
+                h = fleet.submit_generate("gamma", st["gen_prompt"],
+                                          FLEET_GEN_TOKENS, tenant="standard",
+                                          temperature=0.0)
+                toks = []
+                for tok in h.stream():
+                    stamps.append(time.perf_counter())
+                    toks.append(int(tok))
+            except ServeError as e:
+                note("errors", f"standard gamma: {e.cause}: {e}")
+                continue
+            note("gen", (stamps[0] - t0, stamps))
+            if toks != st["gen_want"]:
+                note("wrong", f"gamma tokens {toks}, want {st['gen_want']}")
+
+    workers = [threading.Thread(target=predictor, args=(
+                   "gold", lambda r: ("alpha", "beta")[r.randint(2)], 0.0)),
+               threading.Thread(target=predictor, args=(
+                   "free", lambda r: "alpha", 0.05)),
+               threading.Thread(target=generator)]
+    pager0 = dict(fleet.pager.stats())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stop_at[0] = time.perf_counter() + FLEET_SECONDS
+    t0 = time.perf_counter()
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(FLEET_SECONDS + 300)
+    wall = time.perf_counter() - t0
+    check(not any(w.is_alive() for w in workers), "[fleet] clients hung")
+    mem = _fleet_mem()
+    pager = fleet.pager.stats()
+    page_ins = pager["page_ins"] - pager0["page_ins"]
+    page_outs = pager["page_outs"] - pager0["page_outs"]
+    check(not rec["errors"], "[fleet] errors: " + "; ".join(rec["errors"][:5]))
+    check(not rec["wrong"], f"[fleet] wrong_responses "
+          f"{len(rec['wrong'])}: " + "; ".join(rec["wrong"][:5]))
+    check(page_ins >= 3 and page_outs >= 2, f"[fleet] {page_ins} page-ins "
+          f"and {page_outs} evictions in the window")
+    check(rec["quota"], "[fleet] the free tenant was never shed")
+    check(rec["gold"] and rec["gen"], "[fleet] a tenant got no answer")
+    gold_ms = [1e3 * d for d, _, _ in rec["gold"]]
+    ttft = [1e3 * t for t, _ in rec["gen"]]
+    tps = [(len(s) - 1) / (s[-1] - s[0]) for _, s in rec["gen"]
+           if len(s) > 1 and s[-1] > s[0]]
+    budget = fleet.pager.budget_bytes
+    print(f"[fleet] window {wall:.2f} s on {where}: gold {len(rec['gold'])} "
+          f"predicts (p50 {_pct(gold_ms, 50):.2f} ms, p99 "
+          f"{_pct(gold_ms, 99):.2f} ms, buckets "
+          f"{sorted(collections.Counter(b for _, _, b in rec['gold']).items())}), "
+          f"free {len(rec['free'])} admitted and {len(rec['quota'])} shed "
+          f"(QuotaError, retry_after_s {min(rec['quota']):.3f}-"
+          f"{max(rec['quota']):.3f}), standard {len(rec['gen'])} generations "
+          f"of {FLEET_GEN_TOKENS} tokens; wrong_responses 0; page-ins "
+          f"{page_ins}, page-outs {page_outs}")
+    print(f"[fleet] gamma on {where}: time to first token p50 "
+          f"{_pct(ttft, 50):.2f} ms p99 {_pct(ttft, 99):.2f} ms (page-in "
+          f"waits included); decode tokens/s median "
+          f"{statistics.median(tps) if tps else float('nan'):.1f}")
+    print(f"[fleet] memory on {where}: peak allocated {mem['peak_allocated']}"
+          f" B, peak reserved {mem['peak_reserved']} B, against the weight "
+          f"budget {budget} B (weights only; KV pools, activations and casts "
+          f"outside it)")
+    return {"page_ins": page_ins, "page_outs": page_outs, "gens": rec["gens"],
+            "gold_ms": gold_ms, "ttft_ms": ttft, "tps": tps, "mem": mem}
+
+
+def fleet_generations(st, seen):
+    """Each model's generations never repeat: its first page-in is 1, each
+    later page-in one more than the page-out before it, and a page-out
+    holds its page-in's generation unless one was published while
+    resident, when (and only when) it copies the weights back. Every
+    answer's generation is one that a page-in served."""
+    for name in FLEET_NAMES:
+        log = st["fleet"].get(name).page_log
+        # a full log has lost its oldest records: start at its first
+        prev_out = 0 if len(log) < log.maxlen else None
+        last_in, ins = None, []
+        for e in log:
+            if e["kind"] == "page_in":
+                check(prev_out is None or e["generation"] == prev_out + 1,
+                      f"[fleet] {name} paged in as {e['generation']} after "
+                      f"page-out {prev_out}")
+                last_in = e["generation"]
+                ins.append(last_in)
+            elif last_in is not None:
+                check(e["generation"] >= last_in
+                      and e["copied"] == (e["generation"] != last_in),
+                      f"[fleet] {name} page-out {e['generation']} (copied "
+                      f"{e['copied']}) after page-in {last_in}")
+                prev_out = e["generation"]
+        check(seen.get(name, set()) <= set(ins), f"[fleet] {name} answered "
+              f"from generations {sorted(seen.get(name, ()))} outside its "
+              f"page-ins {ins}")
+    print("[fleet] generations by page-in: " + "; ".join(
+        f"{n} {[e['generation'] for e in st['fleet'].get(n).page_log if e['kind'] == 'page_in']}"
+        for n in FLEET_NAMES))
+
+
+def fleet_published_cycles(st):
+    """Each model published again while resident (its own weights, a new
+    generation), then paged out and back in: the page-out copies that
+    generation back to the host copy (the reference's guarantee), and the
+    next page-in serves it under the following generation, bit-equal."""
+    from deeplearning4j_torch.obs import reqtrace
+
+    fleet = st["fleet"]
+    for name in FLEET_NAMES:
+        fleet.ensure(name)
+        e = fleet.get(name)
+        cur = e.engine().registry.current()
+        gen = fleet.publish(name, cur.params, cur.state,
+                            version=f"{cur.version}-again")
+        del cur
+        fleet.pager.drop(e)
+        rec = e.page_log[-1]
+        check(rec["kind"] == "page_out" and rec["copied"]
+              and rec["generation"] == gen, f"[fleet] page-out of {name} "
+              f"after a publish (generation {gen}): {rec}")
+        fleet.ensure(name)
+        check(e.page_log[-1]["generation"] == gen + 1, f"[fleet] {name} "
+              f"paged in as {e.page_log[-1]['generation']} after publishing "
+              f"{gen}")
+        if name != "gamma":
+            _, got, _, ok = fleet_predict(st, name, 0, "gold",
+                                          reqtrace.ACTIVE)
+            check(ok and got == gen + 1, f"[fleet] {name} after its "
+                  f"published page cycle: generation {got}, equal {ok}")
+        fleet.pager.drop(e)
+
+
+def fleet_transfers(st, where, link):
+    """Page-in and page-out times per cycle from the entries' page logs,
+    their rates, the host-link bound; the memory gates on every page-out
+    (during traffic: the allocator's freed bytes across the drop, which
+    other threads' allocations cannot mask; then FLEET_CYCLES quiet cycles:
+    memory_allocated itself). A page-out copies the weights back only after
+    a publish while resident: fleet_published_cycles makes those."""
+    fleet = st["fleet"]
+    freed = []
+    for name in FLEET_NAMES:
+        e = fleet.get(name)
+        for rec in e.page_log:
+            if rec["kind"] == "page_out":
+                freed.append(rec["freed"] / rec["bytes"])
+                check(rec["freed"] >= rec["bytes"], f"[fleet] page-out of "
+                      f"{name} freed {rec['freed']} B < {rec['bytes']} B")
+    # quiet cycles: nothing else runs, so memory_allocated must fall by the
+    # victim's weight bytes at least
+    falls = []
+    for k in range(FLEET_CYCLES):
+        for name in FLEET_NAMES:
+            fleet.ensure(name)
+            e = fleet.get(name)
+            a0 = _fleet_mem()["allocated"]
+            fleet.pager.drop(e)
+            fall = a0 - _fleet_mem()["allocated"]
+            falls.append(fall)
+            check(fall >= e.weight_bytes, f"[fleet] quiet page-out of {name}"
+                  f": memory_allocated fell {fall} B < {e.weight_bytes} B")
+    logs = [r for n in FLEET_NAMES for r in fleet.get(n).page_log]
+    ins = [r for r in logs if r["kind"] == "page_in"]
+    outs = [r for r in logs if r["kind"] == "page_out"]
+    copies = [r for r in outs if r["copied"]]
+    wb = fleet.get("alpha").weight_bytes
+    in_ms = [1e3 * r["seconds"] for r in ins]
+    # a page-in that overlaps another shares the page-in stream with it
+    spans = [(r["start"], r["start"] + r["seconds"]) for r in ins]
+    shared = [any(a < e1 and a1 < e for a1, e1 in spans if (a1, e1) != (a, e))
+              for a, e in spans]
+    alone_ms = [t for t, o in zip(in_ms, shared) if not o]
+    shared_ms = [t for t, o in zip(in_ms, shared) if o]
+    issue_ms = [1e3 * r["issue_seconds"] for r in ins]
+    copy_ms = [1e3 * r["seconds"] for r in copies]
+    out_ms = [1e3 * r["total_seconds"] for r in outs if not r["copied"]]
+    reserved = [r["reserved"] for r in outs]
+    h2d, d2h = link
+    print(f"[fleet] transfers on {where}: {len(ins)} page-ins, median "
+          f"{_pct(in_ms, 50):.2f} ms (p10 {_pct(in_ms, 10):.2f}, p90 "
+          f"{_pct(in_ms, 90):.2f}), {wb / (_pct(in_ms, 50) / 1e3) / 1e9:.2f} "
+          f"GB/s ({len(alone_ms)} alone, median "
+          f"{_pct(alone_ms, 50) if alone_ms else float('nan'):.2f} ms; "
+          f"{len(shared_ms)} overlapping another, median "
+          f"{_pct(shared_ms, 50) if shared_ms else float('nan'):.2f} ms; "
+          f"the host issued the copies in a median {_pct(issue_ms, 50):.2f} "
+          f"ms, p90 {_pct(issue_ms, 90):.2f}); {len(out_ms)} page-outs with nothing published, no copy: "
+          f"median {_pct(out_ms, 50):.2f} ms in all (p10 "
+          f"{_pct(out_ms, 10):.2f}, p90 {_pct(out_ms, 90):.2f}; drain and "
+          f"drop); {len(copies)} copies back after a publish: median "
+          f"{_pct(copy_ms, 50):.2f} ms ({min(copy_ms):.2f}-"
+          f"{max(copy_ms):.2f}), {wb / (_pct(copy_ms, 50) / 1e3) / 1e9:.2f} "
+          f"GB/s; bound {wb / h2d * 1e3:.2f} ms in / {wb / d2h * 1e3:.2f} ms "
+          f"out at the pinned 1 GiB rates {h2d / 1e9:.2f} GB/s "
+          f"host-to-device, {d2h / 1e9:.2f} GB/s device-to-host")
+    print(f"[fleet] memory across page-outs on {where}: freed at each "
+          f"page-out under traffic {min(freed):.4f}-{max(freed):.4f} x the "
+          f"weights; quiet falls {min(falls)}-{max(falls)} B (weights {wb} "
+          f"B); reserved "
+          f"{min(reserved)}-{max(reserved)} B over {len(reserved)} "
+          f"page-outs")
+    return {"page_in_ms": _pct(in_ms, 50), "page_out_ms": _pct(out_ms, 50)}
+
+
+def _fleet_pager_thread(fleet, errors, publish=False):
+    """A thread that pages beta and gamma in and out until its event is
+    set; with ``publish``, each residency publishes the model's weights
+    again, so each page-out copies them back to the host. Its failures
+    land in ``errors``. Returns (thread, event)."""
+    done = threading.Event()
+
+    def pager():
+        try:
+            while not done.is_set():
+                for name in ("beta", "gamma"):
+                    fleet.ensure(name)
+                    if publish:
+                        cur = fleet.get(name).engine().registry.current()
+                        fleet.publish(name, cur.params, cur.state)
+                        del cur
+                    fleet.pager.drop(fleet.get(name))
+        except Exception as e:  # reported by the caller, fails the phase
+            errors.append(f"{type(e).__name__}: {e}")
+
+    return threading.Thread(target=pager), done
+
+
+def _fleet_alpha_run(st, n, paging, stages=None):
+    """``n`` gold predicts on a resident alpha, each bit-equal, while beta
+    and gamma page in and out when ``paging`` (``"publish"``: each
+    residency publishes again, so each page-out copies back); their
+    latencies in ms."""
+    from deeplearning4j_torch.obs import reqtrace
+
+    fleet, rt = st["fleet"], reqtrace.ACTIVE
+    fleet.ensure("alpha")
+    errors, out = [], []
+    th, done = _fleet_pager_thread(fleet, errors, paging == "publish")
+    if paging:
+        th.start()
+    try:
+        for i in range(n):
+            dt, _, _, ok = fleet_predict(st, "alpha", i % FLEET_PROMPTS,
+                                         "gold", rt, stages)
+            check(ok, "[fleet] a resident answer differs "
+                  + ("during page-ins" if paging else "at rest"))
+            out.append(1e3 * dt)
+    finally:
+        done.set()
+        if paging:
+            th.join(300)
+    check(not errors and not th.is_alive(), f"[fleet] pager thread: {errors}")
+    return out
+
+
+def _trace_summary(path):
+    """What a torch.profiler chrome trace holds, as numbers: its span; per
+    stream the device busy time (kernels, copies, sets) and the copies'
+    bytes and time each way; the default stream (the one K1 ran on) split
+    into kernels and copies with its top kernels; and the host's CUDA
+    runtime calls that can wait (count, total and longest ms)."""
+    with open(path) as f:
+        evs = [e for e in json.load(f).get("traceEvents", [])
+               if e.get("ph") == "X"]
+    dev = [e for e in evs if e.get("cat") in ("kernel", "gpu_memcpy",
+                                              "gpu_memset")]
+    if not dev:
+        return None
+    t0 = min(e["ts"] for e in evs)
+    span = max(e["ts"] + e.get("dur", 0) for e in evs) - t0
+    k1 = [e for e in dev if e.get("cat") == "kernel" and "flash" in e["name"]]
+    default = (k1[0].get("args", {}).get("stream") if k1 else None)
+    streams = {}
+    for e in dev:
+        sid = e.get("args", {}).get("stream")
+        row = streams.setdefault(sid, collections.Counter())
+        row["busy_ms"] += e.get("dur", 0) / 1e3
+        if e["cat"] == "gpu_memcpy":
+            way = ("HtoD" if "HtoD" in e["name"] else
+                   "DtoH" if "DtoH" in e["name"] else "DtoD")
+            row[way + "_ms"] += e.get("dur", 0) / 1e3
+            row[way + "_bytes"] += e.get("args", {}).get("bytes", 0)
+            row[way + "_n"] += 1
+            if sid == default and way == "DtoH":
+                row["DtoH_max_ms"] = max(row["DtoH_max_ms"],
+                                         e.get("dur", 0) / 1e3)
+        elif e["cat"] == "kernel":
+            row["kernel_ms"] += e.get("dur", 0) / 1e3
+            row["kernels"] += 1
+        else:
+            row["memset_ms"] += e.get("dur", 0) / 1e3
+    top = collections.Counter()
+    for e in dev:
+        if e["cat"] == "kernel" and e.get("args", {}).get("stream") == default:
+            top[e["name"][:48]] += e.get("dur", 0) / 1e3
+    waits = {}
+    for e in evs:
+        if e.get("cat") in ("cuda_runtime", "cuda_driver") and any(
+                k in e["name"] for k in ("Malloc", "Free", "Synchronize",
+                                         "Memcpy", "HostAlloc", "Wait")):
+            w = waits.setdefault(e["name"], [0, 0.0, 0.0])
+            w[0] += 1
+            w[1] += e.get("dur", 0) / 1e3
+            w[2] = max(w[2], e.get("dur", 0) / 1e3)
+    return {"span_ms": span / 1e3, "default": default, "streams": streams,
+            "top": top.most_common(4), "waits": waits}
+
+
+def _print_trace_summary(tag, where, sm, lat):
+    if sm is None:
+        print(f"[fleet] {tag} on {where}: profiler recorded no device "
+              f"events; not measured")
+        return
+    d = sm["streams"].get(sm["default"], collections.Counter())
+
+    def copies(row):
+        return ", ".join(
+            f"{w} {row[w + '_n']} in {row[w + '_ms']:.2f} ms "
+            f"({row[w + '_bytes'] / 1e9:.3f} GB)"
+            for w in ("HtoD", "DtoH", "DtoD") if row[w + "_n"])
+    print(f"[fleet] {tag} on {where} (torch.profiler, {len(lat)} predicts, "
+          f"p50 {_pct(lat, 50):.2f} ms under the profiler): trace "
+          f"{sm['span_ms']:.2f} ms; default stream {sm['default']} busy "
+          f"{d['busy_ms']:.2f} ms (share {d['busy_ms'] / sm['span_ms']:.4f})"
+          f": kernels {d['kernel_ms']:.2f} ms in {d['kernels']}, sets "
+          f"{d['memset_ms']:.2f} ms, copies {copies(d) or 'none'}, longest "
+          f"answer copy {d['DtoH_max_ms']:.2f} ms; top kernels "
+          + "; ".join(f"{n} {t:.2f} ms" for n, t in sm["top"])
+          + "; other streams: " + ("; ".join(
+              f"{sid} busy {row['busy_ms']:.2f} ms, kernels "
+              f"{row['kernel_ms']:.2f} ms, {copies(row) or 'no copies'}"
+              for sid, row in sm["streams"].items()
+              if sid != sm["default"]) or "none")
+          + "; host calls that wait (n, total ms, longest ms): "
+          + "; ".join(f"{k} {v[0]}, {v[1]:.2f}, {v[2]:.2f}" for k, v in
+                      sorted(sm["waits"].items(), key=lambda kv: -kv[1][1])
+                      [:8]))
+
+
+def fleet_rest_vs_paging(st, where):
+    """Gold predicts on a resident alpha at rest, while another thread
+    pages beta and gamma in and out, and while it also publishes each
+    residency (so each page-out copies 2.95 GB back over the link); every
+    answer bit-equal. Prints each request stage's median each way, then
+    the same runs, shorter, under torch.profiler: what the card and the
+    host's waiting calls did (the chrome traces go to chiprun_out/)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = (("at rest", False), ("while paging", True),
+            ("while paging with copies back", "publish"))
+    lat, stages = {}, {}
+    for tag, paging in runs:
+        stages[tag] = []
+        lat[tag] = _fleet_alpha_run(st, FLEET_REST_N, paging, stages[tag])
+    print(f"[fleet] gold on alpha on {where} ({FLEET_REST_N} predicts each, "
+          f"bit-equal; beta and gamma paging in and out): " + "; ".join(
+              f"{tag} p50 {_pct(v, 50):.2f} ms p99 {_pct(v, 99):.2f} ms"
+              for tag, v in lat.items()))
+    every = [x for v in stages.values() for x in v]
+    names = [n for n in every[0] if all(n in x for x in every)]
+    print(f"[fleet] gold on alpha, stage medians (ms) " + " / ".join(
+        tag for tag, _ in runs) + ": " + "; ".join(
+            f"{n} " + " / ".join(f"{_pct([x[n] for x in v], 50):.2f}"
+                                 for v in stages.values()) for n in names))
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    for tag, paging in runs:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            got = _fleet_alpha_run(st, FLEET_PROF_N, paging)
+            torch.cuda.synchronize()
+        path = os.path.join(out_dir, "fleet_trace_"
+                            + tag.replace(" ", "_") + ".json")
+        prof.export_chrome_trace(path)
+        _print_trace_summary(f"gold on alpha {tag}", where,
+                             _trace_summary(path), got)
+    return lat
+
+
+def fleet_faults(st, srv, where):
+    """An injected page-in transfer failure and a torn copy, each retried;
+    serve.dispatch failures that open beta's breaker, its 503 sheds, and
+    the half-open probe that closes it; memory back to its level."""
+    from deeplearning4j_torch.chaos import faults
+    from deeplearning4j_torch.fleet import CircuitOpenError
+    from deeplearning4j_torch.obs import reqtrace
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.serve import ServeError
+
+    fleet, rt = st["fleet"], reqtrace.ACTIVE
+    beta = fleet.get("beta")
+    fleet.ensure("alpha")
+    fleet.ensure("beta")
+    mem0 = _fleet_mem()["allocated"]
+    retry = fleet.metrics.counter(
+        "fleet_retry_total", {"op": "fleet.page_in_transfer",
+                              "outcome": "recovered"})
+    r0 = retry.value
+    # 1. the seam: one injected failure, retried
+    fleet.pager.drop(beta)
+    plane = faults.install(faults.FaultPlane(seed=0))
+    try:
+        plane.inject("fleet.page_in_transfer", error=OSError, times=1)
+        _, _, _, ok = fleet_predict(st, "beta", 0, "gold", rt)
+        fired = plane.injected()
+    finally:
+        faults.uninstall()
+    check(ok and fired == {("fleet.page_in_transfer", "error"): 1},
+          f"[fleet] page-in fault: fired {fired}, answer equal {ok}")
+    # 2. a copy torn half way through the model's tensors, retried
+    fleet.pager.drop(beta)
+    real, calls = beta._device_leaf, [0]
+    tear = len(tree_leaves(beta._host_params)) // 2
+
+    def torn(h):
+        calls[0] += 1
+        if calls[0] == tear:
+            raise OSError("host-to-device copy torn")
+        return real(h)
+
+    beta._device_leaf = torn
+    try:
+        _, _, _, ok = fleet_predict(st, "beta", 1, "gold", rt)
+    finally:
+        del beta._device_leaf
+    recovered = int(retry.value - r0)
+    check(ok and calls[0] > tear, "[fleet] torn page-in not retried")
+    check(recovered == 2, f"[fleet] {recovered} page-ins recovered after "
+          f"a retry, want 2")
+    # 3. dispatch failures open beta's breaker; it sheds until a probe
+    br = fleet._breaker("beta")
+    plane = faults.install(faults.FaultPlane(seed=0))
+    causes = []
+    try:
+        plane.inject("serve.dispatch", error=RuntimeError,
+                     times=FLEET_BREAKER["breaker_failures"])
+        for _ in range(FLEET_BREAKER["breaker_failures"]):
+            try:
+                fleet.predict("beta", st["prompts"][0], tenant="gold")
+            except ServeError as e:
+                causes.append(e.cause)
+    finally:
+        faults.uninstall()
+    check(br.state() == "open", f"[fleet] beta's breaker {br.state()} after "
+          f"{causes}")
+    sheds = []
+    for _ in range(3):
+        code, body, retry_after = _fleet_http(
+            srv.port, "/v1/models/beta/predict",
+            {"ndarray": st["http_prompt"].tolist()}, "gold")
+        sheds.append((code, body.get("cause"), retry_after))
+    check(all(c == 503 and cause == "breaker_open" and ra is not None
+              and int(ra) >= 1 for c, cause, ra in sheds),
+          f"[fleet] open breaker answered {sheds}")
+    try:
+        fleet.predict("beta", st["prompts"][0], tenant="gold")
+        check(False, "[fleet] an open breaker let a request through")
+    except CircuitOpenError as e:
+        check(e.retry_after_s > 0, "[fleet] breaker retry_after_s")
+    deadline = time.monotonic() + 60
+    probes = 0
+    while br.state() != "closed" and time.monotonic() < deadline:
+        time.sleep(0.25)
+        try:
+            _, _, _, ok = fleet_predict(st, "beta", 2, "gold", rt)
+            probes += 1
+            check(ok, "[fleet] the probe's answer differs")
+        except ServeError:
+            pass
+    check(br.state() == "closed", "[fleet] beta's breaker never closed")
+    fleet.ensure("alpha")
+    fleet.ensure("beta")
+    mem1 = _fleet_mem()["allocated"]
+    check(abs(mem1 - mem0) <= st["cast_bytes"], f"[fleet] memory_allocated "
+          f"{mem0} B before the faults, {mem1} B after")
+    print(f"[fleet] faults on {where}: a fleet.page_in_transfer error and a "
+          f"copy torn at tensor {tear} each retried (recovered {recovered}, "
+          f"answers bit-equal); serve.dispatch x"
+          f"{FLEET_BREAKER['breaker_failures']} -> {causes} opened beta's "
+          f"breaker, 503 sheds {sheds}, closed after {probes} probe(s); "
+          f"memory_allocated {mem0} B before, {mem1} B after")
+
+
+def _fleet_http(port, path, body=None, tenant=None):
+    """(status, JSON body, Retry-After) of one request to 127.0.0.1."""
+    import urllib.error
+    import urllib.request
+
+    headers = {"Content-Type": "application/json"}
+    if tenant is not None:
+        headers["X-Tenant"] = tenant
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read()), r.headers.get(
+                "Retry-After")
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), e.headers.get("Retry-After")
+
+
+def fleet_http(st, srv, tracer, where):
+    """The routed front door: a traced predict on a cold alpha (bit-equal,
+    its stitched stages and the fleet.page_in span), gamma's generate, the
+    fleet's residency, a 404, and the free tenant's 429."""
+    fleet = st["fleet"]
+    fleet.pager.drop(fleet.get("alpha"))
+    code, body, _ = _fleet_http(srv.port, "/v1/models/alpha/predict",
+                                {"ndarray": st["http_prompt"].tolist()},
+                                "gold")
+    check(code == 200, f"[fleet] HTTP predict answered {code}: {body}")
+    # the answer's size sets the cut of the HTTP prompt (FLEET_HTTP_T)
+    answer_bytes = len(json.dumps(body).encode())
+    y = np.asarray(body["output"], np.float32)[0]
+    check(any(np.array_equal(y, r) for r in st["refs"]["alpha_http"][(0, 1)]),
+          "[fleet] HTTP predict differs from the direct forward")
+    code, body, _ = _fleet_http(srv.port, "/v1/models/gamma/generate",
+                                {"prompt": st["gen_prompt"].tolist(),
+                                 "max_new_tokens": FLEET_GEN_TOKENS,
+                                 "temperature": 0.0, "stream": False},
+                                "standard")
+    check(code == 200 and body["tokens"] == st["gen_want"],
+          f"[fleet] HTTP generate answered {code}: {body}")
+    code, body, _ = _fleet_http(srv.port, "/v1/fleet")
+    resident = sorted(n for n, m in body["models"].items() if m["resident"])
+    check(code == 200 and resident == sorted(fleet.pager.resident()),
+          f"[fleet] /v1/fleet residency {resident}")
+    code, _, _ = _fleet_http(srv.port, "/v1/models/nope/predict",
+                             {"ndarray": [[1]]})
+    check(code == 404, f"[fleet] an unknown model answered {code}")
+    deadline = time.monotonic() + 10
+    while True:  # the record lands when the handler's finally has run
+        reqs = _fleet_http(srv.port, "/v1/debug/requests")[1]["requests"]
+        traced = [r for r in reqs if r["kind"] == "predict"
+                  and r["model"] == "alpha" and r["tenant"] == "gold"
+                  and r["status"] == "ok" and any(
+                      s["name"] == "flush" for s in r["stages"])]
+        if traced or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    check(traced, "[fleet] no traced alpha predict in /v1/debug/requests")
+    stages = {s["name"]: s for s in traced[-1]["stages"]}
+    check({"admit", "page_in_wait", "queue", "device", "flush"} <=
+          set(stages), f"[fleet] traced stages {sorted(stages)}")
+    spans = [e for e in tracer.events if e.get("name") == "fleet.page_in"
+             and e.get("args", {}).get("model") == "alpha"]
+    check(spans, "[fleet] no fleet.page_in span for alpha")
+    wait_ms = stages["page_in_wait"]["dur_ms"]
+    check(wait_ms >= spans[-1]["dur"] / 1e3 * 0.999,
+          f"[fleet] page_in_wait {wait_ms} ms shorter than the page-in "
+          f"{spans[-1]['dur'] / 1e3} ms")
+    quota = None
+    for _ in range(40):  # one-token prompts: small answers, 20/s or more
+        code, body, ra = _fleet_http(srv.port, "/v1/models/alpha/predict",
+                                     {"ndarray": [[7]]}, "free")
+        if code == 429:
+            quota = (code, body.get("cause"), ra)
+            break
+        check(code == 200, f"[fleet] free tenant answered {code}: {body}")
+    check(quota is not None and quota[1] == "quota" and int(quota[2]) >= 1,
+          f"[fleet] the free tenant was not shed over HTTP: {quota}")
+    print(f"[fleet] HTTP predict answer of {FLEET_HTTP_T} tokens: "
+          f"{answer_bytes} B of JSON ({answer_bytes / FLEET_HTTP_T:.0f} B a "
+          f"token; {answer_bytes / FLEET_HTTP_T * FLEET_T / 1e6:.1f} MB at "
+          f"the {FLEET_T}-token prompt)")
+    print(f"[fleet] HTTP on {where}: predict on a cold alpha bit-equal, its "
+          f"stages {[s['name'] for s in traced[-1]['stages']]} "
+          f"(page_in_wait {wait_ms:.2f} ms around a fleet.page_in span of "
+          f"{spans[-1]['dur'] / 1e3:.2f} ms); generate tokens equal; "
+          f"/v1/fleet residency {resident}; unknown model 404; free tenant "
+          f"{quota[0]} with Retry-After {quota[2]}")
+
+
+def phase_fleet():
+    """[fleet]: three full-width CausalLMs (alpha, beta, gamma; seeds 0-2)
+    in a weight budget of 2.2 models, tenants gold/standard/free as
+    bench.py:_bench_fleet sets them, through FleetRegistry and FleetServer
+    with request traces and a flight recorder installed. Returns every
+    kernel's launches over the phase."""
+    from deeplearning4j_torch.fleet import FleetServer
+    from deeplearning4j_torch.obs import flight, reqtrace
+    from deeplearning4j_torch.obs.trace import Tracer
+
+    where = card()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = _fleet_mem()["allocated"]
+    link = _fleet_link_rates()
+    st = fleet_build(where)
+    fleet = st["fleet"]
+    tracer = Tracer()
+    flight.install(flight.FlightRecorder())
+    reqtrace.install(reqtrace.RequestTracer(tracer=tracer))
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    srv = None
+    try:
+        window = fleet_window(st, where)
+        fleet_generations(st, window["gens"])
+        fleet_rest_vs_paging(st, where)
+        srv = FleetServer(fleet, port=0).start()
+        fleet_faults(st, srv, where)
+        fleet_http(st, srv, tracer, where)
+        fleet_published_cycles(st)
+        fleet_generations(st, {})
+        fleet_transfers(st, where, link)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        batches = sum(int(fleet.metrics.counter(
+            "serve_batches_total", {"model": n}).value) for n in FLEET_NAMES)
+    finally:
+        if srv is not None:
+            srv.stop()
+        fleet.shutdown()
+        reqtrace.uninstall()
+        flight.uninstall()
+    left = _fleet_mem()["allocated"] - base
+    check(counts["K1"] == 12 * batches, f"[fleet] K1 launched "
+          f"{counts['K1']} times for {batches} predict batches")
+    check(all(v == 0 for k, v in counts.items() if k != "K1"),
+          f"[fleet] kernels other than K1 launched: {counts}")
+    check(left <= st["cast_bytes"], f"[fleet] {left} B still allocated after "
+          f"the fleet shut down")
+    print(f"[fleet] kernel launches over the phase: {counts} ({batches} "
+          f"predict batches, 12 each); after shutdown {left} B allocated "
+          f"beyond the phase's start")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4894,6 +5810,7 @@ def main() -> int:
     zoo = phase_zoo()
     transfer = phase_transfer()
     moe_counts = phase_train_api()
+    fleet_counts = phase_fleet()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -4936,6 +5853,9 @@ def main() -> int:
         row["launches_by_path"]["transfer_graph"] = (
             transfer["graph"]["captured"][key] * transfer["graph"]["replays"])
         row["launches_by_path"]["moe"] = moe_counts[key]
+        # the fleet: every predict batch of alpha, beta and gamma (K1),
+        # gamma's generations (no kernel)
+        row["launches_by_path"]["fleet"] = fleet_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -1,5 +1,17 @@
-"""Observability of the port (this slice: the metrics registry)."""
+"""Observability of the port: the metrics registry (with OpenMetrics
+exemplars), the span tracer, request-scoped tracing, the flight recorder
+and SLO burn accounting — stdlib-only copies of the JAX package's
+``obs/{metrics,trace,reqtrace,flight,slo}.py``."""
 
-from .metrics import Counter, Gauge, Histogram, MetricsRegistry
+from .flight import FlightRecorder
+from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,
+                      MetricsRegistry, default_registry)
+from .reqtrace import (RequestContext, RequestTracer, format_traceparent,
+                       parse_traceparent)
+from .slo import SloBurn
+from .trace import Tracer
 
-__all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry"]
+__all__ = ["Counter", "DEFAULT_BUCKETS", "FlightRecorder", "Gauge",
+           "Histogram", "MetricsRegistry", "RequestContext",
+           "RequestTracer", "SloBurn", "Tracer", "default_registry",
+           "format_traceparent", "parse_traceparent"]

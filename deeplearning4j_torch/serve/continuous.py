@@ -39,9 +39,13 @@ port's own (reproducible for a seed); greedy tokens equal the reference's.
 The worker thread enters ``torch.inference_mode()`` itself and names its
 device explicitly; a tick makes one host sync (the S next tokens).
 
-Not ported yet: the prebuilt-executable store (``aot_store``,
-``strict_aot``, ``from_tuned``; ROADMAP.md, Queue 1, item 13) and
-request traces (``ctx=``) with the profiler hints (item 15).
+Request traces (``ctx=``: queue, prefill-chunk and decode stages,
+exemplars on the prefill histogram), the completion hook
+(:meth:`_GenRequest.set_on_done`, the fleet's SLO accounting) and the
+``serve.decode_step`` fault seam are the reference's. Not ported yet: the
+prebuilt-executable store (``aot_store``, ``strict_aot``, ``from_tuned``;
+ROADMAP.md, Queue 1, item 13) and the profiler hints (with
+``obs/profile.py``, item 13).
 
 Scope: embedding-front causal-attention stacks (the CausalLM family).
 """
@@ -56,6 +60,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..chaos import faults as _faults
 from ..nn.generation import (cache_spec, cast_bytes, categorical,
                              decode_forward, init_caches)
 from ..nn.layers import (EmbeddingSequence, MultiHeadAttention, Output,
@@ -72,8 +77,6 @@ from .registry import ModelRegistry
 
 _NOT_PORTED_AOT = ("the prebuilt-executable store is not ported yet "
                    "(ROADMAP.md, Queue 1, item 13)")
-_NOT_PORTED_TRACE = ("request traces (ctx=) are not ported yet "
-                     "(ROADMAP.md, Queue 1, item 15)")
 
 
 def _default_prompt_buckets(capacity: int) -> tuple:
@@ -90,11 +93,11 @@ class _GenRequest:
 
     __slots__ = ("prompt", "max_new", "temperature", "top_k", "eos_id",
                  "deadline", "enq_t", "event", "result", "error", "out",
-                 "slot", "cancelled", "_cv")
+                 "slot", "ctx", "on_done", "cancelled", "_cv")
 
     def __init__(self, prompt: np.ndarray, max_new: int, temperature: float,
                  top_k: Optional[int], eos_id: Optional[int],
-                 deadline: Optional[float]):
+                 deadline: Optional[float], ctx=None):
         self.prompt = prompt
         self.max_new = int(max_new)
         self.temperature = float(temperature)
@@ -107,6 +110,12 @@ class _GenRequest:
         self.error: Optional[ServeError] = None
         self.out: List[int] = []
         self.slot: Optional[int] = None
+        # request-trace context (obs/reqtrace); None whenever tracing is
+        # uninstalled — every consumer guards on that
+        self.ctx = ctx
+        # completion hook (fleet SLO burn accounting); runs once, on the
+        # thread that finished the request
+        self.on_done = None
         # set by ContinuousBatcher.cancel(): the typed error the worker
         # finishes this request with at its next safe point
         self.cancelled: Optional[ServeError] = None
@@ -127,9 +136,32 @@ class _GenRequest:
             self.error = error
         else:
             self.result = np.asarray(self.out, np.int32)
+        if self.ctx is not None:
+            # closes the decode stage; an error shed records its stage from
+            # THIS thread (decode loop, watchdog, or shutdown caller), so
+            # the thread that killed the request shows up in its flow
+            self.ctx.finish_work(
+                error=None if error is None else error.cause,
+                tokens=len(self.out))
         self.event.set()
         with self._cv:
             self._cv.notify_all()
+        cb = self.on_done
+        if cb is not None:
+            self.on_done = None
+            try:
+                cb(self)
+            except Exception:  # an accounting hook must never kill the decode loop
+                pass
+
+    def set_on_done(self, cb) -> None:
+        """Attach the completion hook race-free: a request that already
+        finished (tiny prompt, instant EOS) fires ``cb`` immediately."""
+        with self._cv:
+            if not self.event.is_set():
+                self.on_done = cb
+                return
+        cb(self)
 
     def stream(self) -> Iterator[int]:
         """Yield tokens as they are decoded; returns when the request
@@ -597,8 +629,6 @@ class ContinuousBatcher:
     def submit(self, prompt, max_new_tokens: int, *, temperature: float = 1.0,
                top_k: Optional[int] = None, eos_id: Optional[int] = None,
                timeout_ms: Optional[float] = None, ctx=None) -> _GenRequest:
-        if ctx is not None:
-            raise NotImplementedError(_NOT_PORTED_TRACE)
         prompt = np.asarray(prompt, np.int32)
         if prompt.ndim != 1 or prompt.shape[0] == 0:
             raise ValueError("submit() takes one non-empty 1-D token prompt")
@@ -621,7 +651,7 @@ class ContinuousBatcher:
         deadline = (time.perf_counter() + timeout_ms / 1e3
                     if timeout_ms is not None else None)
         req = _GenRequest(prompt, max_new_tokens, temperature, top_k,
-                          eos_id, deadline)
+                          eos_id, deadline, ctx=ctx)
         with self._cond:
             if self._closing:
                 self._shed_counter("shutting_down").inc()
@@ -947,7 +977,18 @@ class ContinuousBatcher:
         job.last = self._prefill_paged(snap.params, snap.state,
                                        self._casts_for(snap), ids, table_row,
                                        off, true_len)
-        self._m_prefill_s.observe(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        ctx = job.req.ctx
+        if ctx is None:
+            self._m_prefill_s.observe(t1 - t0)
+        else:
+            self._m_prefill_s.observe(t1 - t0, trace_id=ctx.trace_id)
+            if job.idx == 0:  # first chunk closes the queue-wait stage
+                # (its offset is nonzero when a cached prefix was adopted)
+                ctx.add_stage("queue", int(job.req.enq_t * 1e9),
+                              int(t0 * 1e9))
+            ctx.add_stage("prefill_chunk", int(t0 * 1e9), int(t1 * 1e9),
+                          offset=off, bucket=bucket)
         self._m_pf_chunks.inc()
         job.gens.add(snap.generation)
         job.idx += 1
@@ -961,6 +1002,10 @@ class ContinuousBatcher:
         request's generator, then flip slot ``s`` to decoding (retiring
         ``job``, the paged prefill, in the same critical section, so the
         slot never looks free in between)."""
+        if req.ctx is not None:
+            # decode starts with the token-0 sample, not the first tick — a
+            # request wedged before any tick completes still shows the stage
+            req.ctx.decode_begin()
         with self._cond:
             self._admitted += 1
             n = self._admitted
@@ -1022,7 +1067,14 @@ class ContinuousBatcher:
         t0 = time.perf_counter()
         last, cache = self._prefill_dense(snap.params, snap.state,
                                           self._casts_for(snap), ids, tp)
-        self._m_prefill_s.observe(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        if req.ctx is None:
+            self._m_prefill_s.observe(t1 - t0)
+        else:
+            self._m_prefill_s.observe(t1 - t0, trace_id=req.ctx.trace_id)
+            req.ctx.add_stage("queue", int(req.enq_t * 1e9), int(t0 * 1e9))
+            req.ctx.add_stage("prefill_chunk", int(t0 * 1e9), int(t1 * 1e9),
+                              offset=0, bucket=bucket)
         for lk in cache:
             self._caches[lk]["k"][s].copy_(cache[lk]["k"][0])
             self._caches[lk]["v"][s].copy_(cache[lk]["v"][0])
@@ -1058,6 +1110,11 @@ class ContinuousBatcher:
 
     def _tick(self, snap, epoch: int) -> None:
         """Decode one token for every slot; bookkeep the active ones."""
+        # chaos seam, deliberately BEFORE any device work or pool mutation:
+        # an injected error/hang here simulates a wedged or dying decode
+        # step without leaving a half-written cache behind
+        if _faults.ACTIVE is not None:
+            _faults.ACTIVE.hit("serve.decode_step")
         cow: List[tuple] = []
         tables = None
         with self._cond:
@@ -1106,7 +1163,8 @@ class ContinuousBatcher:
             self._copy_blocks(cow)
         nxt = self._decode(snap.params, snap.state, self._casts_for(snap),
                            toks, pos, tables, temps, topks, gens)
-        self._m_decode_s.observe(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self._m_decode_s.observe(t1 - t0)
         self._m_occupancy.observe(len(active) / self.slots)
         self._m_tokens.inc(len(active))
         pushes = []
@@ -1117,10 +1175,15 @@ class ContinuousBatcher:
             if sig not in self._decode_sigs:
                 self._decode_sigs.add(sig)
                 self._m_compiles.inc()
+            t0_ns = t1_ns = -1  # ns conversion done lazily: traced reqs only
             for s in active:
                 req = self._slot_req[s]
                 if req is None:
                     continue
+                if req.ctx is not None:
+                    if t1_ns < 0:
+                        t0_ns, t1_ns = int(t0 * 1e9), int(t1 * 1e9)
+                    req.ctx.decode_tick(t0_ns, t1_ns)
                 tok = int(nxt[s])
                 self._next_tok[s] = tok
                 self._pos[s] = self._pos[s] + 1
@@ -1232,6 +1295,11 @@ class ContinuousBatcher:
     def worker_alive(self) -> bool:
         return self._thread.is_alive()
 
+    def closing(self) -> bool:
+        """Whether ``shutdown`` has begun: a decode loop that stopped after it
+        is no stall (the watchdog's optional fourth method)."""
+        return self._closing
+
     def _shed_inflight_locked(self, include_queue: bool
                               ) -> List[_GenRequest]:
         """Under ``self._cond``: strip every in-flight sequence (slots,
@@ -1341,6 +1409,21 @@ class ContinuousBatcher:
             n = self._prefix.flush()
             self._update_kv_gauges()
             return n
+
+    def release_device(self) -> None:
+        """Drop every device tensor the batcher holds — the KV pools (or
+        dense caches), the compute casts, the per-slot generators — after
+        :meth:`shutdown`; the fleet calls it when a model pages out. The
+        batcher's decode step is a bound method of itself, so without this
+        its memory would wait for the cycle collector."""
+        with self._cond:
+            if self._thread.is_alive():
+                raise RuntimeError("release_device() needs a stopped worker")
+            self._pools = None
+            self._caches = None
+            self._casts, self._casts_gen = {}, None
+            self._gens = [None] * self.slots
+            self._decode = None
 
     def shutdown(self, drain: bool = True,
                  timeout: Optional[float] = None) -> bool:

@@ -16,10 +16,13 @@ reference.
 The default forward runs ``model.forward`` on the model's device under
 ``torch.inference_mode()``, entered inside the dispatcher thread (the mode
 is thread-local). ``queue_depth`` (the Retry-After input) and the
-watchdog's ``heartbeat`` / ``worker_alive`` are the reference's. Not
-ported yet: the prebuilt-executable store (``aot_store``, ``strict_aot``,
-``from_tuned``, ``warm``; ROADMAP.md, Queue 1, item 13) and the fault
-injection, profiler and request-trace hooks (item 15).
+watchdog's ``heartbeat`` / ``worker_alive`` are the reference's, as are
+request traces (``ctx=`` on :meth:`~ServeEngine.submit` and
+:meth:`~ServeEngine.predict`: queue and device stages, exemplars on the
+latency histograms) and the ``serve.dispatch`` fault seam. Not ported
+yet: the prebuilt-executable store (``aot_store``, ``strict_aot``,
+``from_tuned``, ``warm``; ROADMAP.md, Queue 1, item 13) and the profiler
+hints (with ``obs/profile.py``, item 13).
 
 :class:`PrefillScheduler` (the continuous batcher's chunked-prefill
 policy) lives here, as in the reference.
@@ -34,6 +37,7 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..chaos import faults as _faults
 from ..obs.metrics import MetricsRegistry
 from .errors import (CapacityError, DeadlineExceededError, DrainTimeoutError,
                      ServeError, ServerClosingError, ShedError,
@@ -68,10 +72,11 @@ class _Request:
 
     __slots__ = ("x", "rows", "true_len", "padded_len", "shape_key", "enq_t",
                  "deadline", "event", "result", "error", "generation",
-                 "batch_seq")
+                 "batch_seq", "ctx")
 
     def __init__(self, x: np.ndarray, true_len: Optional[int],
-                 padded_len: Optional[int], deadline: Optional[float]):
+                 padded_len: Optional[int], deadline: Optional[float],
+                 ctx=None):
         self.x = x
         self.rows = x.shape[0]
         self.true_len = true_len        # pre-padding time length (or None)
@@ -84,6 +89,9 @@ class _Request:
         self.error: Optional[ServeError] = None
         self.generation: Optional[int] = None   # set by the batch that ran it
         self.batch_seq: Optional[int] = None
+        # request-trace context (obs/reqtrace) riding on the work item; None
+        # whenever tracing is uninstalled — every consumer guards on that
+        self.ctx = ctx
 
     def wait(self) -> np.ndarray:
         """Block for the outcome; raises the typed error on failure."""
@@ -257,9 +265,12 @@ class ServeEngine:
             f"sequence length {t} exceeds largest length bucket "
             f"{self.length_buckets[-1]}")
 
-    def submit(self, x, timeout_ms: Optional[float] = None) -> _Request:
+    def submit(self, x, timeout_ms: Optional[float] = None,
+               ctx=None) -> _Request:
         """Admit one request (rows must fit the largest batch bucket — use
-        :meth:`predict` for arbitrary sizes). Returns a waitable handle."""
+        :meth:`predict` for arbitrary sizes). Returns a waitable handle.
+        ``ctx`` is an optional ``obs.reqtrace.RequestContext`` that rides on
+        the work item so cross-thread stages stitch into one trace."""
         x = np.asarray(x)
         if x.ndim == 0 or x.shape[0] == 0:
             raise ValueError("request must contain at least one row")
@@ -279,7 +290,7 @@ class ServeEngine:
             timeout_ms = self.default_timeout_ms
         deadline = (time.perf_counter() + timeout_ms / 1e3
                     if timeout_ms is not None else None)
-        req = _Request(x, true_len, padded, deadline)
+        req = _Request(x, true_len, padded, deadline, ctx=ctx)
         with self._cond:
             if self._closing:
                 self._shed_counter("shutting_down").inc()
@@ -310,7 +321,8 @@ class ServeEngine:
             self._cond.notify_all()
         return req
 
-    def predict(self, x, timeout_ms: Optional[float] = None) -> np.ndarray:
+    def predict(self, x, timeout_ms: Optional[float] = None,
+                ctx=None) -> np.ndarray:
         """Blocking inference. ``x``: one example or a row batch of any
         size — oversized batches are split across bucket-sized requests.
         Raises typed :class:`~.errors.ServeError`s."""
@@ -319,8 +331,8 @@ class ServeEngine:
             x = x[None]
         cap = self.batch_buckets[-1]
         if x.shape[0] <= cap:
-            return self.submit(x, timeout_ms=timeout_ms).wait()
-        reqs = [self.submit(x[i:i + cap], timeout_ms=timeout_ms)
+            return self.submit(x, timeout_ms=timeout_ms, ctx=ctx).wait()
+        reqs = [self.submit(x[i:i + cap], timeout_ms=timeout_ms, ctx=ctx)
                 for i in range(0, x.shape[0], cap)]
         return np.concatenate([r.wait() for r in reqs])
 
@@ -369,6 +381,8 @@ class ServeEngine:
         return batch
 
     def _run_batch(self, batch: List[_Request], epoch: int) -> None:
+        if _faults.ACTIVE is not None:
+            _faults.ACTIVE.hit("serve.dispatch")
         try:
             self._hb = time.monotonic()
             now = time.perf_counter()
@@ -381,6 +395,8 @@ class ServeEngine:
                         f"deadline exceeded after "
                         f"{(now - r.enq_t) * 1e3:.1f}ms in queue")
                     self._m_deadline.inc()
+                    if r.ctx is not None:
+                        r.ctx.finish_work(error="deadline")
                     r.event.set()
                 else:
                     live.append(r)
@@ -413,10 +429,15 @@ class ServeEngine:
                     for r in live:
                         if not r.event.is_set():
                             r.error = err
+                            if r.ctx is not None:
+                                r.ctx.finish_work(error=err.cause)
                             r.event.set()
                     return
                 t1 = time.perf_counter()
-                self._m_device_s.observe(t1 - t0)
+                self._m_device_s.observe(
+                    t1 - t0,
+                    trace_id=next((r.ctx.trace_id for r in live
+                                   if r.ctx is not None), None))
             self._m_batches.inc()
             self._m_occupancy.observe(rows / bucket)
             off = 0
@@ -431,7 +452,17 @@ class ServeEngine:
                 r.result = out
                 r.generation = snap.generation
                 r.batch_seq = seq
-                self._m_queue_s.observe(t0 - r.enq_t)
+                if r.ctx is None:
+                    self._m_queue_s.observe(t0 - r.enq_t)
+                else:
+                    self._m_queue_s.observe(t0 - r.enq_t,
+                                            trace_id=r.ctx.trace_id)
+                    # stage timestamps share the perf_counter epoch, so the
+                    # float-seconds enq_t converts exactly
+                    r.ctx.add_stage("queue", int(r.enq_t * 1e9),
+                                    int(t0 * 1e9))
+                    r.ctx.add_stage("device", int(t0 * 1e9), int(t1 * 1e9),
+                                    bucket=bucket, batch_seq=seq)
                 r.event.set()
         finally:
             # retire the batch from in-flight tracking; anything still
@@ -454,6 +485,8 @@ class ServeEngine:
                 for r in unanswered:
                     self._shed_counter("worker_stall").inc()
                     r.error = err
+                    if r.ctx is not None:
+                        r.ctx.finish_work(error="worker_stall")
                     r.event.set()
 
     def _loop(self, epoch: int) -> None:
@@ -478,6 +511,8 @@ class ServeEngine:
             if not r.event.is_set():
                 self._shed_counter(err.cause).inc()
                 r.error = err
+                if r.ctx is not None:
+                    r.ctx.finish_work(error=err.cause)
                 r.event.set()
 
     # ------------------------------------------------- watchdog + crash-only
@@ -487,6 +522,11 @@ class ServeEngine:
 
     def worker_alive(self) -> bool:
         return self._thread.is_alive()
+
+    def closing(self) -> bool:
+        """Whether ``shutdown`` has begun: a dispatcher that stopped after it
+        is no stall (the watchdog's optional fourth method)."""
+        return self._closing
 
     def restart_worker(self, reason: str = "watchdog") -> bool:
         """Crash-only dispatcher restart: stale the current worker by epoch,
@@ -509,6 +549,10 @@ class ServeEngine:
             if not r.event.is_set():
                 self._shed_counter("worker_stall").inc()
                 r.error = err
+                if r.ctx is not None:
+                    # recorded from the watchdog thread — deliberately: the
+                    # shed becomes part of the request's stitched flow
+                    r.ctx.finish_work(error="worker_stall")
                 r.event.set()
         # a hung thread can never run its lease finally; reclaim so
         # hot-swap drain cannot deadlock
@@ -561,6 +605,8 @@ class ServeEngine:
             if not r.event.is_set():
                 self._shed_counter("drain_timeout").inc()
                 r.error = err
+                if r.ctx is not None:
+                    r.ctx.finish_work(error="drain_timeout")
                 r.event.set()
         self.registry.release_thread(self._thread.ident)
         return False

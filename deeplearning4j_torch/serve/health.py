@@ -1,6 +1,5 @@
 """Health state machine: ``ok`` / ``degraded`` / ``failed`` with causes —
-counterpart of ``deeplearning4j_tpu/serve/health.py`` (the flight
-recorder's transition records wait for ROADMAP.md, Queue 1, item 15).
+counterpart of ``deeplearning4j_tpu/serve/health.py``.
 
 A boolean ``/health`` cannot distinguish "serving normally" from "serving
 but a breaker is open and a worker is mid-restart" from "dead" — and a
@@ -11,7 +10,7 @@ worst live cause. Components report with :meth:`degrade` / :meth:`fail`
 and retract with :meth:`clear` when they recover — self-healing is the
 normal path, so causes are designed to come and go.
 
-Mapping at the HTTP front door (serve/http.py):
+Mapping at the HTTP front doors (serve/http.py, fleet/http.py):
 
 - ``/health`` is *liveness*: 200 unless state is ``failed`` (only then
   should an orchestrator restart the process).
@@ -27,6 +26,8 @@ from __future__ import annotations
 
 import threading
 from typing import Dict, List, Optional
+
+from ..obs import flight as _flight
 
 OK = "ok"
 DEGRADED = "degraded"
@@ -51,10 +52,23 @@ class Health:
 
     def _set(self, cause: str, level: str) -> None:
         with self._lock:
+            prev = self._worst_locked()
             self._causes[cause] = level
             worst = self._worst_locked()
         if self._gauge is not None:
             self._gauge.set(_LEVEL[worst])
+        self._record(prev, worst, cause)
+
+    def _record(self, prev: str, worst: str, cause: str) -> None:
+        """Every transition goes into the flight recorder; the recorder
+        dumps itself the moment the process goes ``failed`` — the black box
+        is written while the evidence is still in memory."""
+        rec = _flight.ACTIVE
+        if rec is None or worst == prev:
+            return
+        rec.record_event("health", worst, cause)
+        if worst == FAILED:
+            rec.dump("health_failed")
 
     def degrade(self, cause: str) -> None:
         """Report a recoverable problem (readiness off, liveness intact).
@@ -72,10 +86,12 @@ class Health:
     def clear(self, cause: str) -> None:
         """Retract a cause (the component recovered)."""
         with self._lock:
+            prev = self._worst_locked()
             self._causes.pop(cause, None)
             worst = self._worst_locked()
         if self._gauge is not None:
             self._gauge.set(_LEVEL[worst])
+        self._record(prev, worst, cause)
 
     def _worst_locked(self) -> str:
         if not self._causes:
@@ -95,7 +111,7 @@ class Health:
 
     def snapshot(self) -> dict:
         """``{"status": "ok"|"degraded"|"failed", "causes": [...]}`` —
-        the wire shape the front door serves on ``/health``."""
+        the wire shape both front doors serve on ``/health``."""
         with self._lock:
             return {"status": self._worst_locked(),
                     "causes": sorted(self._causes)}

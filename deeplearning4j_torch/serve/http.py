@@ -24,12 +24,18 @@ Endpoints:
   {"error": ..., "cause": ..., "tokens": [...]}`` event; a client that
   drops the socket has its request cancelled.
 - ``GET /health`` · ``GET /ready`` (503 while draining) · ``GET /models``
-  · ``GET /metrics``
+  · ``GET /metrics`` (OpenMetrics with exemplars on request)
+- ``GET /v1/debug/requests`` (the flight recorder's request ring) ·
+  ``GET /v1/debug/flight`` (its whole snapshot; 404 without a recorder) ·
+  ``/v1/debug/chaos`` (GET echo / POST install-or-uninstall fault specs)
+  when constructed with ``chaos_admin=True`` — 404 otherwise.
 
-Not ported yet: the ``/v1/debug/*`` surface (answers 404), the chaos
-admin plane (``chaos_admin=True``; ROADMAP.md, Queue 1, items 12 and 15),
-request traces (item 15) and the prebuilt-executable store (``aot_*``;
-item 13).
+With a request tracer installed (``obs.reqtrace.install``) each POST
+begins a trace (joining the caller's ``traceparent``), passes it down as
+``ctx=`` and echoes ``X-Request-Id`` and ``traceparent``; POST handlers
+carry the ``http.handler`` fault seam. Not ported yet: the
+prebuilt-executable store (``aot_*``; ROADMAP.md, Queue 1, item 13) and
+``/v1/debug/profile`` (with ``obs/profile.py``, item 13; answers 404).
 """
 
 from __future__ import annotations
@@ -38,11 +44,15 @@ import json
 import logging
 import random
 import threading
+import time
 from typing import Optional, Sequence
 from urllib.parse import parse_qs, urlsplit
 
 import numpy as np
 
+from ..chaos import faults as _faults
+from ..obs import flight as _flight
+from ..obs import reqtrace as _rt
 from ..obs.metrics import MetricsRegistry
 from ..utils.httpd import JsonHTTPServerMixin, JsonRequestHandler
 from .continuous import ContinuousBatcher
@@ -84,6 +94,40 @@ def retry_after_s(depth: int, limit: int, rng=None) -> int:
     return jitter_retry_after(max(1.0, min(30.0, 1 + 29 * frac)), rng)
 
 
+def chaos_status() -> dict:
+    """JSON echo of the process-global fault plane (GET /v1/debug/chaos)."""
+    plane = _faults.ACTIVE
+    if plane is None:
+        return {"installed": False, "armed": []}
+    st = plane.stats()
+    return {"installed": True, "armed": st["armed"],
+            "injected": st["injected"]}
+
+
+def chaos_apply(req: dict) -> dict:
+    """Apply one ``POST /v1/debug/chaos`` body to the process-global fault
+    plane: ``{"uninstall": true}`` removes it (releasing any hung sites);
+    ``{"specs": ["point:mode[:k=v,...]", ...], "seed": 0}`` installs a
+    plane if none is active and arms each spec on it. A malformed spec
+    raises ``ValueError`` (-> HTTP 400) with nothing partially armed."""
+    if req.get("uninstall"):
+        _faults.uninstall()
+        return chaos_status()
+    specs = req.get("specs") or []
+    if not isinstance(specs, list):
+        raise ValueError("'specs' must be a list of fault-spec strings")
+    # validate the whole batch before arming any of it
+    for s in specs:
+        _faults.parse_spec(str(s))
+    plane = _faults.ACTIVE
+    if plane is None:
+        plane = _faults.install(_faults.FaultPlane(
+            seed=int(req.get("seed", 0))))
+    for s in specs:
+        plane.inject_spec(str(s))
+    return chaos_status()
+
+
 class ModelServer(JsonHTTPServerMixin):
     """Serve one model (registry) over HTTP.
 
@@ -92,8 +136,10 @@ class ModelServer(JsonHTTPServerMixin):
     never pay for it.
     """
 
-    _ROUTES = frozenset(("/predict", "/generate", "/health", "/ready",
-                         "/models", "/metrics"))
+    _ROUTES = frozenset((
+        "/predict", "/generate", "/health", "/ready", "/models", "/metrics",
+        "/v1/debug/requests", "/v1/debug/flight", "/v1/debug/chaos",
+        "/v1/debug/profile"))
 
     @classmethod
     def _metric_route(cls, path: str) -> str:
@@ -123,12 +169,11 @@ class ModelServer(JsonHTTPServerMixin):
             raise NotImplementedError(
                 "the prebuilt-executable store is not ported yet "
                 "(ROADMAP.md, Queue 1, item 13)")
-        if chaos_admin:
-            raise NotImplementedError(
-                "the chaos admin plane is not ported yet (ROADMAP.md, "
-                "Queue 1, items 12 and 15)")
         self.model = model
         self.jitter_rng = jitter_rng
+        # debug-only surface: /v1/debug/chaos answers 404 unless opted in,
+        # so a production front door never exposes fault injection
+        self.chaos_admin = bool(chaos_admin)
         self.host = host
         self.port = port
         self.input_dtype = input_dtype
@@ -230,6 +275,20 @@ class ModelServer(JsonHTTPServerMixin):
                     help=_HTTP_ERRORS_HELP).inc()
                 self.reply(code, body, headers=headers)
 
+            def reply(self, code, payload, ctype="application/json",
+                      headers=None):
+                # traced requests echo their identity on every answer and
+                # time the buffered write-out as the "flush" stage
+                ctx = getattr(self, "_obs_ctx", None)
+                if ctx is None:
+                    super().reply(code, payload, ctype, headers)
+                    return
+                headers = dict(headers or {})
+                headers.setdefault("X-Request-Id", ctx.request_id)
+                headers.setdefault("traceparent", ctx.traceparent())
+                with ctx.stage("flush", code=code):
+                    super().reply(code, payload, ctype, headers)
+
             def do_GET(self):
                 if self.path == "/health":
                     # liveness: 200 while ok OR degraded; 503 only when
@@ -259,12 +318,43 @@ class ModelServer(JsonHTTPServerMixin):
                     if b is not None and b.kv == "paged":
                         body["kv"] = b.kv_block_stats()
                     self.reply(200, body)
+                elif self.path == "/v1/debug/requests":
+                    recs = (_flight.ACTIVE.requests()
+                            if _flight.ACTIVE is not None else [])
+                    self.reply(200, {"requests": recs})
+                elif self.path == "/v1/debug/flight":
+                    if _flight.ACTIVE is None:
+                        self._err(404,
+                                  {"error": "flight recorder not installed"})
+                    else:
+                        self.reply(200, _flight.ACTIVE.snapshot())
+                elif self.path == "/v1/debug/chaos" and server.chaos_admin:
+                    self.reply(200, chaos_status())
                 else:
                     self._err(404, {"error": "unknown endpoint"})
 
             def do_POST(self):
                 split = urlsplit(self.path)
+                ctx = None
+                if _rt.ACTIVE is not None:
+                    # ingress: join the caller's W3C trace (or start one),
+                    # echo X-Request-Id; a malformed traceparent yields a
+                    # fresh trace, never a failed request
+                    ctx = _rt.ACTIVE.begin(
+                        split.path.lstrip("/") or "post",
+                        traceparent=self.headers.get("traceparent"),
+                        request_id=self.headers.get("X-Request-Id"),
+                        model=type(server.model).__name__)
+                    self._obs_ctx = ctx
+                    self._obs_trace_id = ctx.trace_id
                 try:
+                    if split.path == "/v1/debug/chaos" and server.chaos_admin:
+                        # admin surface stays usable even with a fault
+                        # armed at http.handler — it is how you disarm one
+                        self.reply(200, chaos_apply(self.read_json()))
+                        return
+                    if _faults.ACTIVE is not None:
+                        _faults.ACTIVE.hit("http.handler")
                     req = self.read_json()
                     if split.path == "/predict":
                         self._predict(req)
@@ -272,6 +362,8 @@ class ModelServer(JsonHTTPServerMixin):
                         self._generate(req, parse_qs(split.query))
                     else:
                         self._err(404, {"error": "unknown endpoint"})
+                        if ctx is not None:
+                            ctx.finish(error="bad_request")
                 except ServeError as e:
                     headers = None
                     if e.http_status == 503:
@@ -284,31 +376,48 @@ class ModelServer(JsonHTTPServerMixin):
                     self._err(e.http_status,
                               {"error": str(e), "cause": e.cause},
                               headers=headers)
+                    if ctx is not None:
+                        ctx.finish(error=e.cause)
                 except _BAD_REQUEST as e:
                     self._err(400, {"error": str(e)})
+                    if ctx is not None:
+                        ctx.finish(error="bad_request")
                 except (BrokenPipeError, ConnectionResetError):
                     # the client hung up while we were answering: shed
                     # load, not a server error
                     server.metrics.counter(
                         "serve_shed_total", {"cause": "client_gone"},
                         help="requests refused at admission, by cause").inc()
+                    if ctx is not None:
+                        ctx.finish(error="client_gone")
                 except Exception as e:  # the server must answer every request
                     # unexpected == a bug: keep the full traceback (the
                     # client sees the summary) and count the 5xx
                     log.exception("unhandled error serving %s", self.path)
                     self._err(500, {"error": f"{type(e).__name__}: {e}"})
+                    if ctx is not None:
+                        ctx.finish(error="internal")
+                finally:
+                    if ctx is not None:
+                        ctx.finish()  # idempotent: no-op after an error path
 
             def _predict(self, req):
+                ctx = getattr(self, "_obs_ctx", None)
                 x = np.asarray(req["ndarray"], server.input_dtype)
                 handle = None
                 if x.ndim > len(example_shape(server.model)) \
                         and x.shape[0] <= server.engine.batch_buckets[-1]:
-                    handle = server.engine.submit(
-                        x, timeout_ms=req.get("timeout_ms"))
+                    if ctx is None:
+                        handle = server.engine.submit(
+                            x, timeout_ms=req.get("timeout_ms"))
+                    else:
+                        with ctx.stage("admit"):
+                            handle = server.engine.submit(
+                                x, timeout_ms=req.get("timeout_ms"), ctx=ctx)
                     y = handle.wait()
                 else:
                     y = server.engine.predict(
-                        x, timeout_ms=req.get("timeout_ms"))
+                        x, timeout_ms=req.get("timeout_ms"), ctx=ctx)
                 body = {"output": np.asarray(y).tolist()}
                 if handle is not None and handle.generation is not None:
                     body["generation"] = handle.generation
@@ -320,6 +429,7 @@ class ModelServer(JsonHTTPServerMixin):
                 self.wfile.flush()  # one event per decoded token
 
             def _generate(self, req, query):
+                ctx = getattr(self, "_obs_ctx", None)
                 prompt = np.asarray(req["prompt"], np.int32)
                 kwargs = dict(
                     temperature=float(req.get("temperature", 1.0)),
@@ -333,20 +443,31 @@ class ModelServer(JsonHTTPServerMixin):
                 if prompt.ndim != 1:  # batch prompts are always buffered
                     stream = False
                 if not stream:
-                    toks = server.batcher().generate(prompt, mnt, **kwargs)
+                    toks = server.batcher().generate(prompt, mnt, ctx=ctx,
+                                                     **kwargs)
                     self.reply(200, {"tokens": np.asarray(toks).tolist()})
                     return
                 # submit BEFORE the stream starts: admission failures
                 # surface as typed status codes via do_POST; after the
                 # headers, errors go in-band
-                handle = server.batcher().submit(prompt, mnt, **kwargs)
+                if ctx is None:
+                    handle = server.batcher().submit(prompt, mnt, **kwargs)
+                else:
+                    with ctx.stage("admit"):
+                        handle = server.batcher().submit(prompt, mnt,
+                                                         ctx=ctx, **kwargs)
                 self.send_response(200)
                 self.send_header("Content-Type", "text/event-stream")
                 self.send_header("Cache-Control", "no-cache")
                 self.send_header("Connection", "close")
+                if ctx is not None:
+                    self.send_header("X-Request-Id", ctx.request_id)
+                    self.send_header("traceparent", ctx.traceparent())
                 self.end_headers()
                 self.close_connection = True
+                t0f = time.perf_counter_ns() if ctx is not None else 0
                 out = []
+                err_cause = None
                 try:
                     for tok in handle.stream():
                         out.append(int(tok))
@@ -359,11 +480,19 @@ class ModelServer(JsonHTTPServerMixin):
                                    "tokens": out})
                     except (BrokenPipeError, ConnectionResetError):
                         pass  # nobody left to tell
+                    err_cause = e.cause
                 except (BrokenPipeError, ConnectionResetError):
                     # the client dropped the socket mid-stream: free the
                     # decode slot and KV pages now (counted as
                     # cause="client_gone"), never a 5xx
                     server.batcher().cancel(handle)
+                    err_cause = "client_gone"
+                if ctx is not None:
+                    # the streaming window: first header flush to last event
+                    ctx.add_stage("flush", t0f, time.perf_counter_ns(),
+                                  tokens=len(out))
+                    if err_cause is not None:
+                        ctx.finish(error=err_cause)
 
         return Handler
 

@@ -17,6 +17,8 @@ import threading
 from contextlib import contextmanager
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
+from .errors import ServerClosingError
+
 
 class ModelSnapshot(NamedTuple):
     """One immutable published version. ``generation`` is monotonic across
@@ -43,7 +45,8 @@ class ModelRegistry:
     """
 
     def __init__(self, params, state=None, version: str = "v0",
-                 keep: int = 8, metrics=None, model: Optional[str] = None):
+                 keep: int = 8, metrics=None, model: Optional[str] = None,
+                 start_generation: int = 1):
         if params is None:
             raise ValueError("registry needs initialized params")
         self._cond = threading.Condition()
@@ -57,17 +60,26 @@ class ModelRegistry:
         # name the model on every registry metric when given, so one scrape
         # disaggregates per model; None emits unlabelled series
         self.model = model
-        snap = ModelSnapshot(1, version,
+        # a paged-out model resumes from where its last residency ended
+        # (the fleet passes start_generation) so "which params ran this
+        # batch" stays a total order across page-out/page-in cycles
+        start = max(int(start_generation), 1)
+        snap = ModelSnapshot(start, version,
                              params, state if state is not None else {})
         self._keep = max(int(keep), 1)
         with self._cond:
             self._history.append(snap)
         self._gauge_generation(snap.generation)
 
+    def _head_locked(self) -> ModelSnapshot:
+        if not self._history:
+            raise ServerClosingError("model registry is closed")
+        return self._history[-1]
+
     # --- readers ---
     def current(self) -> ModelSnapshot:
         with self._cond:
-            return self._history[-1]
+            return self._head_locked()
 
     @property
     def generation(self) -> int:
@@ -84,7 +96,7 @@ class ModelRegistry:
         only for the current chunk, not the whole prompt."""
         ident = threading.get_ident()
         with self._cond:
-            snap = self._history[-1]
+            snap = self._head_locked()
             self._inflight[snap.generation] = \
                 self._inflight.get(snap.generation, 0) + 1
             token = {"gen": snap.generation, "released": False}
@@ -160,7 +172,7 @@ class ModelRegistry:
         if params is None:
             raise ValueError("cannot publish params=None")
         with self._cond:
-            prev = self._history[-1]
+            prev = self._head_locked()
             gen = prev.generation + 1
             snap = ModelSnapshot(
                 gen, version if version is not None else f"v{gen - 1}",
@@ -194,10 +206,24 @@ class ModelRegistry:
         """
         with self._cond:
             def stale():
+                if not self._history:  # closed: nothing left to retire
+                    return []
                 cur = self._history[-1].generation
                 return [g for g in self._inflight if g != cur]
 
             return self._cond.wait_for(lambda: not stale(), timeout=timeout)
+
+    def close(self) -> None:
+        """Drop every snapshot, so that nothing reached through this
+        registry (a stale engine or batcher, a caller still holding one)
+        keeps params alive: a fleet page-out calls it once the engine and
+        batcher leasing from it have drained. Readers and writers then
+        raise :class:`~.errors.ServerClosingError`. The port's own
+        addition: the reference frees device arrays by reference count
+        alone."""
+        with self._cond:
+            self._history.clear()
+            self._cond.notify_all()
 
     def history(self) -> List[Tuple[int, str]]:
         with self._cond:

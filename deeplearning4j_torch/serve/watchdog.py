@@ -1,10 +1,10 @@
 """Watchdog: missed-heartbeat detection + crash-only worker restart —
-counterpart of ``deeplearning4j_tpu/serve/watchdog.py`` (the flight
-recorder's dumps wait for ROADMAP.md, Queue 1, item 15).
+counterpart of ``deeplearning4j_tpu/serve/watchdog.py``.
 
 The engine's dispatcher and the continuous batcher's decode loop are
-single daemon threads; one wedged device call (or an uncaught exception)
-would otherwise silently stop serving. The watchdog polls every watched component's heartbeat; a component whose
+single daemon threads; before this module, one wedged device call (or an
+uncaught exception) silently killed serving — submissions queued forever.
+The watchdog polls every watched component's heartbeat; a component whose
 worker thread is dead, or whose heartbeat is older than ``deadline_s``,
 is *stalled*: the watchdog counts ``serve_watchdog_stalls_total
 {component}``, marks health ``degraded`` (readiness off, liveness
@@ -16,14 +16,16 @@ After ``max_restarts`` *consecutive* stalls of the same component the
 watchdog stops thrashing and marks health ``failed`` — that pages a
 human / tells the orchestrator to replace the process.
 
-Watched components duck-type three methods::
+Watched components duck-type three methods, and may add a fourth::
 
     heartbeat() -> float        # monotonic timestamp of last liveness beat
     worker_alive() -> bool      # is the worker thread running at all
     restart_worker(reason) -> bool   # crash-only restart; False if closing
+    closing() -> bool           # optional: shut down on purpose
 
 The component set is a *callable* returning ``(name, component)`` pairs,
-re-evaluated every poll (the batcher is built lazily). Clock is injectable for tests. Off by default: servers
+re-evaluated every poll — fleet entries appear and disappear as models
+page in and out. Clock is injectable for tests. Off by default: servers
 only start a watchdog when ``watchdog_s`` is passed.
 """
 
@@ -33,6 +35,8 @@ import logging
 import threading
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
+
+from ..obs import flight as _flight
 
 log = logging.getLogger(__name__)
 
@@ -89,7 +93,16 @@ class Watchdog:
             try:
                 alive = comp.worker_alive()
                 beat = comp.heartbeat()
+                closing = getattr(comp, "closing", None)
+                on_purpose = not alive and closing is not None and closing()
             except Exception:  # component mid-teardown
+                continue
+            if on_purpose:
+                # shut down on purpose: a drain, or a fleet page-out that
+                # ran between this poll's enumeration and this check (the
+                # enumeration waits on each entry's lifecycle lock, so a
+                # page-in elsewhere can hold it while this one drains) —
+                # not a stall, and no restart is wanted
                 continue
             stalled = (not alive) or (now - beat > self.deadline_s)
             if not stalled:
@@ -126,6 +139,12 @@ class Watchdog:
             self._health.degrade(f"watchdog:{name}")
         log.warning("watchdog: %s stalled (%s) — crash-only restart %d/%d",
                     name, why, n, self._max_restarts)
+        if _flight.ACTIVE is not None:
+            # dump BEFORE the restart sheds in-flight work: the black box
+            # captures the wedged state, not the cleaned-up aftermath
+            _flight.ACTIVE.record_event("watchdog", "stall", why,
+                                        component=name, restart=n)
+            _flight.ACTIVE.dump("watchdog_restart")
         try:
             restarted = bool(comp.restart_worker(reason=why))
         except Exception:  # restart failing must not kill the watchdog

@@ -6,9 +6,9 @@ resolution, background-thread serve loop, and shutdown ordering — plus
 request telemetry: any server object exposing a ``metrics`` registry
 (``obs.metrics.MetricsRegistry``) gets per-endpoint request-latency
 histograms and a ``GET /metrics`` Prometheus scrape for free, with no
-changes to its handler code. The coupling is duck-typed. The OpenMetrics
-answer is given where the registry has ``to_openmetrics`` (the port's
-does not yet: ROADMAP.md, Queue 1, item 15).
+changes to its handler code. The coupling is duck-typed. A client that
+asks for ``application/openmetrics-text`` gets OpenMetrics, with the
+traced requests' ids as latency exemplars.
 """
 
 from __future__ import annotations
@@ -44,8 +44,7 @@ def _instrumented(fn, verb: str):
         if verb == "GET" and path == "/metrics":
             # content negotiation: OpenMetrics (exemplar-capable) on request,
             # classic 0.0.4 text otherwise — exemplars are illegal in 0.0.4
-            if "application/openmetrics-text" in self.headers.get("Accept", "") \
-                    and hasattr(reg, "to_openmetrics"):
+            if "application/openmetrics-text" in self.headers.get("Accept", ""):
                 self.reply(200, reg.to_openmetrics(), OPENMETRICS_CTYPE)
             else:
                 self.reply(200, reg.to_prometheus(), PROMETHEUS_CTYPE)
@@ -57,9 +56,13 @@ def _instrumented(fn, verb: str):
         try:
             return fn(self)
         finally:
+            # handlers that trace requests leave their trace_id on the
+            # handler instance; it becomes the latency exemplar
             reg.histogram("http_request_seconds", labels,
                           help="HTTP request handling latency by endpoint"
-                          ).observe(time.perf_counter() - t0)
+                          ).observe(time.perf_counter() - t0,
+                                    trace_id=getattr(self, "_obs_trace_id",
+                                                     None))
             reg.counter("http_requests_total", labels,
                         help="HTTP requests served by endpoint").inc()
 

@@ -173,8 +173,8 @@ class TestContinuousBatcher:
         try:
             with pytest.raises(CapacityError):
                 cb.submit(np.zeros(14, np.int32), 8)  # 14 + 8 > 16
-            with pytest.raises(NotImplementedError, match="item 15"):
-                cb.submit(np.zeros(4, np.int32), 2, ctx=object())
+            with pytest.raises(CapacityError):  # with a trace riding along
+                cb.submit(np.zeros(14, np.int32), 8, ctx=object())
         finally:
             cb.shutdown()
         with pytest.raises(ValueError, match="embedding-front"):
@@ -911,3 +911,80 @@ class TestFork:
             _wait(req)
         finally:
             cb.shutdown()
+
+
+def _traced(batcher_cls, lm, reqtrace, trace, kv, prompts, n):
+    """Greedy requests through a batcher with a request tracer installed:
+    each request's stage names and args, ticks and the stitched record."""
+    rt = reqtrace.install(reqtrace.RequestTracer(tracer=trace.Tracer()))
+    cb = batcher_cls(lm, slots=2, capacity=32, seed=0, kv=kv,
+                     **({"prefill_chunk": 8, "block_size": 8}
+                        if kv == "paged" else {}))
+    out = []
+    try:
+        for p in prompts:
+            ctx = rt.begin("generate", model="m")
+            toks = cb.submit(p, n, temperature=0.0, ctx=ctx).wait()
+            rec = ctx.finish()
+            out.append({
+                "tokens": np.asarray(toks).tolist(),
+                "stages": [(st["name"], st.get("args")) for st in
+                           rec["stages"]],
+                "ticks": rec["ticks"], "status": rec["status"],
+                "meta": rec.get("meta")})
+    finally:
+        cb.shutdown(timeout=WAIT_S)
+        reqtrace.uninstall()
+    return out
+
+
+class TestRequestTraces:
+    @pytest.mark.parametrize("kv", ["paged", "dense"])
+    def test_stages_match_jax(self, kv):
+        from deeplearning4j_torch.obs import reqtrace as treq
+        from deeplearning4j_torch.obs import trace as ttrace
+        from deeplearning4j_tpu.obs import reqtrace as jreq
+        from deeplearning4j_tpu.obs import trace as jtrace
+        from deeplearning4j_tpu.serve import ContinuousBatcher as JBatcher
+
+        jm, tm = _models()
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(0, 50, (t,)).astype(np.int32)
+                   for t in (5, 19)]
+        want = _traced(JBatcher, jm, jreq, jtrace, kv, prompts, 6)
+        got = _traced(ContinuousBatcher, tm, treq, ttrace, kv, prompts, 6)
+        assert got == want
+        names = [st[0] for st in got[1]["stages"]]
+        assert names[0] == "queue" and names[-1] == "decode"
+        assert "prefill_chunk" in names and got[1]["ticks"] == 5
+
+    def test_on_done_fires_once_with_the_outcome_alike(self):
+        from deeplearning4j_tpu.serve import ContinuousBatcher as JBatcher
+
+        def run(batcher_cls, lm):
+            cb = batcher_cls(lm, slots=1, capacity=16, seed=0,
+                             queue_limit=8)
+            seen = []
+            try:
+                a = cb.submit(np.arange(1, 5, dtype=np.int32), 4,
+                              temperature=0.0)
+                a.set_on_done(lambda r: seen.append(
+                    ("a", None if r.error is None else r.error.cause)))
+                b = cb.submit(np.arange(1, 5, dtype=np.int32), 4,
+                              temperature=0.0)
+                b.set_on_done(lambda r: seen.append(
+                    ("b", None if r.error is None else r.error.cause)))
+                cb.cancel(b)
+                a.wait()
+                # set after completion: fires at once, on this thread
+                a.set_on_done(lambda r: seen.append(("late", None)))
+                deadline = time.monotonic() + WAIT_S
+                while len(seen) < 3 and time.monotonic() < deadline:
+                    time.sleep(0.01)
+                return sorted(seen)
+            finally:
+                cb.shutdown(timeout=WAIT_S)
+
+        jm, tm = _models()
+        assert run(ContinuousBatcher, tm) == run(JBatcher, jm) == [
+            ("a", None), ("b", "client_gone"), ("late", None)]

@@ -130,15 +130,17 @@ class TestModelServerHTTP:
                          "serve_prefill_chunks_total",
                          "serve_health_state"):
                 assert name in scrape, f"{name} missing from /metrics"
+            # no flight recorder installed: the request ring reads empty
+            # and the recorder's snapshot is not there (the reference's
+            # answers)
+            assert _get(srv.port, "/v1/debug/requests") == {"requests": []}
             with pytest.raises(urllib.error.HTTPError) as ei:
-                _get(srv.port, "/v1/debug/requests")
+                _get(srv.port, "/v1/debug/flight")
             assert ei.value.code == 404
         finally:
             srv.stop()
 
     def test_not_ported_options_raise(self, lm):
-        with pytest.raises(NotImplementedError, match="items 12 and 15"):
-            ModelServer(lm, port=0, chaos_admin=True)
         with pytest.raises(NotImplementedError, match="item 13"):
             ModelServer(lm, port=0, aot_store=object())
 
@@ -397,6 +399,27 @@ class TestWatchdog:
         assert dog.check_once() == 0
         assert h.ok()
 
+    def test_a_component_shut_down_on_purpose_is_no_stall(self, lm):
+        eng = ServeEngine(lm, batch_buckets=(1,), max_wait_ms=1.0)
+        health = Health()
+        dog = Watchdog(lambda: [("engine", eng)], deadline_s=5.0,
+                       health=health)
+        eng.shutdown(drain=True)
+        assert not eng.worker_alive()
+        assert dog.check_once() == 0
+        assert health.ok()
+
+    def test_a_duck_typed_component_closing_is_no_stall(self):
+        class Closing(_FakeWorker):
+            def closing(self):
+                return True
+
+        comp = Closing(beat=0.0, alive=False)
+        health = Health()
+        dog = self._dog(comp, lambda: 10.0, health=health)
+        assert dog.check_once() == 0
+        assert comp.restarts == [] and health.ok()
+
     def test_dead_thread_is_a_stall(self):
         comp = _FakeWorker(beat=0.0, alive=False)
         dog = self._dog(comp, lambda: 0.0)
@@ -487,3 +510,114 @@ class TestWatchdog:
         finally:
             dog.stop()
             cb.shutdown(timeout=WAIT_S)
+
+
+def _call(port, path, body=None, headers=None):
+    """(status, JSON body, response headers) of one request."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=WAIT_S) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def _chaos_admin_script(server_cls, faults_mod, model):
+    gated = server_cls(model, port=0, input_dtype=np.int32).start()
+    srv = server_cls(model, port=0, input_dtype=np.int32,
+                     chaos_admin=True).start()
+    ids = [[1, 2, 3, 4]]
+    out = []
+    try:
+        out.append(_call(gated.port, "/v1/debug/chaos")[:2])
+        out.append(_call(gated.port, "/v1/debug/chaos",
+                         {"specs": ["http.handler:error"]})[0])
+        out.append(_call(srv.port, "/v1/debug/chaos")[:2])
+        out.append(_call(srv.port, "/v1/debug/chaos",
+                         {"specs": ["http.handler:error", "x:bogus"]})[:2])
+        out.append(faults_mod.ACTIVE is None)  # nothing partially armed
+        out.append(_call(srv.port, "/v1/debug/chaos",
+                         {"specs": ["http.handler:error:times=1",
+                                    "serve.dispatch:delay:delay_s=0"],
+                          "seed": 3})[:2])
+        out.append(_call(srv.port, "/predict", {"ndarray": ids})[:2])
+        out.append(_call(srv.port, "/predict", {"ndarray": ids})[0])
+        out.append(_call(srv.port, "/v1/debug/chaos")[:2])
+        out.append(_call(srv.port, "/v1/debug/chaos",
+                         {"uninstall": True})[:2])
+        out.append(faults_mod.ACTIVE is None)
+    finally:
+        faults_mod.uninstall()
+        srv.stop()
+        gated.stop()
+    return out
+
+
+class TestDebugSurface:
+    def test_chaos_admin_matches_jax(self):
+        from deeplearning4j_torch.chaos import faults as tfaults
+        from deeplearning4j_tpu.chaos import faults as jfaults
+        from deeplearning4j_tpu.serve import ModelServer as JServer
+
+        jm, tm = _models()
+        want = _chaos_admin_script(JServer, jfaults, jm)
+        got = _chaos_admin_script(ModelServer, tfaults, tm)
+        assert got == want
+        assert got[0] == (404, {"error": "unknown endpoint"})
+        assert got[3][0] == 400 and got[6][0] == 500 and got[7] == 200
+
+    def test_request_traces_and_flight_match_jax(self):
+        from deeplearning4j_torch.obs import flight as tflight
+        from deeplearning4j_torch.obs import reqtrace as treq
+        from deeplearning4j_torch.obs import trace as ttrace
+        from deeplearning4j_tpu.obs import flight as jflight
+        from deeplearning4j_tpu.obs import reqtrace as jreq
+        from deeplearning4j_tpu.obs import trace as jtrace
+        from deeplearning4j_tpu.serve import ModelServer as JServer
+
+        def run(server_cls, flight, reqtrace, trace, model):
+            srv = server_cls(model, port=0, input_dtype=np.int32,
+                             gen_slots=2, gen_capacity=16).start()
+            out = [_call(srv.port, "/v1/debug/flight")[0]]
+            rec = flight.install(flight.FlightRecorder())
+            reqtrace.install(reqtrace.RequestTracer(tracer=trace.Tracer()))
+            parent = "00-0af7651916cd43dd8448eb211c80319c-b7ad6b7169203331-01"
+            try:
+                code, body, hdrs = _call(
+                    srv.port, "/predict", {"ndarray": [[3, 1, 4, 1]]},
+                    headers={"traceparent": parent,
+                             "X-Request-Id": "req-fixed"})
+                out.append((code, hdrs["X-Request-Id"],
+                            hdrs["traceparent"].split("-")[1]))
+                out.append(_call(srv.port, "/generate?stream=false",
+                                 {"prompt": [5, 9, 2, 6],
+                                  "max_new_tokens": 3,
+                                  "temperature": 0.0})[:2])
+                out.append(_call(srv.port, "/predict", {"nd": 1})[0])
+                time.sleep(0.05)  # the flush stage lands after the reply
+                reqs = _call(srv.port, "/v1/debug/requests")[1]["requests"]
+                out.append([(r["kind"], r["status"], r["error"],
+                             r["request_id"] if r["kind"] == "predict" and
+                             r["status"] == "ok" else None,
+                             [st["name"] for st in r["stages"]],
+                             r["ticks"]) for r in reqs])
+                snap = _call(srv.port, "/v1/debug/flight")[1]
+                out.append(sorted(snap))
+                out.append(len(snap["requests"]) == len(reqs))
+            finally:
+                reqtrace.uninstall()
+                flight.uninstall()
+                srv.stop()
+            return out
+
+        jm, tm = _models()
+        want = run(JServer, jflight, jreq, jtrace, jm)
+        got = run(ModelServer, tflight, treq, ttrace, tm)
+        assert got == want
+        assert got[0] == 404
+        assert got[1] == (200, "req-fixed", "0af7651916cd43dd8448eb211c80319c")
+        stages = got[4][0][4]
+        assert stages == ["admit", "queue", "device", "flush"]

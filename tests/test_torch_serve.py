@@ -63,6 +63,22 @@ class TestModelRegistry:
                            m.params["layer_0"]["w"])
         assert [g for g, _ in reg.history()][-1] == 3
 
+    def test_start_generation_and_close(self):
+        from deeplearning4j_torch.serve import ServerClosingError
+        from deeplearning4j_tpu.serve import ModelRegistry as JRegistry
+
+        m = _dense_model()
+        reg = ModelRegistry(m.params, m.state, start_generation=5)
+        assert reg.generation == 5 and reg.publish(m.params).generation == 6
+        assert JRegistry({"w": np.zeros(2, np.float32)},
+                         start_generation=5).generation == 5
+        reg.close()  # drops every snapshot: nothing pins the params
+        assert reg.history() == [] and reg.drain(timeout=0) is True
+        for call in (reg.current, reg.lease().__enter__,
+                     lambda: reg.publish(m.params)):
+            with pytest.raises(ServerClosingError):
+                call()
+
     def test_publish_drain_waits_for_old_leases(self):
         m = _dense_model()
         reg = ModelRegistry(m.params, m.state)

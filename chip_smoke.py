@@ -256,6 +256,36 @@ last line):
    time to first token and tokens/s, peak allocated and reserved memory
    against the budget.
 
+17. aot — strict prebuilt serving (every kernel's launch count, set to 0
+   before the strict boot and read in that process after the fleet cycle,
+   goes into the kernels line under ``launches_by_path["aot"]``: K1's are
+   the launches captured in each engine graph, measured at the boot,
+   times the replays of the server's and the fleet's graphs). ``python -m
+   deeplearning4j_torch.aot prebuild`` in a process of its own writes a
+   store for the serve phase's model (738M CausalLM, bf16, flash, random
+   weights from seed 0): the engine's batch buckets 1 and 4 by length
+   buckets 256 and 1024, and the generate phase's paged batcher (8 slots,
+   capacity 1024, blocks of 16, chunks of 64), with every kernel library
+   built by nvcc. A second process, its kernel build directory empty,
+   boots ``ModelServer(strict_aot=True, aot_manifest=...)`` on that store
+   and is gated there: no nvcc build; 4 engine graphs and the batcher's
+   sample, decode and 4 prefill-chunk graphs captured at boot and none on
+   a call; predicts of mixed buckets bit-equal to the eager forward of the
+   padded bucket batch they ran in; greedy and seeded (temperature 0.8,
+   top_k 40) tokens of 6 concurrent prompts equal to an eager batcher's on
+   the same params; an uncovered signature answered 503 (``aot_trace``)
+   with nothing captured; a publish that captures the candidate's graphs
+   before the flip and answers with the new params bit for bit; with the
+   profiler installed, ``/v1/debug/profile`` listing engine, prefill and
+   decode executables with padding waste and ``/metrics`` their device-time
+   histograms; a strict fleet of two full-width models in a budget of one
+   and a half, every page-out freeing at least the weights and the answers
+   the same across the cycle, an entry with an uncovered bucket refused
+   typed at page-in. Printed with the card: boot seconds
+   (``serve_cold_start_seconds``), the graphs' static buffer bytes, the
+   decode tick eager and replayed (host p50 and device ms) beside the
+   eager tick measured before (17.7 ms on the host, 7.1 on the device).
+
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
@@ -5773,7 +5803,438 @@ def phase_fleet():
     return counts
 
 
+AOT_DEVICE = "cuda"
+AOT_BUCKETS = (1, 4)            # the engine's batch buckets
+AOT_LENGTHS = (256, 1024)       # its length buckets, up to the model's T
+AOT_PREDICTS = ((1, 100), (3, 700), (4, 1024), (1, 256), (2, 1000),
+                (4, 37))        # (rows, tokens): every bucket, mixed
+AOT_PROMPTS = (40, 90, 150, 300, 520, 700)   # no shared prefix
+AOT_NEW = 16
+AOT_TICKS = 40                  # decode ticks timed each way
+AOT_TIMEOUT_S = 600
+
+
+def _aot_config():
+    """The serving config [aot] prebuilds and boots: the [serve] phase's
+    model (738M CausalLM, bf16, flash) with random weights from seed 0,
+    the engine's buckets up to its 1024 tokens, and the [generate] phase's
+    paged batcher (8 slots, capacity 1024, blocks of 16, chunks of 64)."""
+    return {"model": "causallm", "seed": 0, "dtype": "int32",
+            "compute_dtype": "bfloat16",
+            "model_kwargs": {"input_shape": [1024], "num_layers": 12,
+                             "d_model": 2048, "num_heads": 32,
+                             "vocab": 32000, "flash": True},
+            "engine": {"batch_buckets": list(AOT_BUCKETS),
+                       "length_buckets": list(AOT_LENGTHS)},
+            "gen": {"slots": GEN_SLOTS, "capacity": GEN_CAPACITY,
+                    "kv": "paged", "block_size": GEN_BLOCK,
+                    "prefill_chunk": GEN_CHUNK, "prefix_cache": True,
+                    "seed": 0}}
+
+
+def _aot_server(model, store, manifest, metrics):
+    """A strict ModelServer for [aot]'s config on 127.0.0.1."""
+    from deeplearning4j_torch.serve import ModelServer
+
+    cfg = _aot_config()
+    gen = cfg["gen"]
+    return ModelServer(
+        model, port=0, batch_buckets=AOT_BUCKETS, length_buckets=AOT_LENGTHS,
+        input_dtype=np.int32, gen_slots=gen["slots"],
+        gen_capacity=gen["capacity"], gen_block_size=gen["block_size"],
+        gen_prefill_chunk=gen["prefill_chunk"], seed=gen["seed"],
+        metrics=metrics, aot_store=store, strict_aot=True,
+        aot_manifest=manifest)
+
+
+def _aot_predict_check(srv, model, snap, reqs):
+    """Each request through the strict engine (graph replays) against the
+    eager forward of the padded bucket batch it ran in, bit for bit:
+    the replay runs the captured kernels on the same inputs. Returns the
+    max abs difference and the graph replays they took."""
+    eng = srv.engine
+    fwd = eng.aot_functions()["engine_forward"]
+    worst, r0 = 0.0, fwd.replays
+    for x in reqs:
+        y = eng.predict(x)
+        rows, t = x.shape
+        bucket = next(b for b in AOT_BUCKETS if b >= rows)
+        length = next(L for L in AOT_LENGTHS if L >= t)
+        pad = np.zeros((bucket, length), np.int32)
+        pad[:rows, :t] = x
+        with torch.inference_mode():
+            ref = model.forward(snap.params, snap.state,
+                                torch.from_numpy(pad).to(AOT_DEVICE),
+                                training=False)[0]
+        ref = ref.float().cpu().numpy()[:rows, :t]
+        check(y.shape == ref.shape, f"[aot] answer {y.shape}, eager "
+              f"{ref.shape}")
+        worst = max(worst, float(np.abs(y - ref).max()))
+    return worst, fwd.replays - r0
+
+
+def _aot_generate(cb, prompts, sampled):
+    reqs = [cb.submit(p, AOT_NEW, **(dict(temperature=0.8, top_k=40)
+                                     if i in sampled else
+                                     dict(temperature=0.0)))
+            for i, p in enumerate(prompts)]
+    return [r.wait().tolist() for r in reqs]
+
+
+def _aot_ticks(cb, sampled):
+    """Host ms p50 of a decode tick replayed alone (``step_probe``; 4
+    greedy + 4 sampled slots, or all greedy), and its device ms and
+    operations (torch.profiler)."""
+    tick = cb.step_probe("decode", sampled=sampled, temperature=0.8,
+                         top_k=40)
+    for _ in range(3):
+        tick()
+    host = []
+    for _ in range(AOT_TICKS):
+        t0 = time.perf_counter()
+        tick()
+        host.append(1e3 * (time.perf_counter() - t0))
+    dev, ops = device_ms(tick, reps=5)
+    return statistics.median(host), dev, ops
+
+
+def aot_serve(tmp):
+    """[aot]'s second process: a strict ModelServer booted from the store
+    the prebuild wrote, with the kernel build directory empty. Checks
+    every gate and prints one JSON line of readings."""
+    import urllib.error
+
+    from deeplearning4j_torch.aot import AotStore
+    from deeplearning4j_torch.aot.__main__ import serving_model
+    from deeplearning4j_torch.fleet import FleetRegistry
+    from deeplearning4j_torch.kernels import _build
+    from deeplearning4j_torch.obs import profile
+    from deeplearning4j_torch.obs.metrics import MetricsRegistry
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+    from deeplearning4j_torch.serve import ContinuousBatcher
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    wrappers = _kernel_wrappers()
+    k1 = wrappers["K1"]
+    out = {"card": card()}
+    check(not any(_build.BUILD_DIR.glob("*.so")),
+          f"[aot] the build directory {_build.BUILD_DIR} is not empty")
+    cfg = _aot_config()
+    vocab = cfg["model_kwargs"]["vocab"]
+    layers = cfg["model_kwargs"]["num_layers"]
+    store = AotStore(os.path.join(tmp, "store"))
+    manifest = os.path.join(tmp, "manifest.json")
+    t0 = time.perf_counter()
+    model = serving_model(cfg, AOT_DEVICE)
+    torch.cuda.synchronize()
+    out["model_init_s"] = time.perf_counter() - t0
+    metrics = MetricsRegistry()
+    for w in wrappers.values():  # every count from 0 before the boot
+        w.launches = 0
+    a0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = _aot_server(model, store, manifest, metrics).start()
+    out["boot_s"] = time.perf_counter() - t0
+    try:
+        eng, cb = srv.engine, srv.batcher()
+        fwd = eng.aot_functions()["engine_forward"]
+        gfns = cb.aot_functions()
+        k1_boot = k1.launches
+        out["cold_start_s"] = {
+            c: metrics.gauge("serve_cold_start_seconds",
+                             {"component": c}).value
+            for c in ("engine", "generate")}
+        out["nvcc_builds"] = _build.BUILDS
+        out["captures"] = {"engine_forward": fwd.captures,
+                           **{t: f.captures for t, f in gfns.items()}}
+        out["pool_bytes"] = fwd.pool_bytes() + sum(
+            f.pool_bytes() for f in gfns.values())
+        out["boot_allocated"] = torch.cuda.memory_allocated() - a0
+        check(_build.BUILDS == 0, f"[aot] {_build.BUILDS} nvcc builds in "
+              "a boot from a prebuilt store")
+        n_eng = len(AOT_BUCKETS) * len(AOT_LENGTHS)
+        check(fwd.captures == n_eng, f"[aot] {fwd.captures} engine graphs "
+              f"at boot, want {n_eng}")
+        # each engine graph: one eager warm-up and one capture of the same
+        # K1 launches (12, one a layer); the batcher's graphs launch none
+        k1_per_graph = k1_boot // (2 * n_eng)
+        check(k1_boot == 2 * n_eng * k1_per_graph
+              and k1_per_graph == layers, f"[aot] K1 launched {k1_boot} "
+              f"times at boot for {n_eng} graphs")
+        out["k1_captured_per_graph"] = k1_per_graph
+        want_gen = 2 + len(cb.chunk_buckets)
+        check(sum(f.captures for f in gfns.values()) == want_gen,
+              f"[aot] batcher graphs at boot {out['captures']}, want "
+              f"{want_gen}")
+
+        # predicts of mixed buckets, bit for bit against the eager forward
+        rng = np.random.RandomState(0)
+        reqs = [rng.randint(0, vocab, (r, t)).astype(np.int32)
+                for r, t in AOT_PREDICTS]
+        snap = srv.registry.current()
+        k1_before = k1.launches
+        diff, replays = _aot_predict_check(srv, model, snap, reqs)
+        eager_k1 = k1.launches - k1_before
+        # the eager references launched 12 each; the served answers none
+        check(eager_k1 == layers * len(reqs), f"[aot] {eager_k1} eager K1 "
+              f"launches beside {len(reqs)} references")
+        out["predict_max_abs_diff"] = diff
+        out["predict_replays"] = replays
+        check(diff == 0.0, f"[aot] graph answers differ from the eager "
+              f"forward by {diff}")
+        with _http(srv.port, "/predict",
+                   {"ndarray": reqs[5][:1, :16].tolist()}) as r:
+            body = json.loads(r.read())
+        got = np.asarray(body["output"], np.float32)
+        check(got.shape == (1, 16, vocab) and body["generation"] ==
+              snap.generation, f"[aot] HTTP predict {got.shape}")
+
+        # generation: greedy and seeded, against an eager batcher
+        prompts = [rng.randint(0, vocab, (n,)).astype(np.int32)
+                   for n in AOT_PROMPTS]
+        sampled = {1, 3, 5}
+        got = _aot_generate(cb, prompts, sampled)
+        eager = ContinuousBatcher(
+            model, registry=srv.registry, slots=GEN_SLOTS,
+            capacity=GEN_CAPACITY, block_size=GEN_BLOCK,
+            prefill_chunk=GEN_CHUNK, seed=0)
+        try:
+            want = _aot_generate(eager, prompts, sampled)
+            out["eager_tick"] = _aot_ticks(eager, GEN_SLOTS // 2)
+            out["eager_tick_greedy"] = _aot_ticks(eager, 0)
+        finally:
+            eager.shutdown()
+            eager.release_device()
+        del eager
+        same = [a == b for a, b in zip(got, want)]
+        out["tokens_equal"] = same
+        check(all(same), f"[aot] batcher tokens under graphs differ from "
+              f"the eager batcher's: {same}")
+        with _http(srv.port, "/generate?stream=false",
+                   {"prompt": prompts[0].tolist(),
+                    "max_new_tokens": AOT_NEW, "temperature": 0.0}) as r:
+            check(json.loads(r.read())["tokens"] == want[0],
+                  "[aot] HTTP generate tokens")
+        out["replayed_tick"] = _aot_ticks(cb, GEN_SLOTS // 2)
+        out["replayed_tick_greedy"] = _aot_ticks(cb, 0)
+        dec = metrics.histogram("serve_gen_decode_seconds")
+        out["served_tick_p50_ms"] = 1e3 * dec.quantile(0.5)
+
+        # an uncovered signature: a typed 503, nothing captured
+        before = fwd.captures
+        try:
+            _http(srv.port, "/predict",
+                  {"ndarray": np.zeros((1, 16, 2), np.int32).tolist()})
+            status, cause = 200, None
+        except urllib.error.HTTPError as e:
+            status, cause = e.code, json.loads(e.read()).get("cause")
+        out["uncovered"] = status
+        check(status == 503 and cause == "aot_trace",
+              f"[aot] uncovered signature answered {status}")
+        check(fwd.captures == before and fwd.call_captures == 0,
+              "[aot] a call captured a graph")
+
+        # the profiler: per-executable device times and padding waste
+        prof = profile.install(profile.Profiler(sample_rate=1,
+                                                metrics=metrics))
+        try:
+            for x in reqs[:3]:
+                eng.predict(x)
+            _aot_generate(cb, prompts[:2], set())
+            with _http(srv.port, "/v1/debug/profile") as r:
+                payload = json.loads(r.read())
+            with _http(srv.port, "/metrics") as r:
+                scrape = r.read().decode()
+        finally:
+            profile.uninstall()
+        tags = {e["tag"] for e in payload["executables"]}
+        check(payload["enabled"] and {"engine_forward", "gen_decode_paged",
+                                      "gen_prefill_chunk"} <= tags
+              and all(e["sampled"] > 0 for e in payload["executables"])
+              and any(k.startswith("engine/") for k in payload["padding"])
+              and "profile_dispatch_device_seconds_bucket" in scrape,
+              f"[aot] /v1/debug/profile: {sorted(tags)}")
+        out["profile"] = [
+            {k: e.get(k) for k in ("component", "tag", "dispatches",
+                                   "us_per_dispatch", "waste_ratio")}
+            for e in payload["executables"]]
+        out["padding"] = {k: round(v["waste_ratio"], 4)
+                          for k, v in payload["padding"].items()}
+
+        # publish: the candidate's graphs before the flip, its answers
+        new = tree_unflatten(snap.params, [
+            t * 1.0078125 for t in tree_leaves(snap.params)])
+        caps = fwd.captures, sum(f.captures for f in gfns.values())
+        t0 = time.perf_counter()
+        nsnap = srv.publish(new)
+        out["publish_s"] = time.perf_counter() - t0
+        check(fwd.captures == caps[0] + n_eng and sum(
+            f.captures for f in gfns.values()) == caps[1] + want_gen,
+            "[aot] the publish did not warm the candidate's graphs")
+        diff2, _ = _aot_predict_check(srv, model, nsnap, reqs[:2])
+        check(diff2 == 0.0, f"[aot] new generation's answers differ by "
+              f"{diff2}")
+        check(fwd.generations() == [nsnap.generation], "[aot] the old "
+              f"generation's graphs are still held: {fwd.generations()}")
+        check(fwd.call_captures == 0 and all(
+            f.call_captures == 0 for f in gfns.values()),
+            "[aot] a call captured a graph")
+        out["engine_replays"] = fwd.replays
+    finally:
+        srv.stop()
+    del srv, eng, cb, fwd, gfns, snap, new, nsnap
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one strict fleet page cycle of two models
+    beta = serving_model({**cfg, "seed": 1}, AOT_DEVICE)
+    wb = sum(t.numel() * t.element_size()
+             for t in tree_leaves((model.params, model.state)))
+    fleet = FleetRegistry(hbm_budget_bytes=int(1.5 * wb), aot_store=store,
+                          strict_aot=True, metrics=MetricsRegistry(),
+                          device=AOT_DEVICE)
+    x = reqs[0]
+    fleet_metrics = fleet.metrics
+    try:
+        engine_opts = dict(batch_buckets=AOT_BUCKETS,
+                           length_buckets=AOT_LENGTHS)
+        fleet.add("alpha", model, engine_opts=engine_opts,
+                  input_dtype=np.int32)
+        fleet.add("beta", beta, engine_opts=engine_opts,
+                  input_dtype=np.int32)
+        for m in (model, beta):  # the fleet's host copies hold them now
+            m.params, m.state = None, {}
+        del model, beta, m
+        gc.collect()
+        torch.cuda.empty_cache()
+        order = ("alpha", "beta", "alpha", "beta")
+        answers = [fleet.predict(n, x).output for n in order]
+        check(np.array_equal(answers[0], answers[2])
+              and np.array_equal(answers[1], answers[3]),
+              "[aot] answers changed across a page cycle")
+        outs = [r for n in ("alpha", "beta")
+                for r in fleet.get(n).page_log if r["kind"] == "page_out"]
+        check(len(outs) >= 3 and all(r["freed"] >= wb for r in outs),
+              f"[aot] page-outs freed {[r['freed'] for r in outs]} B, "
+              f"weights {wb} B")
+        out["fleet_freed"] = [r["freed"] for r in outs]
+        out["fleet_weight_bytes"] = wb
+        # an entry whose buckets the store does not cover: typed page-in
+        fleet.add("gamma", fleet.get("alpha").model,
+                  params=fleet.get("alpha")._host_params,
+                  engine_opts=dict(batch_buckets=(2,),
+                                   length_buckets=AOT_LENGTHS),
+                  input_dtype=np.int32)
+        try:
+            fleet.predict("gamma", x)
+            cause = None
+        except Exception as e:  # the typed refusal is the gate
+            cause = getattr(e, "cause", type(e).__name__)
+        out["fleet_uncovered"] = cause
+        check(cause == "page_in_failed", f"[aot] uncovered page-in: {cause}")
+    finally:
+        fleet.shutdown()
+    # every fleet batch replayed a graph: a strict fleet captures none on
+    # a call (it raises instead)
+    snapf = fleet_metrics.snapshot()
+    out["fleet_batches"] = int(sum(s["value"] for s in snapf.get(
+        "serve_batches_total", {}).get("series", [])))
+    fleet_compiles = sum(s["value"] for s in snapf.get(
+        "serve_compile_misses_total", {}).get("series", []))
+    check(out["fleet_batches"] >= len(order) and fleet_compiles == 0,
+          f"[aot] fleet batches {out['fleet_batches']}, compiles "
+          f"{fleet_compiles}")
+    # the kernels' counts over the whole path: K1's are its captured
+    # launches times the replays (a replay moves no counter); every other
+    # wrapper's counter as it stands (nothing here compares them)
+    out["launches"] = {k: w.launches for k, w in wrappers.items()}
+    out["launches"]["K1"] = k1_per_graph * (out["engine_replays"]
+                                            + out["fleet_batches"])
+    check(all(v == 0 for k, v in out["launches"].items() if k != "K1"),
+          f"[aot] kernels other than K1 launched: {out['launches']}")
+    print(json.dumps(out))
+    return 0
+
+
+def phase_aot():
+    """[aot]: prebuild a store for _aot_config in one process, then boot a
+    strict ModelServer from it in another (an empty kernel build
+    directory) and hold it to every gate there. Returns every kernel's
+    launches on the path, counted in that process: K1's are the launches
+    captured in each engine graph times the graphs' replays (the strict
+    server's and the fleet's)."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(_aot_config(), f)
+        t0 = time.perf_counter()
+        pb = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_torch.aot", "--store",
+             os.path.join(tmp, "store"), "prebuild", "--config", cfg,
+             "--manifest-out", os.path.join(tmp, "manifest.json")],
+            cwd=here, capture_output=True, text=True, timeout=AOT_TIMEOUT_S)
+        prebuild_s = time.perf_counter() - t0
+        check(pb.returncode == 0, f"[aot] prebuild exited {pb.returncode}:"
+              f"\n{pb.stdout[-3000:]}\n{pb.stderr[-3000:]}")
+        report = json.loads(pb.stdout)
+        print(f"[aot] prebuild in {prebuild_s:.1f} s (warm pass "
+              f"{report['prebuild_seconds']:.1f} s): sites "
+              f"{report['sites']}, kernels {report['kernels']}, store "
+              f"{report['store']['entries']} entries "
+              f"{report['store']['bytes']} B")
+        env = dict(os.environ,
+                   DL4J_TORCH_KERNEL_BUILD_DIR=os.path.join(tmp, "kbuild"))
+        t0 = time.perf_counter()
+        sv = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--aot-serve", tmp], cwd=here, env=env,
+                            capture_output=True, text=True,
+                            timeout=AOT_TIMEOUT_S)
+        serve_s = time.perf_counter() - t0
+    check(sv.returncode == 0, f"[aot] strict server exited "
+          f"{sv.returncode}:\n{sv.stdout[-3000:]}\n{sv.stderr[-4000:]}")
+    r = json.loads(sv.stdout.strip().splitlines()[-1])
+    eh, ed, eo = r["eager_tick"]
+    gh, gd, go = r["replayed_tick"]
+    print(f"[aot] strict boot from the store in {r['boot_s']:.2f} s (model "
+          f"init {r['model_init_s']:.2f} s before it; cold start engine "
+          f"{r['cold_start_s']['engine']:.2f} s, generate "
+          f"{r['cold_start_s']['generate']:.2f} s), nvcc builds "
+          f"{r['nvcc_builds']}, graphs {r['captures']}, static buffers "
+          f"{r['pool_bytes']} B, allocated by the boot "
+          f"{r['boot_allocated']} B; the whole process {serve_s:.1f} s")
+    print(f"[aot] predicts replayed {r['predict_replays']} graphs, max abs "
+          f"diff to the eager forward {r['predict_max_abs_diff']}; tokens "
+          f"equal to the eager batcher's {r['tokens_equal']}; uncovered "
+          f"signature {r['uncovered']}; publish {r['publish_s']:.2f} s")
+    print(f"[aot] decode tick (4 greedy + 4 sampled of 8 slots): eager "
+          f"host p50 {eh:.3f} ms, device {ed:.3f} ms in {eo:.0f} ops; "
+          f"replayed host p50 {gh:.3f} ms, device {gd:.3f} ms in {go:.0f} "
+          f"ops (the eager tick measured before: 17.7 ms host, 7.1 ms "
+          f"device); all greedy: eager "
+          f"{r['eager_tick_greedy'][0]:.3f} / "
+          f"{r['eager_tick_greedy'][1]:.3f} ms, replayed "
+          f"{r['replayed_tick_greedy'][0]:.3f} / "
+          f"{r['replayed_tick_greedy'][1]:.3f} ms (host p50 / device); "
+          f"served tick p50 {r['served_tick_p50_ms']:.3f} ms; {r['card']}")
+    print(f"[aot] profile: {r['profile']}; padding waste {r['padding']}")
+    print(f"[aot] fleet page cycle: freed {r['fleet_freed']} B a page-out "
+          f"(weights {r['fleet_weight_bytes']} B); uncovered page-in "
+          f"{r['fleet_uncovered']}")
+    print(f"[aot] kernel launches on the path: {r['launches']} (K1: "
+          f"{r['k1_captured_per_graph']} captured a graph x "
+          f"{r['engine_replays']} server + {r['fleet_batches']} fleet "
+          f"replays)")
+    return r["launches"]
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
+        return aot_serve(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5811,6 +6272,7 @@ def main() -> int:
     transfer = phase_transfer()
     moe_counts = phase_train_api()
     fleet_counts = phase_fleet()
+    aot_counts = phase_aot()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -5856,6 +6318,9 @@ def main() -> int:
         # the fleet: every predict batch of alpha, beta and gamma (K1),
         # gamma's generations (no kernel)
         row["launches_by_path"]["fleet"] = fleet_counts[key]
+        # strict prebuilt serving: K1's launches captured in each engine
+        # graph times the replays; every other kernel's counter
+        row["launches_by_path"]["aot"] = aot_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -15,8 +15,8 @@ One listener multiplexes every model in the fleet:
   /metrics`` (OpenMetrics with exemplars on request) · ``GET /v1/metrics``
   (the registry's JSON snapshot, exemplars included).
 - ``GET /v1/debug/requests`` · ``GET /v1/debug/flight`` (404 without a
-  flight recorder). ``/v1/debug/profile`` answers 404: the profiler comes
-  with the prebuilt-executable store (ROADMAP.md, Queue 1, item 13).
+  flight recorder) · ``GET /v1/debug/profile`` (the dispatch profiler's
+  top executables; ``{"enabled": false}`` without one).
 - ``GET /v1/replica`` — the cluster heartbeat self-report (identity,
   residency, HBM budget, queue depth); ``POST /v1/admin/drain``
   ``{"model": name}`` pages a model out on router demotion.
@@ -49,6 +49,7 @@ import numpy as np
 
 from ..chaos import faults as _faults
 from ..obs import flight as _flight
+from ..obs import profile as _profile
 from ..obs import reqtrace as _rt
 from ..serve.errors import ServeError
 from ..serve.http import (chaos_apply, chaos_status, jitter_retry_after,
@@ -216,6 +217,9 @@ class FleetServer(JsonHTTPServerMixin):
                                   {"error": "flight recorder not installed"})
                     else:
                         self.reply(200, _flight.ACTIVE.snapshot())
+                elif path == "/v1/debug/profile":
+                    # {"enabled": false} when no profiler is installed
+                    self.reply(200, _profile.debug_payload())
                 else:
                     m = _MODEL_ROUTE.match(path)
                     if m and m.group(2) is None:

@@ -44,6 +44,7 @@ from typing import List, Optional
 
 from ..chaos import faults as _faults
 from ..chaos.retry import RetryPolicy
+from ..obs import profile as _prof
 from ..obs import reqtrace as _rt
 from ..serve.errors import CapacityError, ServeError
 
@@ -187,6 +188,9 @@ class WeightPager:
             dt = time.perf_counter() - t0
             if self._h_page_in is not None:
                 self._h_page_in.observe(dt)
+            if _prof.ACTIVE is not None:
+                # measured transfer cost feeds CostProfile.page_in_s
+                _prof.ACTIVE.page_in(dt)
         finally:
             with self._cond:
                 self._loading.discard(entry.name)

@@ -57,9 +57,17 @@ bounded, because each retry pages the model back in.
 
 Budget accounting is the reference's: ``weight_bytes`` counts params and
 state only; KV pools, activations and the batcher's compute casts stay
-outside the budget. Not ported yet: the prebuilt-executable store
-(``aot_store=``, ``strict_aot=``) and tuned knobs (``tuned_for=``) —
-ROADMAP.md, Queue 1, item 13.
+outside the budget.
+
+With a shared ``aot_store=`` every activation makes the entry's serving
+graphs before the entry takes traffic (the engine's warm, the batcher's
+warm-at-construction); with ``strict_aot=True`` an uncovered signature
+fails the page-in typed (:class:`~.pager.PageInError` after the pager's
+retries), never a request. A page-out drops the graphs and their pool
+with the weights (``ServeEngine.shutdown``,
+``ContinuousBatcher.release_device``). ``tuned_for=`` (a workload
+fingerprint) resolves the tuned config's engine and gen knob groups from
+the store as every ``add()``'s defaults.
 """
 
 from __future__ import annotations
@@ -105,9 +113,6 @@ def _copy_stream(device: torch.device, direction: str) -> "torch.cuda.Stream":
             _COPY_STREAMS[key] = torch.cuda.Stream(device)
         return _COPY_STREAMS[key]
 
-
-_NOT_PORTED_AOT = ("the prebuilt-executable store and tuned knobs are not "
-                   "ported yet (ROADMAP.md, Queue 1, item 13)")
 
 # ServeError causes that count against a model's circuit breaker: server-side
 # breakage only. Quota/capacity/queue-full sheds and client deadlines are
@@ -178,8 +183,6 @@ class FleetEntry:
                  engine_opts: Optional[dict] = None,
                  gen_opts: Optional[dict] = None,
                  device: DeviceLike = None):
-        if aot_store is not None or strict_aot:
-            raise NotImplementedError(_NOT_PORTED_AOT)
         if params is None:
             raise ValueError(f"model {name!r} has no params: call init() "
                              f"or pass params=")
@@ -192,6 +195,13 @@ class FleetEntry:
                              f"fleet on {self.device}")
         self.input_dtype = input_dtype
         self.metrics = metrics
+        self.aot_store = aot_store
+        # strict page-ins: activation makes its graphs from the prebuilt
+        # store or fails typed — never a capture without a record
+        self.strict_aot = bool(strict_aot)
+        if self.strict_aot and aot_store is None:
+            raise ValueError(f"model {name!r}: strict_aot=True requires "
+                             "a shared aot_store")
         self.engine_opts = dict(engine_opts or {})
         self.gen_opts = dict(gen_opts or {})
         self.version = version
@@ -340,7 +350,12 @@ class FleetEntry:
                 self._engine = ServeEngine(
                     self.model, registry=self._registry,
                     metrics=self.metrics, model_name=self.name,
+                    aot_store=self.aot_store, strict_aot=self.strict_aot,
                     **self.engine_opts)
+                if self.aot_store is not None:
+                    # every signature's graph before the entry takes
+                    # traffic (strict: an uncovered one fails the page-in)
+                    self._engine.warm(self.input_dtype)
                 if self._had_batcher:
                     # the model served generate traffic last residency;
                     # rebuild eagerly so paged-in decode is ready before
@@ -437,6 +452,7 @@ class FleetEntry:
     def _build_batcher_locked(self) -> None:
         self._batcher = ContinuousBatcher(
             self.model, registry=self._registry, metrics=self.metrics,
+            aot_store=self.aot_store, strict_aot=self.strict_aot,
             model_name=self.name, **self.gen_opts)
         self._had_batcher = True
 
@@ -549,10 +565,25 @@ class FleetRegistry:
                  watchdog_s: Optional[float] = None,
                  tuned_for: Optional[str] = None,
                  device: DeviceLike = None):
-        if aot_store is not None or strict_aot or tuned_for is not None:
-            raise NotImplementedError(_NOT_PORTED_AOT)
         self.device = _indexed(resolve_device(device))
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.aot_store = aot_store
+        # strict_aot applies fleet-wide: every entry's activation (and
+        # every page-in after an eviction) must be served by the prebuilt
+        # store or fail typed
+        self.strict_aot = bool(strict_aot)
+        if self.strict_aot and aot_store is None:
+            raise ValueError("strict_aot=True requires a shared aot_store")
+        # tuned_for: a workload fingerprint. The boot resolves the tuned
+        # knob set for (this runtime, that workload) from the store, and
+        # every add() starts from those knobs; a miss (counted on
+        # sim_tuned_config_misses_total) means the defaults
+        self.tuned_config: Optional[dict] = None
+        if tuned_for is not None:
+            from ..aot.tuned import get_tuned
+
+            self.tuned_config = get_tuned(aot_store, tuned_for,
+                                          metrics=self.metrics)
         self.tenants = tenants if tenants is not None \
             else TenantTable(metrics=self.metrics)
         self.pager = WeightPager(hbm_budget_bytes, metrics=self.metrics)
@@ -593,12 +624,28 @@ class FleetRegistry:
         """Register a model under ``name``. Weights default to the model's
         own initialized params (copied to the host: the model's device
         tensors may be dropped afterwards). ``eager=True`` pages it in
-        immediately; otherwise the first request does."""
+        immediately; otherwise the first request does. With a resolved
+        tuned config (``tuned_for=``), its engine/gen groups become the
+        per-model defaults; explicit ``engine_opts``/``gen_opts`` keys
+        still win."""
+        if self.tuned_config is not None:
+            from ..aot.tuned import tuned_group
+            from ..serve.continuous import gen_opts_from_config
+            from ..serve.engine import ENGINE_KNOBS
+
+            tuned_engine = {
+                k: v
+                for k, v in tuned_group(self.tuned_config, "engine").items()
+                if k in ENGINE_KNOBS}
+            engine_opts = {**tuned_engine, **(engine_opts or {})}
+            gen_opts = {**gen_opts_from_config(self.tuned_config),
+                        **(gen_opts or {})}
         entry = FleetEntry(
             name, model,
             params if params is not None else model.params,
             state if state is not None else model.state,
             version=version, input_dtype=input_dtype, metrics=self.metrics,
+            aot_store=self.aot_store, strict_aot=self.strict_aot,
             engine_opts=engine_opts, gen_opts=gen_opts, device=self.device)
         with self._lock:
             if name in self._entries:
@@ -860,6 +907,8 @@ class FleetRegistry:
             "breakers": {n: b.snapshot() for n, b in sorted(breakers.items())},
             "slo": self.slo.snapshot(),
         }
+        if self.aot_store is not None:
+            body["aot_store"] = self.aot_store.stats()
         return body
 
     def shutdown(self) -> None:

@@ -8,7 +8,9 @@ compiler flags, so an edited source or header rebuilds and an unchanged one
 loads the library built before. A missing ``nvcc`` or a failed build
 raises: there is no fallback. The compiler's report (``-Xptxas -v``:
 registers, shared memory, spills) is kept beside the library as
-``<lib>.log``.
+``<lib>.log``. ``$DL4J_TORCH_KERNEL_BUILD_DIR`` names another build
+directory (a boot from a prebuilt store installs the libraries there, see
+``aot/compile.py``); :data:`BUILDS` counts the nvcc runs of the process.
 :func:`build_all` compiles every source at once, one nvcc per source.
 :func:`launch` calls a loaded launcher on PyTorch's current stream and
 counts the launch on the kernel's wrapper.
@@ -30,7 +32,8 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 CSRC = Path(__file__).parent / "csrc"
-BUILD_DIR = Path(__file__).parent / "_build"
+BUILD_DIR = Path(os.environ.get("DL4J_TORCH_KERNEL_BUILD_DIR")
+                 or Path(__file__).parent / "_build")
 KERNELS = ("flash_fwd", "flash_fwd_sm90", "flash_bwd", "flash_bwd_sm90",
            "bn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -40,6 +43,8 @@ BUILD_TIMEOUT_S = 600
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+#: nvcc runs in this process (a library found current is not one)
+BUILDS = 0
 
 
 def nvcc() -> str:
@@ -86,9 +91,12 @@ def library_path(name: str) -> Path:
 def build(name: str) -> Path:
     """Compile kernel ``name`` unless its library is current; returns the
     library's path. Raises on a missing nvcc or a failed build."""
+    global BUILDS
     lib = library_path(name)
     if lib.exists():
         return lib
+    with _count_lock:
+        BUILDS += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     log = lib.with_suffix(".log")

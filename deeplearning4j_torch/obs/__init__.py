@@ -1,7 +1,10 @@
 """Observability of the port: the metrics registry (with OpenMetrics
 exemplars), the span tracer, request-scoped tracing, the flight recorder
-and SLO burn accounting — stdlib-only copies of the JAX package's
-``obs/{metrics,trace,reqtrace,flight,slo}.py``."""
+SLO burn accounting, the sampled dispatch profiler and its cost model —
+stdlib-only copies of the JAX package's
+``obs/{metrics,trace,reqtrace,flight,slo,profile,costmodel}.py``
+(``profile`` and ``costmodel`` are imported by name, as in the
+reference)."""
 
 from .flight import FlightRecorder
 from .metrics import (DEFAULT_BUCKETS, Counter, Gauge, Histogram,

@@ -42,10 +42,23 @@ device explicitly; a tick makes one host sync (the S next tokens).
 Request traces (``ctx=``: queue, prefill-chunk and decode stages,
 exemplars on the prefill histogram), the completion hook
 (:meth:`_GenRequest.set_on_done`, the fleet's SLO accounting) and the
-``serve.decode_step`` fault seam are the reference's. Not ported yet: the
-prebuilt-executable store (``aot_store``, ``strict_aot``, ``from_tuned``;
-ROADMAP.md, Queue 1, item 13) and the profiler hints (with
-``obs/profile.py``, item 13).
+``serve.decode_step`` fault seam are the reference's.
+
+With ``aot_store=`` every device step runs through an
+:class:`~..aot.AotFunction` under the reference's tags
+(``gen_decode_paged``, ``gen_prefill_chunk``, ``gen_sample``; dense:
+``gen_decode_dense``, ``gen_prefill_dense``, ``gen_slot_insert``): on the
+card a CUDA graph per step shape and params generation, captured at
+construction (``serve_cold_start_seconds{component="generate"}``) and for
+each publish candidate before the flip, then replayed; each step's host
+ints are copied into its graph's static buffer. Sampling's noise stays
+out of every graph: the sample graph computes the greedy tokens and the
+masked, scaled logits, and each sampled row's Gumbel noise is drawn
+eagerly from its own generator, so tokens under graphs equal the eager
+port's for the same seeds. ``strict_aot=True`` refuses, typed, a step the
+store does not cover; since the warm runs at construction, that fails the
+boot, never a request. Each prefill chunk and decode tick carries a
+padding hint for ``obs/profile``.
 
 Scope: embedding-front causal-attention stacks (the CausalLM family).
 """
@@ -60,12 +73,14 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..aot.compile import graphable
 from ..chaos import faults as _faults
 from ..nn.generation import (cache_spec, cast_bytes, categorical,
                              decode_forward, init_caches)
 from ..nn.layers import (EmbeddingSequence, MultiHeadAttention, Output,
                          PositionalEmbedding, RecurrentLayer,
                          TransformerEncoderBlock)
+from ..obs import profile as _prof
 from ..obs.metrics import MetricsRegistry
 from .engine import PrefillScheduler
 from .errors import (CapacityError, DeadlineExceededError, DrainTimeoutError,
@@ -75,8 +90,52 @@ from .paged import (BlockAllocator, PrefixCache, SlotPages, block_bytes,
                     blocks_needed, build_pools, prefix_hashes)
 from .registry import ModelRegistry
 
-_NOT_PORTED_AOT = ("the prebuilt-executable store is not ported yet "
-                   "(ROADMAP.md, Queue 1, item 13)")
+# Constructor knobs a tuned config (aot/tuned.py) may set on the batcher.
+# Unknown keys in a stored "gen" group are dropped, so configs written by a
+# newer tuner never break an older binary at boot.
+GEN_KNOBS = frozenset({"slots", "capacity", "kv", "block_size", "kv_blocks",
+                       "prefill_chunk", "prompt_buckets", "queue_limit",
+                       "seed", "prefix_cache", "prefix_cache_blocks"})
+
+
+def gen_opts_from_config(config: Optional[dict]) -> dict:
+    """The ``gen`` group of a tuned config as ContinuousBatcher kwargs.
+
+    The scheduler's ``decode_chunks``/``idle_chunks`` are stored as plain
+    values (the config is JSON) and folded into a ``PrefillScheduler``
+    here; everything else passes through filtered by :data:`GEN_KNOBS`.
+    """
+    group = dict((config or {}).get("gen") or {})
+    decode_chunks = group.pop("decode_chunks", None)
+    idle_chunks = group.pop("idle_chunks", None)
+    opts = {k: v for k, v in group.items() if k in GEN_KNOBS}
+    if decode_chunks is not None or idle_chunks is not None:
+        opts["scheduler"] = PrefillScheduler(
+            decode_chunks=int(1 if decode_chunks is None else decode_chunks),
+            idle_chunks=int(4 if idle_chunks is None else idle_chunks))
+    return opts
+
+
+def decode_refusal(model) -> Optional[str]:
+    """Why ``model`` cannot be decoded by the batcher whatever its knobs
+    (not an embedding-front token model, a recurrent layer, a non-causal
+    attention layer), or None when it can: such a model is served
+    predict-only."""
+    layers = list(getattr(model, "layers", None) or ())
+    if not layers or not isinstance(layers[0], EmbeddingSequence):
+        return ("continuous batching requires an embedding-front token "
+                "model (CausalLM family); one-hot char models stay on "
+                "nn.generation.generate")
+    for i, layer in enumerate(layers):
+        if isinstance(layer, RecurrentLayer):
+            return (f"layer {i} {type(layer).__name__}: recurrent carries "
+                    f"cannot survive a right-padded prefill — use "
+                    f"whole-batch nn.generation.generate for RNN models")
+        if isinstance(layer, (TransformerEncoderBlock,
+                              MultiHeadAttention)) and not layer.causal:
+            return (f"layer {i} {type(layer).__name__}(causal=False) cannot "
+                    f"be decoded autoregressively")
+    return None
 
 
 def _default_prompt_buckets(capacity: int) -> tuple:
@@ -245,8 +304,6 @@ class ContinuousBatcher:
                  scheduler: Optional[PrefillScheduler] = None,
                  aot_store=None, strict_aot: bool = False,
                  model_name: Optional[str] = None):
-        if aot_store is not None or strict_aot:
-            raise NotImplementedError(_NOT_PORTED_AOT)
         if kv not in ("paged", "dense"):
             raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
         self.model = model
@@ -272,22 +329,10 @@ class ContinuousBatcher:
             if b <= self.capacity))) or (self.capacity,)
 
         # --- model contract: embedding-front, causal, no recurrence ---
-        if not isinstance(model.layers[0], EmbeddingSequence):
-            raise ValueError(
-                "continuous batching requires an embedding-front token model "
-                "(CausalLM family); one-hot char models stay on "
-                "nn.generation.generate")
-        for i, layer in enumerate(model.layers):
-            if isinstance(layer, RecurrentLayer):
-                raise ValueError(
-                    f"layer {i} {type(layer).__name__}: recurrent carries "
-                    f"cannot survive a right-padded prefill — use whole-batch "
-                    f"nn.generation.generate for RNN models")
-            if isinstance(layer, (TransformerEncoderBlock,
-                                  MultiHeadAttention)) and not layer.causal:
-                raise ValueError(
-                    f"layer {i} {type(layer).__name__}(causal=False) cannot "
-                    f"be decoded autoregressively")
+        refusal = decode_refusal(model)
+        if refusal is not None:
+            raise ValueError(refusal)
+        for layer in model.layers:
             # a learned positional TABLE bounds context; rope models have no
             # such layer, so paged capacity may exceed the training length
             if isinstance(layer, PositionalEmbedding) \
@@ -301,6 +346,7 @@ class ContinuousBatcher:
         self.vocab = int(getattr(out_layer, "n_out", 0)
                          or model._shapes[-1][-1])
         S, C = self.slots, self.capacity
+        self._lks = [lk for lk, _, _ in cache_spec(model)]
 
         if kv == "paged":
             self.block_size = int(block_size)
@@ -337,7 +383,6 @@ class ContinuousBatcher:
             self._px_misses = 0
             self._pools = build_pools(model, self.kv_blocks, self.block_size,
                                       model.dtype)
-            self._lks = [lk for lk, _, _ in cache_spec(model)]
             self._tables_np = np.zeros((S, self._maxb), np.int64)
             self._slot_pages: List[Optional[SlotPages]] = [None] * S
             self._slot_worst = np.zeros(S, np.int64)
@@ -370,9 +415,9 @@ class ContinuousBatcher:
         self._peak_blocks = 0
         self._prefill_sigs = set()
         self._decode_sigs = set()
-        # the compute-dtype copies of one params generation (worker only)
-        self._casts: dict = {}
-        self._casts_gen: Optional[int] = None
+        # generation -> the compute-dtype copies of its params
+        self._casts: Dict[int, dict] = {}
+        self._aot_fns: Dict[str, object] = {}
 
         self._next_tok = np.zeros(S, np.int64)
         self._pos = np.zeros(S, np.int64)
@@ -444,11 +489,66 @@ class ContinuousBatcher:
                 help="slots forked by block-table row copy")
             self._update_kv_gauges()
 
+        # --- prebuilt-executable store (optional): every device step runs
+        # through an AotFunction, warmed here so the decode loop never
+        # captures in the request path. strict_aot: a store miss raises a
+        # typed AotTraceError instead of capturing, and since the warm runs
+        # at construction, the first uncovered step fails the boot ---
+        self.strict_aot = bool(strict_aot)
+        if self.strict_aot and aot_store is None:
+            raise ValueError("strict_aot=True requires an aot_store — "
+                             "a storeless batcher can only capture")
+        if aot_store is not None:
+            from ..aot import AotFunction, arch_fingerprint, boot_kernels
+
+            boot_kernels(aot_store, self.device, self.strict_aot)
+            snap0 = self.registry.current()
+            arch = arch_fingerprint(snap0.params, snap0.state)
+            steps = {"gen_sample": self._sample_fn}
+            if kv == "paged":
+                steps["gen_decode_paged"] = self._decode_paged_fn
+                steps["gen_prefill_chunk"] = self._prefill_paged_fn
+            else:
+                steps["gen_decode_dense"] = self._decode_dense_fn
+                steps["gen_prefill_dense"] = self._prefill_dense_fn
+                steps["gen_slot_insert"] = self._slot_insert_fn
+            for tag, fn in steps.items():
+                self._aot_fns[tag] = AotFunction(
+                    fn, tag=tag, store=aot_store, metrics=m, arch=arch,
+                    component="generate", compile_counter=self._m_compiles,
+                    strict=self.strict_aot, device=self.device,
+                    # a slot insert makes nothing lazily, and its warm-up
+                    # would write a live slot during a publish
+                    warmup=tag != "gen_slot_insert")
+            t0 = time.perf_counter()
+            self._warm_for(snap0)
+            m.gauge("serve_cold_start_seconds",
+                    self._lbl({"component": "generate"}),
+                    help="wall time to materialize the serving executables"
+                    ).set(time.perf_counter() - t0)
+            # capture-before-flip: publish warms the candidate's full
+            # decode/prefill/sample graph set
+            self.registry.add_warmer(self._warm_for,
+                                     abort=self._abort_for)
+
         self._spawn_worker()
 
     @classmethod
-    def from_tuned(cls, *args, **kwargs) -> "ContinuousBatcher":
-        raise NotImplementedError(_NOT_PORTED_AOT)
+    def from_tuned(cls, model, aot_store, workload_fingerprint: str, *,
+                   registry=None, params=None, state=None, metrics=None,
+                   model_name=None, **overrides) -> "ContinuousBatcher":
+        """Boot with knobs resolved from the store's tuned config for
+        (current runtime fingerprint, ``workload_fingerprint``) — see
+        ``aot/tuned.py``. Explicit ``overrides`` win; a miss boots the
+        constructor defaults."""
+        from ..aot.tuned import get_tuned
+
+        config = get_tuned(aot_store, workload_fingerprint, metrics=metrics)
+        opts = gen_opts_from_config(config)
+        opts.update(overrides)
+        return cls(model, registry=registry, params=params, state=state,
+                   metrics=metrics, aot_store=aot_store,
+                   model_name=model_name, **opts)
 
     def _spawn_worker(self) -> None:
         self._hb = time.monotonic()
@@ -467,120 +567,226 @@ class ContinuousBatcher:
         gen.manual_seed(int.from_bytes(digest[:8], "little") >> 1)
         return gen
 
-    def _to_device(self, *arrays) -> torch.Tensor:
-        """Host int arrays as ONE int64 tensor on the device (one copy)."""
-        host = np.concatenate([np.asarray(a, np.int64).ravel()
-                               for a in arrays])
-        return torch.from_numpy(host).to(self.device, non_blocking=True)
+    def _casts_of(self, generation: int) -> dict:
+        """The compute-dtype copies of one params generation's weights,
+        memoized per generation (same bits as casting every call): a
+        publish's warm fills the candidate's beside the current one's."""
+        with self._cond:
+            return self._casts.setdefault(generation, {})
 
     def _casts_for(self, snap) -> dict:
-        """The compute-dtype copies of ``snap``'s params, memoized for its
-        generation (same bits as casting every call; a publish drops
-        them)."""
-        if self._casts_gen != snap.generation:
-            self._casts, self._casts_gen = {}, snap.generation
-        return self._casts
+        """The worker's casts for ``snap``: older generations' are dropped
+        (the worker leases in generation order; a graph keeps what it
+        read)."""
+        with self._cond:
+            for g in [g for g in self._casts if g < snap.generation]:
+                del self._casts[g]
+        return self._casts_of(snap.generation)
 
     def cast_bytes(self) -> int:
-        """Device bytes held by the current generation's cast copies."""
-        return cast_bytes(self._casts)
+        """Device bytes held by the compute casts of every generation."""
+        with self._cond:
+            return sum(cast_bytes(c) for c in self._casts.values())
 
-    def _sample(self, logits, temps: np.ndarray, topks: np.ndarray,
-                gens: List[Optional[torch.Generator]]) -> torch.Tensor:
-        """Next token per row of (n, V) f32 ``logits``: greedy where the
-        temperature is <= 0, else top-k (ties kept) Gumbel-max sampling of
-        ``logits / max(temperature, 1e-6)`` with noise from the row's
-        generator (rows without one are greedy)."""
-        greedy = torch.argmax(logits, dim=-1)
-        if all(g is None for g in gens):
-            return greedy
-        V = logits.shape[-1]
-        k = V - np.clip(topks, 1, V)
-        # one copy: the temperatures ride as their f32 bit patterns
-        packed = self._to_device(k, np.asarray(temps, np.float32).view(
-            np.int32))
+    # --- the device steps: fn(weights, *inputs), run through _step (an
+    # AotFunction with a store: CUDA graphs on the card) ---
+    def _step(self, tag: str, fn, generation: int, weights, *inputs):
+        aot = self._aot_fns.get(tag)
+        if aot is None:
+            return fn(weights, *inputs)
+        return aot(generation, weights, *inputs)
+
+    def _ints(self, *arrays) -> torch.Tensor:
+        """Host int arrays as ONE int64 host tensor (a step copies it to
+        the device, or into its graph's static buffer: one copy)."""
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.int64).ravel() for a in arrays]))
+
+    def _paged_weights(self, snap) -> tuple:
+        return (snap.params, snap.state, self._casts_for(snap), self._pools)
+
+    @graphable
+    def _sample_fn(self, weights, logits, packed):
+        """The deterministic part of sampling over (S, V) f32 ``logits``:
+        the greedy tokens, and ``logits / max(temperature, 1e-6)`` with
+        everything below the row's k-th largest masked to -1e30
+        (``packed``: the S values V - top_k, then the S temperatures as
+        their f32 bit patterns)."""
+        logits = logits.to(self.device)
+        packed = packed.to(self.device, non_blocking=True)
         n = logits.shape[0]
+        greedy = torch.argmax(logits, dim=-1)
         kidx = packed[:n]
         t = packed[n:].to(torch.int32).view(torch.float32)
         scaled = logits / t.clamp_min(1e-6)[:, None]
         kth = torch.sort(scaled, dim=-1).values.gather(1, kidx[:, None])
         masked = torch.where(scaled >= kth, scaled,
                              torch.full_like(scaled, -1e30))
+        return masked, greedy, t
+
+    def _sample(self, generation: int, logits, greedy, temps: np.ndarray,
+                topks: np.ndarray, gens: List[Optional[torch.Generator]]
+                ) -> torch.Tensor:
+        """Next token per row of (S, V) f32 ``logits``: greedy where the
+        temperature is <= 0, else top-k (ties kept) Gumbel-max sampling of
+        ``logits / max(temperature, 1e-6)`` with noise from the row's
+        generator (rows without one are greedy). The noise is drawn
+        eagerly, outside any graph, from each row's own generator."""
+        if all(g is None for g in gens):
+            return greedy
+        V = logits.shape[-1]
+        k = V - np.clip(topks, 1, V)
+        # one copy: the temperatures ride as their f32 bit patterns
+        packed = self._ints(k, np.asarray(temps, np.float32).view(np.int32))
+        masked, greedy, t = self._step("gen_sample", self._sample_fn,
+                                       generation, None, logits, packed)
         samp = categorical(masked, gens)
         return torch.where(t > 0.0, samp, greedy)
 
-    def _decode_paged(self, params, state, casts, toks, pos, tables, temps,
-                      topks, gens) -> np.ndarray:
+    def _sample_one(self, generation: int, last, temperature: float,
+                    top_k: Optional[int], gen) -> int:
+        """The first token of a request from its prompt's last logits (1,
+        V): row 0 of an all-slots sample, the other rows greedy and
+        discarded (one sample shape for the server's life)."""
+        S = self.slots
+        logits = torch.zeros((S, last.shape[-1]), dtype=torch.float32,
+                             device=last.device)
+        logits[0] = last[0]
+        temps = np.zeros(S, np.float32)
+        temps[0] = temperature
+        topks = np.full(S, self.vocab, np.int64)
+        topks[0] = top_k if top_k else self.vocab
+        greedy = torch.argmax(logits, dim=-1)
+        gens = [gen if temperature > 0 else None] + [None] * (S - 1)
+        return int(self._sample(generation, logits, greedy, temps, topks,
+                                gens)[0])
+
+    @graphable
+    def _decode_paged_fn(self, weights, ints):
+        """One token for every slot against the shared pools (``ints``:
+        tokens, positions, then the (S, maxb) block tables). Returns the
+        (S, V) f32 logits and the greedy tokens."""
+        params, state, casts, pools = weights
+        S = self.slots
+        ints = ints.to(self.device, non_blocking=True)
+        tables_d = ints[2 * S:].view(S, self._maxb)
+        caches = {lk: {"k_pool": pools[lk]["k"], "v_pool": pools[lk]["v"],
+                       "tables": tables_d} for lk in self._lks}
+        lg, _ = decode_forward(self.model, params, state, ints[:S, None],
+                               caches, ints[S:2 * S], casts=casts)
+        logits = lg[:, 0]
+        return logits, torch.argmax(logits, dim=-1)
+
+    @graphable
+    def _decode_dense_fn(self, weights, ints):
+        """One token for every slot against the slot-major caches
+        (``ints``: tokens, then positions)."""
+        params, state, casts, caches = weights
+        S = self.slots
+        ints = ints.to(self.device, non_blocking=True)
+        lg, _ = decode_forward(self.model, params, state, ints[:S, None],
+                               caches, ints[S:], casts=casts)
+        logits = lg[:, 0]
+        return logits, torch.argmax(logits, dim=-1)
+
+    def _decode_paged(self, snap, toks, pos, tables, temps, topks,
+                      gens) -> np.ndarray:
         """One token for every slot against the shared pools: inactive
         slots carry zeroed table rows, so their writes land in the trash
         block and their samples are discarded. Returns the S next tokens
         on the host (the tick's one sync)."""
-        S = self.slots
-        ints = self._to_device(toks, pos, tables)
-        tables_d = ints[2 * S:].view(S, self._maxb)
-        caches = {lk: {"k_pool": self._pools[lk]["k"],
-                       "v_pool": self._pools[lk]["v"],
-                       "tables": tables_d} for lk in self._lks}
-        lg, _ = decode_forward(self.model, params, state, ints[:S, None],
-                               caches, ints[S:2 * S], casts=casts)
-        return self._sample(lg[:, 0], temps, topks, gens).cpu().numpy()
+        logits, greedy = self._step(
+            "gen_decode_paged", self._decode_paged_fn, snap.generation,
+            self._paged_weights(snap), self._ints(toks, pos, tables))
+        return self._sample(snap.generation, logits, greedy, temps, topks,
+                            gens).cpu().numpy()
 
-    def _decode_dense(self, params, state, casts, toks, pos, tables, temps,
-                      topks, gens) -> np.ndarray:
+    def _decode_dense(self, snap, toks, pos, tables, temps, topks,
+                      gens) -> np.ndarray:
         """One token for every slot against the slot-major caches."""
-        S = self.slots
-        ints = self._to_device(toks, pos)
-        lg, _ = decode_forward(self.model, params, state, ints[:S, None],
-                               self._caches, ints[S:], casts=casts)
-        return self._sample(lg[:, 0], temps, topks, gens).cpu().numpy()
+        logits, greedy = self._step(
+            "gen_decode_dense", self._decode_dense_fn, snap.generation,
+            (snap.params, snap.state, self._casts_for(snap), self._caches),
+            self._ints(toks, pos))
+        return self._sample(snap.generation, logits, greedy, temps, topks,
+                            gens).cpu().numpy()
 
-    def _prefill_paged(self, params, state, casts, ids, table_row, off,
-                       true_len):
-        """One prompt chunk for one slot: ``ids`` (bucket,) right-padded at
-        offset ``off``; pad garbage past the row's blocks lands in the
-        trash block. Returns the logits at the last REAL token (1, V)."""
-        b = ids.shape[0]
-        ints = self._to_device(ids, table_row, [off])
-        caches = {lk: {"k_pool": self._pools[lk]["k"],
-                       "v_pool": self._pools[lk]["v"],
+    @graphable
+    def _prefill_paged_fn(self, weights, ints):
+        """One prompt chunk for one slot (``ints``: the (bucket,) ids
+        right-padded, the slot's table row, then the chunk's offset); pad
+        garbage past the row's blocks lands in the trash block. Returns
+        the (1, bucket, V) logits."""
+        params, state, casts, pools = weights
+        ints = ints.to(self.device, non_blocking=True)
+        b = ints.shape[0] - self._maxb - 1
+        caches = {lk: {"k_pool": pools[lk]["k"], "v_pool": pools[lk]["v"],
                        "tables": ints[b:b + self._maxb].view(1, -1)}
                   for lk in self._lks}
         lg, _ = decode_forward(self.model, params, state, ints[None, :b],
                                caches, ints[-1:], casts=casts)
-        return lg[:, true_len - 1]
+        return lg
 
-    def _prefill_dense(self, params, state, casts, ids, true_len):
+    def _prefill_paged(self, snap, ids, table_row, off, true_len):
+        """One prompt chunk for one slot; returns the logits at the last
+        REAL token (1, V), a copy of its own."""
+        lg = self._step("gen_prefill_chunk", self._prefill_paged_fn,
+                        snap.generation, self._paged_weights(snap),
+                        self._ints(ids, table_row, [off]))
+        return lg[:, true_len - 1].clone()
+
+    @graphable
+    def _prefill_dense_fn(self, weights, ids):
         """Prefill ``ids`` (bucket,) into a fresh one-row cache; returns
-        (logits at the last REAL token (1, V), the cache)."""
+        the (1, bucket, V) logits and the cache's K and V per layer."""
+        params, state, casts = weights
         cache = init_caches(self.model, 1, self.capacity, self.model.dtype)
         lg, cache = decode_forward(self.model, params, state,
-                                   self._to_device(ids)[None], cache, 0,
+                                   ids.to(self.device)[None], cache, 0,
                                    casts=casts)
-        return lg[:, true_len - 1], cache
+        return lg, tuple(t for lk in self._lks
+                         for t in (cache[lk]["k"], cache[lk]["v"]))
+
+    @graphable
+    def _slot_insert_fn(self, caches, slot, *kv):
+        """Copy a one-row cache (K and V per layer, ``_lks`` order) into
+        slot ``slot`` ((1,) int64) of the slot-major caches."""
+        slot = slot.to(self.device)
+        for i, lk in enumerate(self._lks):
+            caches[lk]["k"].index_copy_(0, slot, kv[2 * i])
+            caches[lk]["v"].index_copy_(0, slot, kv[2 * i + 1])
+
+    def _prefill_dense(self, snap, ids, true_len):
+        """Prefill ``ids`` (bucket,) into a fresh one-row cache; returns
+        (logits at the last REAL token (1, V), the cache's tensors)."""
+        lg, kv = self._step("gen_prefill_dense", self._prefill_dense_fn,
+                            snap.generation,
+                            (snap.params, snap.state, self._casts_for(snap)),
+                            torch.from_numpy(np.asarray(ids, np.int64)))
+        return lg[:, true_len - 1].clone(), kv
 
     def step_probe(self, kind: str = "decode", size: int = 0, *,
                    sampled: int = 0, temperature: float = 1.0,
                    top_k: Optional[int] = None):
         """A callable that runs one step of the worker's device work by
-        itself, to profile or time it (paged mode, with nothing in flight):
-        ``"decode"`` is one all-slots tick whose first ``sampled`` rows
-        sample at ``temperature`` and ``top_k`` (the rest greedy), and
-        returns after the tick's host sync; ``"prefill"`` is one chunk of
-        ``size`` tokens for one row, returned without a sync. Every table
-        row is zero, so each KV write lands in the trash block and no
-        request's pages are touched."""
+        itself, to profile or time it (paged mode, with nothing in flight;
+        with a store, a replay of the step's graph): ``"decode"`` is one
+        all-slots tick whose first ``sampled`` rows sample at
+        ``temperature`` and ``top_k`` (the rest greedy), and returns after
+        the tick's host sync; ``"prefill"`` is one chunk of ``size``
+        tokens for one row, returned without a sync. Every table row is
+        zero, so each KV write lands in the trash block and no request's
+        pages are touched."""
         if self.kv != "paged":
             raise ValueError("step_probe needs kv='paged'")
         snap = self.registry.current()
-        casts = self._casts_for(snap)
         S = self.slots
         if kind == "prefill":
             ids, row = np.zeros(size, np.int64), np.zeros(self._maxb, np.int64)
 
             def prefill():
                 with torch.inference_mode():
-                    return self._prefill_paged(snap.params, snap.state, casts,
-                                               ids, row, 0, size)
+                    return self._prefill_paged(snap, ids, row, 0, size)
             return prefill
         if kind != "decode":
             raise ValueError(f"unknown step kind {kind!r}")
@@ -594,15 +800,66 @@ class ContinuousBatcher:
 
         def decode():
             with torch.inference_mode():
-                return self._decode_paged(snap.params, snap.state, casts,
-                                          zeros, zeros, tables, temps, topks,
-                                          gens)
+                return self._decode_paged(snap, zeros, zeros, tables, temps,
+                                          topks, gens)
         return decode
+
+    # ---------------------------------------------------------------- warming
+    def _warm_for(self, snap) -> None:
+        """Make the full static executable set for one params generation —
+        the lifetime decode step, every prefill bucket, and the sampler —
+        from the store (on the card: captured graphs). Runs at
+        construction for the current generation and as a registry warmer
+        for each publish candidate. Each warm-up input writes nowhere
+        live: zero block tables land in the trash block, dense positions
+        at the capacity are dropped."""
+        S, V, gen = self.slots, self.vocab, snap.generation
+        with torch.inference_mode():
+            self._aot_fns["gen_sample"].warm(
+                gen, None, torch.zeros((S, V), dtype=torch.float32),
+                self._ints(np.zeros(S), np.zeros(S)))
+            casts = self._casts_of(gen)
+            if self.kv == "paged":
+                w = (snap.params, snap.state, casts, self._pools)
+                self._aot_fns["gen_decode_paged"].warm(
+                    gen, w, self._ints(np.zeros(2 * S + S * self._maxb)))
+                for b in self._chunk_buckets:
+                    self._aot_fns["gen_prefill_chunk"].warm(
+                        gen, w, self._ints(np.zeros(b + self._maxb + 1)))
+            else:
+                self._aot_fns["gen_decode_dense"].warm(
+                    gen, (snap.params, snap.state, casts, self._caches),
+                    self._ints(np.zeros(S), np.full(S, self.capacity)))
+                for b in self.prompt_buckets:
+                    self._aot_fns["gen_prefill_dense"].warm(
+                        gen, (snap.params, snap.state, casts),
+                        torch.zeros(b, dtype=torch.int64))
+                one = init_caches(self.model, 1, self.capacity,
+                                  self.model.dtype)
+                self._aot_fns["gen_slot_insert"].warm(
+                    gen, self._caches, torch.zeros(1, dtype=torch.int64),
+                    *(t for lk in self._lks
+                      for t in (one[lk]["k"], one[lk]["v"])))
+
+    def _abort_for(self, snap) -> None:
+        """Registry abort hook: a failed publish's graphs and compute
+        casts go (the next publish reuses its generation number)."""
+        for fn in self._aot_fns.values():
+            fn.drop(snap.generation)
+        with self._cond:
+            self._casts.pop(snap.generation, None)
+
+    def aot_functions(self) -> dict:
+        """Tag -> :class:`~..aot.AotFunction` for every store-backed
+        generation executable ({} without a store) — how a prebuild run
+        gathers the concrete keys for the coverage record."""
+        return dict(self._aot_fns)
 
     def _copy_blocks(self, pairs: List[tuple]) -> None:
         """Copy-on-write device work: duplicate each ``(src, dst)`` block
         in every layer's K/V pool."""
-        idx = self._to_device([p[0] for p in pairs], [p[1] for p in pairs])
+        idx = self._ints([p[0] for p in pairs], [p[1] for p in pairs]).to(
+            self.device, non_blocking=True)
         src, dst = idx[:len(pairs)], idx[len(pairs):]
         for lk in self._lks:
             pool = self._pools[lk]
@@ -959,7 +1216,9 @@ class ContinuousBatcher:
             sig = ("prefill", bucket)
             if sig not in self._prefill_sigs:
                 self._prefill_sigs.add(sig)
-                self._m_compiles.inc()
+                # with a store, AotFunction counts captures without record
+                if not self._aot_fns:
+                    self._m_compiles.inc()
 
     def _prefill_step(self, job: _PrefillJob, snap) -> None:
         """Advance one chunk of one prompt (paged mode)."""
@@ -973,10 +1232,10 @@ class ContinuousBatcher:
             self._update_kv_gauges()
         ids = np.zeros(bucket, np.int64)
         ids[:true_len] = job.req.prompt[off:off + true_len]
+        if _prof.ACTIVE is not None:
+            _prof.ACTIVE.hint("generate", true_len, bucket)
         t0 = time.perf_counter()
-        job.last = self._prefill_paged(snap.params, snap.state,
-                                       self._casts_for(snap), ids, table_row,
-                                       off, true_len)
+        job.last = self._prefill_paged(snap, ids, table_row, off, true_len)
         t1 = time.perf_counter()
         ctx = job.req.ctx
         if ctx is None:
@@ -994,9 +1253,9 @@ class ContinuousBatcher:
         job.idx += 1
         self._note_prefill(bucket)
         if job.idx == len(job.chunks):
-            self._finish_prefill(job)
+            self._finish_prefill(job, snap.generation)
 
-    def _start_decoding(self, s: int, req: _GenRequest, last,
+    def _start_decoding(self, s: int, req: _GenRequest, last, generation: int,
                         job: Optional[_PrefillJob] = None) -> None:
         """Sample the first token from the prompt's last logits with the
         request's generator, then flip slot ``s`` to decoding (retiring
@@ -1010,10 +1269,8 @@ class ContinuousBatcher:
             self._admitted += 1
             n = self._admitted
         gen = self._generator("admit", n)
-        temps = np.asarray([req.temperature], np.float32)
-        topks = np.asarray([req.top_k if req.top_k else self.vocab])
-        tok0 = int(self._sample(last, temps, topks,
-                                [gen if req.temperature > 0 else None])[0])
+        tok0 = self._sample_one(generation, last, req.temperature, req.top_k,
+                                gen)
         with self._cond:
             if job is not None:
                 if self._slot_job[s] is not job:
@@ -1039,7 +1296,7 @@ class ContinuousBatcher:
         # a 1-token request (or instant EOS) finishes without ever decoding
         self._maybe_finish(s)
 
-    def _finish_prefill(self, job: _PrefillJob) -> None:
+    def _finish_prefill(self, job: _PrefillJob, generation: int) -> None:
         """Last chunk done: cache the prompt's full blocks, then sample the
         first token and flip the slot from prefilling to decoding."""
         req, s = job.req, job.slot
@@ -1055,7 +1312,7 @@ class ContinuousBatcher:
                 nfull = req.prompt.shape[0] // self.block_size
                 self._prefix.insert(job.hashes[:nfull],
                                     job.pages.blocks[:nfull], gen_now)
-        self._start_decoding(s, req, job.last, job)
+        self._start_decoding(s, req, job.last, generation, job)
 
     def _admit_into_slot(self, s: int, req: _GenRequest, snap) -> None:
         """Dense admission: whole-prompt prefill under the caller's lease,
@@ -1064,9 +1321,10 @@ class ContinuousBatcher:
         bucket = self._bucket(tp)
         ids = np.zeros(bucket, np.int64)
         ids[:tp] = req.prompt
+        if _prof.ACTIVE is not None:
+            _prof.ACTIVE.hint("generate", tp, bucket)
         t0 = time.perf_counter()
-        last, cache = self._prefill_dense(snap.params, snap.state,
-                                          self._casts_for(snap), ids, tp)
+        last, kv = self._prefill_dense(snap, ids, tp)
         t1 = time.perf_counter()
         if req.ctx is None:
             self._m_prefill_s.observe(t1 - t0)
@@ -1075,11 +1333,10 @@ class ContinuousBatcher:
             req.ctx.add_stage("queue", int(req.enq_t * 1e9), int(t0 * 1e9))
             req.ctx.add_stage("prefill_chunk", int(t0 * 1e9), int(t1 * 1e9),
                               offset=0, bucket=bucket)
-        for lk in cache:
-            self._caches[lk]["k"][s].copy_(cache[lk]["k"][0])
-            self._caches[lk]["v"][s].copy_(cache[lk]["v"][0])
+        self._step("gen_slot_insert", self._slot_insert_fn, snap.generation,
+                   self._caches, torch.tensor([s], dtype=torch.int64), *kv)
         self._note_prefill(bucket)
-        self._start_decoding(s, req, last)
+        self._start_decoding(s, req, last, snap.generation)
 
     def _maybe_finish(self, s: int) -> None:
         with self._cond:
@@ -1157,12 +1414,13 @@ class ContinuousBatcher:
             topks = np.array(self._topks)
             gens = [self._gens[s] if s in active and temps[s] > 0 else None
                     for s in range(self.slots)]
+        if _prof.ACTIVE is not None:
+            _prof.ACTIVE.hint("generate", len(active), self.slots)
         t0 = time.perf_counter()
         if cow:
             # the pools are only ever touched by this worker thread
             self._copy_blocks(cow)
-        nxt = self._decode(snap.params, snap.state, self._casts_for(snap),
-                           toks, pos, tables, temps, topks, gens)
+        nxt = self._decode(snap, toks, pos, tables, temps, topks, gens)
         t1 = time.perf_counter()
         self._m_decode_s.observe(t1 - t0)
         self._m_occupancy.observe(len(active) / self.slots)
@@ -1174,7 +1432,8 @@ class ContinuousBatcher:
             sig = ("decode", self.slots)
             if sig not in self._decode_sigs:
                 self._decode_sigs.add(sig)
-                self._m_compiles.inc()
+                if not self._aot_fns:  # with a store, AotFunction counts
+                    self._m_compiles.inc()
             t0_ns = t1_ns = -1  # ns conversion done lazily: traced reqs only
             for s in active:
                 req = self._slot_req[s]
@@ -1412,18 +1671,21 @@ class ContinuousBatcher:
 
     def release_device(self) -> None:
         """Drop every device tensor the batcher holds — the KV pools (or
-        dense caches), the compute casts, the per-slot generators — after
-        :meth:`shutdown`; the fleet calls it when a model pages out. The
-        batcher's decode step is a bound method of itself, so without this
-        its memory would wait for the cycle collector."""
+        dense caches), the compute casts, the per-slot generators, the
+        store-backed graphs and their pool — after :meth:`shutdown`; the
+        fleet calls it when a model pages out. The batcher's decode step
+        is a bound method of itself, so without this its memory would wait
+        for the cycle collector."""
         with self._cond:
             if self._thread.is_alive():
                 raise RuntimeError("release_device() needs a stopped worker")
             self._pools = None
             self._caches = None
-            self._casts, self._casts_gen = {}, None
+            self._casts = {}
             self._gens = [None] * self.slots
             self._decode = None
+        for fn in self._aot_fns.values():
+            fn.release()
 
     def shutdown(self, drain: bool = True,
                  timeout: Optional[float] = None) -> bool:

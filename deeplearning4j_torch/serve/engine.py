@@ -19,10 +19,17 @@ is thread-local). ``queue_depth`` (the Retry-After input) and the
 watchdog's ``heartbeat`` / ``worker_alive`` are the reference's, as are
 request traces (``ctx=`` on :meth:`~ServeEngine.submit` and
 :meth:`~ServeEngine.predict`: queue and device stages, exemplars on the
-latency histograms) and the ``serve.dispatch`` fault seam. Not ported
-yet: the prebuilt-executable store (``aot_store``, ``strict_aot``,
-``from_tuned``, ``warm``; ROADMAP.md, Queue 1, item 13) and the profiler
-hints (with ``obs/profile.py``, item 13).
+latency histograms) and the ``serve.dispatch`` fault seam.
+
+With ``aot_store=`` the default forward runs through an
+:class:`~..aot.AotFunction` (tag ``engine_forward``): on the card one CUDA
+graph per (batch bucket, example shape, dtype) and params generation, its
+input a static buffer the batch is copied into, captured by :meth:`warm`
+(or at a signature's first batch) and replayed after; ``strict_aot=True``
+answers a signature the store does not cover with a typed
+:class:`~.errors.AotTraceError` (503) instead of capturing. A publish
+captures the candidate's graphs for every signature served before the
+flip. Each dispatch carries a padding hint for ``obs/profile``.
 
 :class:`PrefillScheduler` (the continuous batcher's chunked-prefill
 policy) lives here, as in the reference.
@@ -38,7 +45,9 @@ import numpy as np
 import torch
 
 from ..chaos import faults as _faults
+from ..obs import profile as _prof
 from ..obs.metrics import MetricsRegistry
+from ..aot.compile import graphable
 from .errors import (CapacityError, DeadlineExceededError, DrainTimeoutError,
                      ServeError, ServerClosingError, ShedError,
                      WorkerStallError)
@@ -55,6 +64,11 @@ def example_shape(model) -> tuple:
     if hasattr(model, "input_shapes"):
         return tuple(model.input_shapes[model.inputs[0]])
     return tuple(model.input_shape)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    """A numpy dtype (or name) as torch's."""
+    return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
 
 
 def _to_numpy(y) -> np.ndarray:
@@ -137,6 +151,13 @@ class PrefillScheduler:
         return order[:budget]
 
 
+# Constructor knobs a tuned config (aot/tuned.py) may set on ServeEngine.
+# Anything else in a stored "engine" group is ignored, so an old binary can
+# resolve a config written by a newer tuner without crashing on boot.
+ENGINE_KNOBS = frozenset({"batch_buckets", "length_buckets", "queue_limit",
+                          "max_wait_ms", "default_timeout_ms", "admission"})
+
+
 class ServeEngine:
     """Micro-batching inference engine over a :class:`ModelRegistry`.
 
@@ -150,7 +171,9 @@ class ServeEngine:
     ``forward``: override the device function ``(params, state, x) -> y``
     (``x`` a numpy batch; ``y`` a tensor or array). By default
     ``model.forward`` runs on the model's device (a ``Graph`` answers with
-    its first output, as the reference's engine does).
+    its first output, as the reference's engine does). A provided forward
+    is used as it is, with the store off, as the reference's plain
+    callables are.
     """
 
     def __init__(self, model, registry: Optional[ModelRegistry] = None,
@@ -160,6 +183,7 @@ class ServeEngine:
                  queue_limit: int = 256, max_wait_ms: float = 2.0,
                  default_timeout_ms: Optional[float] = None,
                  admission: str = "shed", metrics=None, forward=None,
+                 aot_store=None, strict_aot: bool = False,
                  model_name: Optional[str] = None):
         if admission not in ("shed", "block"):
             raise ValueError(f"admission must be 'shed' or 'block', "
@@ -183,17 +207,20 @@ class ServeEngine:
         self.admission = admission
         self.metrics = metrics if metrics is not None else MetricsRegistry()
 
+        step = None
         if forward is None:
             dev = model.device
 
+            @graphable
+            def step(weights, x):
+                y = model.forward(weights[0], weights[1], x.to(dev),
+                                  training=False)[0]
+                return y[0] if isinstance(y, list) else y  # a Graph: first
+
             def forward(params, state, x):
                 with torch.inference_mode():
-                    y = model.forward(params, state,
-                                      torch.from_numpy(x).to(dev),
-                                      training=False)[0]
-                    if isinstance(y, list):  # a Graph: its first output
-                        y = y[0]
-                    return _to_numpy(y)
+                    return _to_numpy(step((params, state),
+                                          torch.from_numpy(x)))
 
         self._fwd = forward
 
@@ -202,6 +229,7 @@ class ServeEngine:
         self._depth_rows = 0
         self._closing = False
         self._sigs = set()          # (bucket, shape_key) ever run
+        self._graph_sigs = set()    # ... of them with a store executable
         self._batch_count = 0
         # crash-only worker lifecycle: the dispatcher runs under an epoch;
         # restart_worker() bumps it, sheds the abandoned in-flight batch with
@@ -231,7 +259,51 @@ class ServeEngine:
         self._m_deadline = m.counter("serve_deadline_expired_total",
                                      self._lbl(),
                                      help="requests expired before dispatch")
+
+        # --- prebuilt-executable store (optional): graphs per signature.
+        # strict_aot: a store miss raises a typed AotTraceError instead of
+        # capturing (the store was prebuilt for this serving config) ---
+        self.strict_aot = bool(strict_aot)
+        if self.strict_aot and aot_store is None:
+            raise ValueError("strict_aot=True requires an aot_store — "
+                             "a storeless engine can only capture")
+        self._aot = None
+        if aot_store is not None:
+            from ..aot import AotFunction, arch_fingerprint, boot_kernels
+
+            snap0 = self.registry.current()
+            wrapped = AotFunction(
+                step if step is not None else forward,
+                tag="engine_forward", store=aot_store, metrics=self.metrics,
+                arch=arch_fingerprint(snap0.params, snap0.state),
+                component="engine", compile_counter=self._m_compiles,
+                strict=self.strict_aot, device=model.device)
+            if wrapped.store is not None:  # plain-callable forwards opt out
+                boot_kernels(aot_store, model.device, self.strict_aot)
+                self._aot = wrapped
+                # capture-before-flip: a publish warms the candidate
+                # against every signature this engine has ever served
+                self.registry.add_warmer(self._warm_candidate,
+                                         abort=self._abort_candidate)
         self._spawn_worker()
+
+    @classmethod
+    def from_tuned(cls, model, aot_store, workload_fingerprint: str, *,
+                   registry=None, params=None, state=None, metrics=None,
+                   model_name=None, **overrides) -> "ServeEngine":
+        """Boot with knobs resolved from the store's tuned config for
+        (current runtime fingerprint, ``workload_fingerprint``) — see
+        ``aot/tuned.py``. Explicit keyword ``overrides`` always win over
+        the stored config; a miss boots the constructor defaults."""
+        from ..aot.tuned import get_tuned
+
+        config = get_tuned(aot_store, workload_fingerprint, metrics=metrics)
+        opts = {k: v for k, v in ((config or {}).get("engine") or {}).items()
+                if k in ENGINE_KNOBS}
+        opts.update(overrides)
+        return cls(model, registry=registry, params=params, state=state,
+                   metrics=metrics, aot_store=aot_store,
+                   model_name=model_name, **opts)
 
     def _spawn_worker(self) -> None:
         self._hb = time.monotonic()
@@ -415,13 +487,27 @@ class ServeEngine:
                     return  # staled mid-flight; restart answered the batch
                 if sig not in self._sigs:
                     self._sigs.add(sig)
-                    self._m_compiles.inc()
+                    # with a store, AotFunction counts the captures that
+                    # had no record
+                    if self._aot is None:
+                        self._m_compiles.inc()
                 self._batch_count += 1
                 seq = self._batch_count
             with self.registry.lease(tag="engine_batch") as snap:  # ONE generation per batch
+                if _prof.ACTIVE is not None:
+                    # annotate the dispatch with its padding economics
+                    _prof.ACTIVE.hint("engine", rows, bucket)
                 t0 = time.perf_counter()
                 try:
-                    y = _to_numpy(self._fwd(snap.params, snap.state, x))
+                    if self._aot is None:
+                        y = _to_numpy(self._fwd(snap.params, snap.state, x))
+                    else:
+                        with torch.inference_mode():
+                            y = _to_numpy(self._aot(
+                                snap.generation, (snap.params, snap.state),
+                                torch.from_numpy(x)))
+                        with self._cond:
+                            self._graph_sigs.add(sig)
                 except Exception as e:  # the dispatcher must outlive any bad batch
                     err = (e if isinstance(e, ServeError) else
                            ServeError(f"{type(e).__name__}: {e}",
@@ -559,6 +645,62 @@ class ServeEngine:
         self.registry.release_thread(old.ident if old is not None else None)
         return True
 
+    # ---------------------------------------------------------------- warming
+    def _example_shapes(self) -> List[tuple]:
+        ex = tuple(int(d) for d in example_shape(self.model))
+        if self.length_buckets is not None and len(ex) >= 1:
+            return [(int(t),) + ex[1:] for t in self.length_buckets]
+        return [ex]
+
+    def warm(self, dtype=np.float32) -> float:
+        """Make every (batch bucket × length bucket) forward graph up front
+        — a store hit, or captured once and recorded for the next boot.
+        Returns the wall time, also published as
+        ``serve_cold_start_seconds{component="engine"}``. No-op without a
+        store (the per-signature path stands). Strict: an uncovered
+        signature raises :class:`~.errors.AotTraceError` here."""
+        if self._aot is None:
+            return 0.0
+        snap = self.registry.current()
+        t0 = time.perf_counter()
+        key = str(np.dtype(dtype))
+        for b in self.batch_buckets:
+            for shp in self._example_shapes():
+                self._aot.warm(snap.generation, (snap.params, snap.state),
+                               torch.zeros((b,) + shp,
+                                           dtype=_torch_dtype(dtype)))
+                with self._cond:
+                    self._graph_sigs.add((b, shp, key))
+        elapsed = time.perf_counter() - t0
+        self.metrics.gauge(
+            "serve_cold_start_seconds", self._lbl({"component": "engine"}),
+            help="wall time to materialize the serving executables"
+            ).set(elapsed)
+        return elapsed
+
+    def _warm_candidate(self, snap) -> None:
+        """Registry warmer: capture a candidate generation's graphs for
+        every signature this engine holds one for (warmed or served; a
+        signature the store refused stays out), BEFORE traffic flips onto
+        it."""
+        with self._cond:
+            sigs = set(self._graph_sigs)
+        for bucket, ex_shape, dtype in sigs:
+            self._aot.warm(snap.generation, (snap.params, snap.state),
+                           torch.zeros((bucket,) + tuple(ex_shape),
+                                       dtype=_torch_dtype(dtype)))
+
+    def _abort_candidate(self, snap) -> None:
+        """Registry abort hook: a failed publish's graphs go (the next
+        publish reuses its generation number)."""
+        self._aot.drop(snap.generation)
+
+    def aot_functions(self) -> dict:
+        """Tag -> :class:`~..aot.AotFunction` for this engine's store-backed
+        executables ({} without a store) — how a prebuild run gathers the
+        concrete keys it stamps into the coverage record."""
+        return {} if self._aot is None else {"engine_forward": self._aot}
+
     # -------------------------------------------------------------- lifecycle
     @property
     def compile_signatures(self) -> set:
@@ -591,6 +733,8 @@ class ServeEngine:
             self._cond.notify_all()
         self._thread.join(timeout)
         if not self._thread.is_alive():
+            if self._aot is not None:
+                self._aot.release()  # the graphs and the weights they hold
             return True
         with self._cond:
             self._epoch += 1  # stale the wedged worker

@@ -82,8 +82,12 @@ class CapacityError(ServeError):
 
 class AotTraceError(ServeError):
     """Strict prebuilt-executable serving hit a signature its store does
-    not cover (HTTP 503). Kept for the shared error surface; the port's
-    prebuilt-executable store comes in a later slice."""
+    not cover. A strict replica is deployed on the contract that every
+    serving graph was prebuilt (``python -m deeplearning4j_torch.aot
+    prebuild``); capturing at request time would mean the deployed store
+    diverged from the serving config, so the miss is answered as a typed
+    503, counted on ``serve_aot_strict_misses_total``, and at boot time it
+    fails readiness outright. Never a silent capture (HTTP 503)."""
 
     cause = "aot_trace"
     http_status = 503

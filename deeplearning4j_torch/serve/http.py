@@ -27,15 +27,22 @@ Endpoints:
   · ``GET /metrics`` (OpenMetrics with exemplars on request)
 - ``GET /v1/debug/requests`` (the flight recorder's request ring) ·
   ``GET /v1/debug/flight`` (its whole snapshot; 404 without a recorder) ·
+  ``GET /v1/debug/profile`` (the dispatch profiler's top executables,
+  ``{"enabled": false}`` without one) ·
   ``/v1/debug/chaos`` (GET echo / POST install-or-uninstall fault specs)
   when constructed with ``chaos_admin=True`` — 404 otherwise.
 
 With a request tracer installed (``obs.reqtrace.install``) each POST
 begins a trace (joining the caller's ``traceparent``), passes it down as
 ``ctx=`` and echoes ``X-Request-Id`` and ``traceparent``; POST handlers
-carry the ``http.handler`` fault seam. Not ported yet: the
-prebuilt-executable store (``aot_*``; ROADMAP.md, Queue 1, item 13) and
-``/v1/debug/profile`` (with ``obs/profile.py``, item 13; answers 404).
+carry the ``http.handler`` fault seam.
+
+With ``aot_store=`` the engine's graphs are made at boot (``warm``) and a
+strict server (``strict_aot=True``) also builds its generation stack at
+boot, so an uncovered signature fails the boot with
+:class:`~.errors.AotTraceError`, never a request; ``aot_manifest=`` (a
+path or a loaded manifest) refuses to boot unless the store's coverage
+record for this runtime covers every signature of the manifest.
 """
 
 from __future__ import annotations
@@ -52,10 +59,11 @@ import numpy as np
 
 from ..chaos import faults as _faults
 from ..obs import flight as _flight
+from ..obs import profile as _profile
 from ..obs import reqtrace as _rt
 from ..obs.metrics import MetricsRegistry
 from ..utils.httpd import JsonHTTPServerMixin, JsonRequestHandler
-from .continuous import ContinuousBatcher
+from .continuous import ContinuousBatcher, decode_refusal
 from .engine import ServeEngine, example_shape
 from .errors import ServeError
 from .health import Health
@@ -165,10 +173,6 @@ class ModelServer(JsonHTTPServerMixin):
                  aot_store=None, strict_aot: bool = False,
                  aot_manifest=None, watchdog_s: Optional[float] = None,
                  chaos_admin: bool = False, jitter_rng=None):
-        if aot_store is not None or strict_aot or aot_manifest is not None:
-            raise NotImplementedError(
-                "the prebuilt-executable store is not ported yet "
-                "(ROADMAP.md, Queue 1, item 13)")
         self.model = model
         self.jitter_rng = jitter_rng
         # debug-only surface: /v1/debug/chaos answers 404 unless opted in,
@@ -177,7 +181,31 @@ class ModelServer(JsonHTTPServerMixin):
         self.host = host
         self.port = port
         self.input_dtype = input_dtype
+        self.aot_store = aot_store
+        self.strict_aot = bool(strict_aot)
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        if self.strict_aot and aot_store is None:
+            raise ValueError("strict_aot=True requires an aot_store")
+        if aot_manifest is not None:
+            # boot-time coverage gate: the store must hold a prebuild
+            # coverage record for (this runtime, this manifest) with every
+            # key still present, BEFORE any stack is built
+            from ..aot import load_manifest, missing_signatures
+            from ..aot.keys import runtime_fingerprint
+            from .errors import AotTraceError
+
+            if aot_store is None:
+                raise ValueError("aot_manifest requires an aot_store")
+            manifest = (aot_manifest if isinstance(aot_manifest, dict)
+                        else load_manifest(aot_manifest))
+            missing = missing_signatures(aot_store, manifest,
+                                         runtime_fingerprint(model.device))
+            if missing:
+                head = "; ".join(missing[:4])
+                raise AotTraceError(
+                    f"AOT store does not cover prebuild manifest "
+                    f"{manifest.get('hash')}: {len(missing)} obligation(s) "
+                    f"unmet — {head}")
         if registry is None:
             registry = (engine.registry if engine is not None else
                         ModelRegistry(
@@ -189,14 +217,22 @@ class ModelServer(JsonHTTPServerMixin):
             model, registry=registry, batch_buckets=batch_buckets,
             length_buckets=length_buckets, queue_limit=queue_limit,
             max_wait_ms=max_wait_ms, default_timeout_ms=default_timeout_ms,
-            metrics=self.metrics)
+            metrics=self.metrics, aot_store=aot_store,
+            strict_aot=self.strict_aot)
+        if engine is None and aot_store is not None:
+            # make the predict graphs now (store hit, or captured once and
+            # recorded): the first request never waits on a capture.
+            # Strict: an uncovered signature raises AotTraceError HERE
+            self.engine.warm(input_dtype)
         self._gen_opts = dict(slots=gen_slots, capacity=gen_capacity,
                               queue_limit=gen_queue_limit, kv=gen_kv,
                               block_size=gen_block_size,
                               kv_blocks=gen_kv_blocks,
                               prefix_cache=gen_prefix_cache,
                               prefix_cache_blocks=gen_prefix_cache_blocks,
-                              prefill_chunk=gen_prefill_chunk, seed=seed)
+                              prefill_chunk=gen_prefill_chunk, seed=seed,
+                              aot_store=aot_store,
+                              strict_aot=self.strict_aot)
         if gen_kv == "dense":
             # the dense batcher takes no paging knobs
             for k in ("block_size", "kv_blocks", "prefill_chunk",
@@ -205,6 +241,14 @@ class ModelServer(JsonHTTPServerMixin):
         self._batcher: Optional[ContinuousBatcher] = None
         self._lifecycle_lock = threading.Lock()
         self._accepting = True
+        if self.strict_aot:
+            # strict boots verify the WHOLE surface up front: build the
+            # generation stack now so its warm-at-construction raises
+            # AotTraceError at boot on any uncovered signature (and a bad
+            # generation knob its ValueError); a model the batcher cannot
+            # decode is a predict-only deployment
+            if decode_refusal(model) is None:
+                self.batcher()
         # components (watchdog) degrade/clear causes as they heal
         self.health = Health(metrics=self.metrics, component="serve")
         # opt-in: a heartbeat deadline must be chosen against the
@@ -328,6 +372,10 @@ class ModelServer(JsonHTTPServerMixin):
                                   {"error": "flight recorder not installed"})
                     else:
                         self.reply(200, _flight.ACTIVE.snapshot())
+                elif self.path == "/v1/debug/profile":
+                    # the dispatch profiler's top executables;
+                    # {"enabled": false} when none is installed
+                    self.reply(200, _profile.debug_payload())
                 elif self.path == "/v1/debug/chaos" and server.chaos_admin:
                     self.reply(200, chaos_status())
                 else:

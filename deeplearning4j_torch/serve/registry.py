@@ -8,16 +8,21 @@ takes one lease per device batch, so no batch ever mixes two params
 generations. Published params are never written in place by the port, so
 an in-flight batch holding generation N is untouched by publishing N+1.
 (The reference's donated-buffer check has no counterpart here: PyTorch
-does not donate a caller's tensors.)
+does not donate a caller's tensors.) Publication is two-phase, as in the
+reference: the registered warmers run against the candidate before the
+flip (:meth:`ModelRegistry.add_warmer`), and a warmer that raises aborts
+the publish with a typed :class:`~.errors.PublishError`; each warmer's
+abort hook then drops what the warmers made for the candidate, whose
+generation number the next publish takes again.
 """
 
 from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
-from .errors import ServerClosingError
+from .errors import PublishError, ServerClosingError
 
 
 class ModelSnapshot(NamedTuple):
@@ -56,6 +61,11 @@ class ModelRegistry:
         # cannot deadlock on a thread that will never run its finally
         self._thread_leases: Dict[int, List[dict]] = {}
         self._history: List[ModelSnapshot] = []
+        self._publish_lock = threading.Lock()  # serializes publish/rollback
+        # (warmer, abort hook or None), in registration order
+        self._warmers: List[Tuple[Callable[[ModelSnapshot], None],
+                                  Optional[Callable[[ModelSnapshot],
+                                                    None]]]] = []
         self._metrics = metrics
         # name the model on every registry metric when given, so one scrape
         # disaggregates per model; None emits unlabelled series
@@ -164,21 +174,68 @@ class ModelRegistry:
             return dict(self._inflight)
 
     # --- writers ---
+    def add_warmer(self, fn: Callable[[ModelSnapshot], None],
+                   abort: Optional[Callable[[ModelSnapshot], None]] = None
+                   ) -> None:
+        """Register a pre-flip hook ``fn(candidate)``.
+
+        Every warmer runs inside :meth:`publish` BEFORE the generation
+        flips, against the candidate :class:`ModelSnapshot` (its
+        generation, version, params and state: the port's serving graphs
+        are kept per generation, where the reference's hooks take
+        ``(params, state)``). The serving tiers register hooks that
+        capture the candidate's graphs, so the first batch on a new
+        generation never captures. A warmer that raises aborts the publish
+        with a typed :class:`~.errors.PublishError` and the old generation
+        keeps serving untouched: every registered ``abort(candidate)``
+        then runs (the warmers that succeeded and the one that raised
+        alike), so that nothing made for the failed candidate outlives
+        it. The next publish reuses the candidate's generation number,
+        so a graph left behind would replay the failed candidate's
+        weights. The port's addition, for graphs that bake in weights:
+        the reference's executables take the params as arguments."""
+        with self._cond:
+            self._warmers.append((fn, abort))
+
     def publish(self, params, state=None, version: Optional[str] = None,
                 drain: bool = False, timeout: Optional[float] = None
                 ) -> ModelSnapshot:
         """Atomically publish a new generation; optionally wait for work
-        dispatched against older generations to retire."""
+        dispatched against older generations to retire.
+
+        Publication is two-phase: (1) every registered warmer runs against
+        the candidate, (2) the atomic history append. Phase 1 failing
+        raises :class:`~.errors.PublishError` with registry state
+        untouched."""
         if params is None:
             raise ValueError("cannot publish params=None")
-        with self._cond:
-            prev = self._head_locked()
-            gen = prev.generation + 1
-            snap = ModelSnapshot(
-                gen, version if version is not None else f"v{gen - 1}",
-                params, state if state is not None else prev.state)
-            self._history.append(snap)
-            del self._history[:-self._keep]
+        with self._publish_lock:
+            with self._cond:
+                # the publish lock pins history[-1]: no concurrent publish
+                # can move it while the warmers run
+                prev = self._head_locked()
+                gen = prev.generation + 1
+                snap = ModelSnapshot(
+                    gen, version if version is not None else f"v{gen - 1}",
+                    params, state if state is not None else prev.state)
+                warmers = list(self._warmers)
+            try:
+                for warm, _ in warmers:
+                    warm(snap)
+            except Exception as e:  # ANY warm failure must leave the old generation serving
+                self._count("serve_model_publish_failures_total",
+                            "publishes aborted before the flip")
+                for _, abort in warmers:
+                    if abort is not None:
+                        abort(snap)
+                raise PublishError(
+                    f"candidate generation failed precompile/warm — old "
+                    f"generation keeps serving ({type(e).__name__}: {e})"
+                    ) from e
+            with self._cond:
+                self._head_locked()
+                self._history.append(snap)
+                del self._history[:-self._keep]
         self._gauge_generation(snap.generation)
         self._count("serve_model_publishes_total",
                     "model generations published (hot-swap)")

@@ -179,8 +179,10 @@ class TestContinuousBatcher:
             cb.shutdown()
         with pytest.raises(ValueError, match="embedding-front"):
             ContinuousBatcher(_dense_model(), slots=1, capacity=8)
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ContinuousBatcher(lm, slots=1, capacity=16, aot_store=object())
+        # strict serving needs a store to be strict against (the
+        # reference's refusal, the same type)
+        with pytest.raises(ValueError, match="requires an aot_store"):
+            ContinuousBatcher(lm, slots=1, capacity=16, strict_aot=True)
 
     def test_drain_completes_inflight_generations(self, lm):
         cb = ContinuousBatcher(lm, slots=2, capacity=16, queue_limit=16,
@@ -988,3 +990,173 @@ class TestRequestTraces:
         jm, tm = _models()
         assert run(ContinuousBatcher, tm) == run(JBatcher, jm) == [
             ("a", None), ("b", "client_gone"), ("late", None)]
+
+
+class TestStoreBackedBatcher:
+    """The batcher with a prebuilt-executable store, held against the JAX
+    package's ``generate`` (greedy; the JAX side runs without a store:
+    its serialized executables do not load here) and against the port's
+    batcher without a store (seeded: the port's own draws)."""
+
+    @staticmethod
+    def _boot(tm, store, kv, strict=False, metrics=None, seed=0):
+        opts = dict(block_size=4, prefill_chunk=8) if kv == "paged" else {}
+        return ContinuousBatcher(tm, slots=2, capacity=16, kv=kv, seed=seed,
+                                 aot_store=store, strict_aot=strict,
+                                 metrics=metrics, **opts)
+
+    @pytest.mark.parametrize("cdt", [None, "bfloat16"])
+    @pytest.mark.parametrize("kv", ["paged", "dense"])
+    def test_greedy_matches_jax_generate_strict_second_boot(
+            self, tmp_path, kv, cdt):
+        from deeplearning4j_torch.aot import AotStore
+        from deeplearning4j_torch.obs.metrics import MetricsRegistry
+
+        tm = _models(cdt)[1]
+        store = AotStore(str(tmp_path))
+        self._boot(tm, store, kv).shutdown()  # first boot: records
+        m = MetricsRegistry()
+        cb = self._boot(tm, store, kv, strict=True, metrics=m)
+        try:
+            fns = cb.aot_functions()
+            want_tags = ({"gen_sample", "gen_decode_paged",
+                          "gen_prefill_chunk"} if kv == "paged" else
+                         {"gen_sample", "gen_decode_dense",
+                          "gen_prefill_dense", "gen_slot_insert"})
+            assert set(fns) == want_tags
+            rng = np.random.RandomState(2)
+            prompts = [rng.randint(0, 50, (tp,)).astype(np.int32)
+                       for tp in (8, 5, 10, 3)]
+            reqs = [cb.submit(p, 6, temperature=0.0) for p in prompts]
+            for p, r in zip(prompts, reqs):
+                want = _jax_greedy(tuple(p.tolist()), 6, cdt)
+                assert np.array_equal(_wait(r), want)
+            assert m.counter("serve_compile_misses_total",
+                             {"component": "generate"}).value == 0
+            assert all(f.call_captures == 0 for f in fns.values())
+            hits = m.counter("serve_aot_hits_total",
+                             {"component": "generate"}).value
+            assert hits == sum(len(f.warmed_keys()) for f in fns.values())
+        finally:
+            cb.shutdown()
+
+    @pytest.mark.parametrize("kv", ["paged", "dense"])
+    def test_seeded_tokens_equal_the_eager_batchers(self, tmp_path, kv, lm):
+        from deeplearning4j_torch.aot import AotStore
+
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(0, 50, (tp,)).astype(np.int32)
+                   for tp in (6, 9, 4)]
+        outs = []
+        for store in (None, AotStore(str(tmp_path))):
+            cb = self._boot(lm, store, kv, seed=3)
+            try:
+                reqs = [cb.submit(p, 7, temperature=0.9, top_k=6 if i else
+                                  None) for i, p in enumerate(prompts)]
+                outs.append([_wait(r).tolist() for r in reqs])
+            finally:
+                cb.shutdown()
+        assert outs[0] == outs[1]
+
+    def test_strict_boot_on_an_empty_store_is_typed(self, tmp_path, lm):
+        from deeplearning4j_torch.aot import AotStore
+        from deeplearning4j_torch.serve import AotTraceError
+
+        with pytest.raises(AotTraceError) as ei:
+            self._boot(lm, AotStore(str(tmp_path)), "paged", strict=True)
+        assert ei.value.http_status == 503
+
+    def test_publish_warms_before_the_flip(self, tmp_path, lm):
+        from deeplearning4j_torch.aot import AotStore
+
+        cb = self._boot(lm, AotStore(str(tmp_path)), "paged")
+        eager = ContinuousBatcher(lm, slots=2, capacity=16, block_size=4,
+                                  prefill_chunk=8, seed=0)
+        try:
+            fns = cb.aot_functions()
+            before = {t: f.captures for t, f in fns.items()}
+            seen = []
+            cb.registry.add_warmer(lambda snap: seen.append(
+                (cb.registry.generation,
+                 fns["gen_decode_paged"].generations())))
+            from deeplearning4j_torch.ops.updaters import (tree_leaves,
+                                                           tree_unflatten)
+
+            new = tree_unflatten(lm.params, [t * 1.25 for t in
+                                             tree_leaves(lm.params)])
+            cb.registry.publish(new)
+            eager.registry.publish(new)
+            assert seen == [(1, [1, 2])]
+            assert {t: f.captures - before[t] for t, f in fns.items()} == \
+                {"gen_sample": 1, "gen_decode_paged": 1,
+                 "gen_prefill_chunk": len(cb.chunk_buckets)}
+            p = np.arange(2, 9, dtype=np.int32)
+            assert np.array_equal(_wait(cb.submit(p, 5, temperature=0.0)),
+                                  _wait(eager.submit(p, 5,
+                                                     temperature=0.0)))
+            assert fns["gen_decode_paged"].generations() == [2]
+            assert all(f.call_captures == 0 for f in fns.values())
+        finally:
+            cb.shutdown()
+            eager.shutdown()
+        cb.release_device()
+        assert all(f.generations() == [] for f in fns.values())
+
+    def test_failed_publish_then_republish_serves_the_new_params(
+            self, tmp_path, lm):
+        """A publish whose last warmer raises after the engine's and the
+        batcher's warmers made the candidate's executables, then a publish
+        of other params under the same generation number: the engine's
+        answers and the batcher's tokens are the second params', and
+        nothing of the failed candidate is held."""
+        from deeplearning4j_torch.aot import AotStore
+        from deeplearning4j_torch.ops.updaters import (tree_leaves,
+                                                       tree_unflatten)
+        from deeplearning4j_torch.serve import PublishError, ServeEngine
+
+        store = AotStore(str(tmp_path))
+        eng = ServeEngine(lm, batch_buckets=(1,), aot_store=store)
+        cb = ContinuousBatcher(lm, registry=eng.registry, slots=2,
+                               capacity=16, block_size=4, prefill_chunk=8,
+                               seed=0, aot_store=store)
+        fails = [True]
+
+        def last_warmer(snap):
+            if fails and fails.pop():
+                raise RuntimeError("candidate cannot warm")
+
+        eng.registry.add_warmer(last_warmer)
+
+        def scaled(f):
+            return tree_unflatten(lm.params, [t * f for t in
+                                              tree_leaves(lm.params)])
+
+        x = np.arange(1, 17, dtype=np.int32)[None]
+        p = np.arange(2, 9, dtype=np.int32)
+        eng.warm(np.int32)
+        fns = {"engine_forward": eng.aot_functions()["engine_forward"],
+               **cb.aot_functions()}
+        try:
+            with pytest.raises(PublishError):
+                eng.registry.publish(scaled(3.0))
+            assert all(f.generations() == [1] for f in fns.values())
+            assert sorted(cb._casts) in ([], [1])
+            good = scaled(1.25)
+            assert eng.registry.publish(good).generation == 2
+            got_y = eng.predict(x)
+            got_t = _wait(cb.submit(p, 5, temperature=0.0))
+        finally:
+            eng.shutdown()
+            cb.shutdown()
+        ref = ServeEngine(lm, batch_buckets=(1,))
+        eager = ContinuousBatcher(lm, registry=ref.registry, slots=2,
+                                  capacity=16, block_size=4,
+                                  prefill_chunk=8, seed=0)
+        try:
+            ref.registry.publish(good)
+            np.testing.assert_array_equal(got_y, ref.predict(x))
+            assert np.array_equal(got_t, _wait(eager.submit(
+                p, 5, temperature=0.0)))
+        finally:
+            ref.shutdown()
+            eager.shutdown()

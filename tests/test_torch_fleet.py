@@ -491,10 +491,13 @@ def test_page_out_frees_weights_a_stale_engine_still_holds():
 
 
 def test_fleet_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfleet.FleetRegistry(device="cpu", aot_store=object())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tfleet.FleetRegistry(device="cpu", tuned_for="fp")
+    # the store options are ported: strict without a store is refused as
+    # the reference refuses it, and tuned_for without one is a counted miss
+    with pytest.raises(ValueError, match="shared aot_store"):
+        tfleet.FleetRegistry(device="cpu", strict_aot=True)
+    f = tfleet.FleetRegistry(device="cpu", tuned_for="fp")
+    assert f.tuned_config is None
+    assert f.metrics.counter("sim_tuned_config_misses_total").value == 1
     tm = _lms()["alpha"][1]
     with pytest.raises(ValueError, match="lives on"):
         tfleet.FleetEntry("x", tm, tm.params, device="meta")
@@ -664,7 +667,9 @@ def test_fleet_server_debug_endpoints():
         assert reqs[-1]["tenant"] == "gold" and reqs[-1]["slo_class"] == \
             "gold"
         assert _http(srv.port, "/v1/debug/flight")[0] == 200
-        assert _http(srv.port, "/v1/debug/profile")[0] == 404
+        # no profiler installed: the reference's answer
+        assert _http(srv.port, "/v1/debug/profile")[:2] == (
+            200, {"enabled": False})
         assert _http(srv.port, "/v1/debug/chaos")[1] == {
             "installed": False, "armed": []}
         code, body, _ = _http(srv.port, "/v1/debug/chaos",
@@ -797,3 +802,87 @@ def test_page_ins_of_every_model_reuse_one_pool():
         reserved.append(torch.cuda.memory_reserved())
     assert reserved[-1] == reserved[1]
     f.shutdown()
+
+
+# ------------------------------------------- the prebuilt-executable store
+@pytest.fixture(scope="module")
+def strict_run(registry_runs, tmp_path_factory):
+    """The registry script on a port fleet sharing one store: a first
+    fleet records every signature, a second one runs strict from it."""
+    from deeplearning4j_torch.aot import AotStore
+
+    store = AotStore(str(tmp_path_factory.mktemp("aot")))
+    out = {}
+    for strict in (False, True):
+        m = MetricsRegistry()
+        f = _fleet("port", aot_store=store, strict_aot=strict, metrics=m)
+        try:
+            out[strict] = (_registry_script(f), m, f.status())
+        finally:
+            f.shutdown()
+    return out, store
+
+
+def test_strict_fleet_matches_jax(registry_runs, strict_run):
+    """Every page-in of a strict fleet makes its graphs from the store:
+    predicts within FLEET_ATOL of the JAX fleet's (which runs without a
+    store: its serialized executables do not load here), the same greedy
+    tokens and generations, and zero compiles."""
+    want = registry_runs["jax"]
+    for strict in (False, True):
+        got, m, status = strict_run[0][strict]
+        for (n, j, g, y), (wn, wj, wg, wy) in zip(got["preds"],
+                                                  want["preds"]):
+            assert (n, j, g) == (wn, wj, wg)
+            np.testing.assert_allclose(y, wy, atol=FLEET_ATOL, rtol=0)
+        assert got["toks"] == want["toks"] and got["gens"] == want["gens"]
+        assert "entries" in status["aot_store"]
+        compiles = sum(s["value"] for s in m.snapshot()[
+            "serve_compile_misses_total"]["series"])
+        assert (compiles == 0) == strict
+    m = strict_run[0][True][1]
+    assert sum(s["value"] for s in m.snapshot()["serve_aot_hits_total"][
+        "series"]) > 0
+    # the first fleet's captures are stamped for the strict one
+    from deeplearning4j_torch.aot import covered_keys, runtime_fingerprint
+
+    covered, unreadable = covered_keys(strict_run[1],
+                                       runtime_fingerprint("cpu"))
+    assert covered and unreadable == 0
+
+
+def test_strict_page_in_of_an_uncovered_signature_is_typed(strict_run):
+    store = strict_run[1]
+    f = tfleet.FleetRegistry(device="cpu", aot_store=store, strict_aot=True)
+    try:
+        f.pager._retry = TRetry(attempts=2, sleep=lambda s: None)
+        f.add("alpha", _lms()["alpha"][1], input_dtype=np.int32,
+              engine_opts={"batch_buckets": (3,)})  # never prebuilt
+        with pytest.raises(tfleet.PageInError) as ei:
+            f.predict("alpha", PROMPTS[0])
+        assert ei.value.cause == "page_in_failed"
+        assert "strict AOT" in str(ei.value.__cause__)
+        assert not f.get("alpha").resident
+        assert f.pager.stats()["resident_bytes"] == 0
+    finally:
+        f.shutdown()
+
+
+def test_tuned_for_sets_every_models_knobs(tmp_path):
+    from deeplearning4j_torch.aot import AotStore, put_tuned
+
+    store = AotStore(str(tmp_path))
+    put_tuned(store, "wl-1", {"engine": {"batch_buckets": [1, 8],
+                                         "bogus": 3},
+                              "gen": {"slots": 3, "capacity": 24}})
+    f = tfleet.FleetRegistry(device="cpu", aot_store=store,
+                             tuned_for="wl-1")
+    try:
+        assert f.tuned_config["gen"]["slots"] == 3
+        e = f.add("alpha", _lms()["alpha"][1], input_dtype=np.int32,
+                  engine_opts={"queue_limit": 5})
+        assert e.engine_opts == {"batch_buckets": [1, 8], "queue_limit": 5}
+        assert e.gen_opts == {"slots": 3, "capacity": 24}
+        assert f.metrics.counter("sim_tuned_config_hits_total").value == 1
+    finally:
+        f.shutdown()

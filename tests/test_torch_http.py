@@ -25,9 +25,10 @@ from deeplearning4j_torch.models import CausalLM
 from deeplearning4j_torch.nn.layers import Dense, Output
 from deeplearning4j_torch.nn.model import NetConfig, Sequential
 from deeplearning4j_torch.obs.metrics import MetricsRegistry
-from deeplearning4j_torch.serve import (ContinuousBatcher, Health,
-                                        ModelServer, ServeEngine, Watchdog,
-                                        WorkerStallError, retry_after_s)
+from deeplearning4j_torch.serve import (AotTraceError, ContinuousBatcher,
+                                        Health, ModelServer, ServeEngine,
+                                        Watchdog, WorkerStallError,
+                                        retry_after_s)
 from deeplearning4j_torch.train import params_from_numpy
 from deeplearning4j_tpu.models import CausalLM as JCausalLM
 from deeplearning4j_tpu.nn import generation as jg
@@ -141,8 +142,12 @@ class TestModelServerHTTP:
             srv.stop()
 
     def test_not_ported_options_raise(self, lm):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            ModelServer(lm, port=0, aot_store=object())
+        # the store options are ported: what still raises is what the
+        # reference refuses too — strict or a manifest without a store
+        with pytest.raises(ValueError, match="requires an aot_store"):
+            ModelServer(lm, port=0, strict_aot=True)
+        with pytest.raises(ValueError, match="requires an aot_store"):
+            ModelServer(lm, port=0, aot_manifest={"sites": []})
 
     def test_bad_payload_400_overload_503(self):
         m = _dense_model()
@@ -621,3 +626,151 @@ class TestDebugSurface:
         assert got[1] == (200, "req-fixed", "0af7651916cd43dd8448eb211c80319c")
         stages = got[4][0][4]
         assert stages == ["admit", "queue", "device", "flush"]
+
+
+def _server_config(**gen):
+    """The serving config of the strict-server tests: the knobs given to
+    ModelServer below (the model is the module's; its seed and kwargs
+    only name it)."""
+    return {"model": "causallm", "seed": 0, "dtype": "int32",
+            "model_kwargs": {"input_shape": [16], "num_layers": 2,
+                             "d_model": 32, "num_heads": 4, "vocab": 50},
+            "engine": {"batch_buckets": [1, 2], "length_buckets": [8, 16]},
+            "gen": {"slots": 2, "capacity": 16, "kv": "paged",
+                    "block_size": 16, "prefill_chunk": 8, "seed": 0,
+                    **gen}}
+
+
+def _strict_server(tm, store, manifest, **kw):
+    return ModelServer(tm, port=0, batch_buckets=(1, 2),
+                       length_buckets=(8, 16), input_dtype=np.int32,
+                       gen_slots=2, gen_capacity=16, gen_prefill_chunk=8,
+                       aot_store=store, strict_aot=True,
+                       aot_manifest=manifest, **kw)
+
+
+class TestStrictServer:
+    def test_prebuilt_strict_boot_serves_and_refuses_typed(self, tmp_path):
+        """Prebuild, then a strict ModelServer on the store: zero compiles,
+        answers equal to the JAX package's (generate: greedy tokens;
+        predict: 1e-5), an uncovered signature a typed 503 that captures
+        nothing, and ``/v1/debug/profile`` live once a profiler is
+        installed."""
+        from deeplearning4j_torch.aot import AotStore, enumerate_config
+        from deeplearning4j_torch.aot.__main__ import prebuild
+        from deeplearning4j_torch.obs import profile
+        from deeplearning4j_tpu.serve import ServeEngine as JServeEngine
+
+        jm, tm = _models()
+        store = AotStore(str(tmp_path))
+        manifest = enumerate_config(_server_config())
+        report = prebuild(store, manifest, model=tm)
+        assert report["drift"] == [] and report["total_signatures"] == 7
+        m = MetricsRegistry()
+        srv = _strict_server(tm, store, manifest, metrics=m).start()
+        jeng = JServeEngine(jm, batch_buckets=(1, 2), length_buckets=(8, 16))
+        try:
+            x = np.random.RandomState(3).randint(0, 50, (2, 11))
+            got = np.asarray(_post(srv.port, "/predict",
+                                   {"ndarray": x.tolist()})["output"])
+            np.testing.assert_allclose(got, jeng.predict(x.astype(np.int32)),
+                                       rtol=1e-5, atol=1e-5)
+            prompt = [4, 8, 15, 16, 23]
+            toks = _post(srv.port, "/generate?stream=false",
+                         {"prompt": prompt, "max_new_tokens": 5,
+                          "temperature": 0.0})["tokens"]
+            want = jg.generate(jm, np.asarray([prompt], np.int32), 5,
+                               temperature=0.0)[0]
+            assert toks == np.asarray(want).tolist()
+            status, body, _ = _call(srv.port, "/predict",
+                                    {"ndarray": [[[1, 2]] * 4]})
+            assert status == 503 and body["cause"] == "aot_trace"
+            fns = {**srv.engine.aot_functions(),
+                   **srv.batcher().aot_functions()}
+            assert all(f.call_captures == 0 for f in fns.values())
+            assert sum(v for v in _series(
+                m, "serve_compile_misses_total").values()) == 0
+            assert _get(srv.port, "/v1/debug/profile") == {"enabled": False}
+            profile.install(profile.Profiler(sample_rate=1))
+            try:
+                _post(srv.port, "/predict", {"ndarray": x.tolist()})
+                prof = _get(srv.port, "/v1/debug/profile")
+            finally:
+                profile.uninstall()
+            assert prof["enabled"] and prof["padding"]["engine/2"][
+                "waste_ratio"] == 0.0
+            (ex,) = prof["executables"]
+            assert ex["tag"] == "engine_forward" and ex["sampled"] == 1
+        finally:
+            srv.stop()
+            jeng.shutdown()
+
+    def test_manifest_gate_refuses_an_uncovered_store_like_jax(self,
+                                                               tmp_path):
+        from deeplearning4j_torch.aot import AotStore, enumerate_config
+        from deeplearning4j_torch.aot.__main__ import prebuild
+        from deeplearning4j_tpu.aot import AotStore as JAotStore
+        from deeplearning4j_tpu.serve import AotTraceError as JAotTraceError
+        from deeplearning4j_tpu.serve import ModelServer as JServer
+
+        jm, tm = _models()
+        manifest = enumerate_config(_server_config())
+        with pytest.raises(AotTraceError, match="obligation"):
+            _strict_server(tm, AotStore(str(tmp_path / "t")), manifest)
+        with pytest.raises(JAotTraceError, match="obligation"):
+            JServer(jm, port=0, aot_store=JAotStore(str(tmp_path / "j")),
+                    strict_aot=True, aot_manifest=manifest)
+        # a store prebuilt for other knobs covers another manifest
+        store = AotStore(str(tmp_path / "other"))
+        prebuild(store, enumerate_config(_server_config(slots=3)), model=tm)
+        with pytest.raises(AotTraceError, match="no coverage record"):
+            _strict_server(tm, store, manifest)
+
+    def test_strict_without_a_manifest_fails_the_boot(self, tmp_path):
+        """No manifest: the strict boot's own warm finds the empty store
+        and refuses, before the server listens."""
+        from deeplearning4j_torch.aot import AotStore
+
+        with pytest.raises(AotTraceError):
+            _strict_server(_models()[1], AotStore(str(tmp_path)), None)
+
+    def test_strict_boot_fails_on_a_bad_generation_knob(self, tmp_path):
+        """A token model's generation stack is built at a strict boot, so
+        a knob it refuses fails the boot, not the first /generate."""
+        from deeplearning4j_torch.aot import AotStore, enumerate_config
+        from deeplearning4j_torch.aot.__main__ import prebuild
+
+        tm = _models()[1]
+        store = AotStore(str(tmp_path))
+        prebuild(store, enumerate_config(_server_config()), model=tm)
+        with pytest.raises(ValueError, match="kv must be"):
+            _strict_server(tm, store, None, gen_kv="bogus")
+
+    def test_strict_predict_only_model_boots_without_a_batcher(
+            self, tmp_path):
+        """A model the batcher cannot decode boots strict predict-only
+        from a store its engine warmed."""
+        from deeplearning4j_torch.aot import AotStore
+        from deeplearning4j_torch.serve import ServeEngine
+
+        m = _dense_model()
+        store = AotStore(str(tmp_path))
+        first = ServeEngine(m, batch_buckets=(1, 2), aot_store=store)
+        first.warm(np.float32)
+        first.shutdown()
+        srv = ModelServer(m, port=0, batch_buckets=(1, 2),
+                          aot_store=store, strict_aot=True).start()
+        try:
+            x = np.ones((2, 4), np.float32)
+            got = _post(srv.port, "/predict", {"ndarray": x.tolist()})
+            np.testing.assert_allclose(np.asarray(got["output"]),
+                                       srv.engine.predict(x), rtol=0,
+                                       atol=0)
+            assert srv._batcher is None
+        finally:
+            srv.stop()
+
+
+def _series(metrics, name):
+    return {tuple(sorted(s["labels"].items())): s["value"]
+            for s in metrics.snapshot().get(name, {}).get("series", [])}

@@ -348,3 +348,83 @@ def test_engine_matches_reference_engine():
     finally:
         jeng.shutdown()
         teng.shutdown()
+
+
+@pytest.mark.parametrize("mode", ["store", "strict"])
+def test_store_backed_engine_matches_reference_engine(tmp_path, mode):
+    """The same params and requests through the JAX package's engine
+    (without a store: its serialized executables do not load here) and the
+    port's engine with a store: eager at first boot, strict from the
+    records a first boot wrote, with the same answers (f32, 1e-5 as above)
+    and zero compiles on the strict boot."""
+    from deeplearning4j_torch.aot import AotStore
+    from deeplearning4j_torch.serve import AotTraceError
+
+    kw = dict(seed=0, input_shape=(16,), num_layers=2, d_model=32,
+              num_heads=4, vocab=50, flash=True)
+    jm = JCausalLM(**kw).build()
+    jm.init()
+    tm = CausalLM(device="cpu", **kw).build()
+    tm.params, tm.state = params_from_numpy(tm, _np_tree(jm.params)), {}
+    opts = dict(batch_buckets=(1, 2, 4), length_buckets=(8, 16))
+    store = AotStore(str(tmp_path))
+    first = ServeEngine(tm, aot_store=store, **opts)
+    first.warm(np.int32)
+    first.shutdown()
+    m = MetricsRegistry()
+    teng = ServeEngine(tm, aot_store=store, strict_aot=mode == "strict",
+                       metrics=m, **opts)
+    jeng = JServeEngine(jm, **opts)
+    rng = np.random.RandomState(4)
+    reqs = [rng.randint(0, 50, (int(rng.randint(1, 5)),
+                                int(rng.randint(3, 17)))).astype(np.int32)
+            for _ in range(6)]
+    try:
+        assert teng.warm(np.int32) >= 0.0
+        for x in reqs:
+            want, got = jeng.predict(x), teng.predict(x)
+            assert got.shape == want.shape == x.shape + (50,)
+            np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
+                                       atol=1e-5)
+        fwd = teng.aot_functions()["engine_forward"]
+        assert fwd.captures == 6 and fwd.call_captures == 0
+        assert m.counter("serve_compile_misses_total",
+                         {"component": "engine"}).value == 0
+        # a signature no boot recorded: strict refuses it typed
+        if mode == "strict":
+            with pytest.raises(AotTraceError):
+                teng.predict(np.zeros((1, 8), np.int64))
+    finally:
+        jeng.shutdown()
+        teng.shutdown()
+
+
+def test_engine_publish_warms_before_the_flip(tmp_path):
+    """A publish makes the candidate's executable for every signature
+    held before the flip; the first batch on the new generation captures
+    nothing and answers with the new params."""
+    from deeplearning4j_torch.aot import AotStore
+
+    m = _dense_model()
+    eng = ServeEngine(m, batch_buckets=(1, 2), aot_store=AotStore(
+        str(tmp_path)))
+    try:
+        x = np.ones((2, 4), np.float32)
+        eng.predict(x)
+        fwd = eng.aot_functions()["engine_forward"]
+        # no warm: the first batch captured on its call
+        assert fwd.captures == fwd.call_captures == 1
+        seen = []
+        eng.registry.add_warmer(
+            lambda snap: seen.append((eng.registry.generation,
+                                      fwd.generations())))
+        new = _scaled(m.params, 0.5)
+        snap = eng.registry.publish(new)
+        assert seen == [(1, [1, 2])]  # warmed before the flip
+        want, _ = m.forward(new, m.state, torch.from_numpy(x))
+        np.testing.assert_allclose(eng.predict(x), want.numpy(), rtol=1e-6)
+        assert fwd.generations() == [snap.generation]
+        assert fwd.captures == 2 and fwd.call_captures == 1
+    finally:
+        eng.shutdown()
+    assert fwd.generations() == []  # shutdown drops the graphs

@@ -286,6 +286,54 @@ last line):
    decode tick eager and replayed (host p50 and device ms) beside the
    eager tick measured before (17.7 ms on the host, 7.1 on the device).
 
+18. cluster — the host control planes over a replica cluster (every
+   kernel's launch count is zeroed after the references and read at the
+   end, into the kernels line under ``launches_by_path["cluster"]``). The
+   fleet phase's model at full width with seeds 0 and 1 (alpha, beta), on
+   two replicas r1 and r2 (``spawn_replica`` over a ``FleetRegistry`` of
+   both models in a budget of 2.2 models, engine buckets 1, 2, 4 by
+   length buckets 16, 128, 1024, beta with the generate phase's batcher)
+   behind one ``ClusterRouter`` in this process (tenants gold, standard,
+   free as the fleet phase sets them; membership and SLO burn on a clock
+   the drill pushes forward). A: gold and standard predicts of 16 and 128
+   tokens and beta's generates (buffered, streamed) through the router,
+   each equal to a replica's answer alone (bit for bit at some bucket and
+   row position; tokens equal to the batcher's alone); the free tenant's
+   third request 429 at the router; routed against direct p50. B: one
+   ``serve.dispatch`` delay on the primary's dispatch: a gold predict's
+   hedge wins with a correct answer, both attempts in one request trace,
+   the loser's breaker closed. C: beta's primary crash-killed under mixed
+   load: every answer correct or typed, none a raw 500; membership dead,
+   placement re-planned, beta served again from the survivor after a
+   page-in (failover time); the card synchronizes and K1 agrees with its
+   plain version. D: an ``AutoscaleController`` (min 2, max 3) reaps the
+   dead replica and repairs the floor; the closed-loop rate of two
+   replicas at the replay's mix is measured, then a ``WorkloadSpec``
+   shaped as ``smoke_spec`` (lognormal prompts up to 1024 tokens, Pareto
+   outputs up to 64, vocab 32000, bursts of 2.5x) at 0.6x that rate is
+   replayed open loop through ``RouterTarget`` by ``LiveReplayer``: a
+   scale-out on the burst (spawn, prewarm, first beat), then a scale-in
+   through ``/v1/admin/drain`` with requests in flight; every outcome
+   typed or correct (replayed predicts against the direct forward). E:
+   the cost profile [aot] filed in its store calibrates a ``CostModel``;
+   a seeded ``Tuner`` over the replayed workload; ``record_winner``; a
+   store prebuilt for the winner's knobs and a strict replica booted with
+   ``tuned_for=`` while r1/r2 serve: the winner's knobs, 0 compiles, its
+   answers replayed graphs; ``AutoscalePolicy.from_config`` reads the
+   winner. Gated: K1 12 launches a predict batch (eager, or captured in a
+   strict replay), no other kernel; peak reserved below 90% of the card.
+19. recovery — ``CausalLM(flash=True)`` at width 2048 with the depth cut
+   to 2 layers (233M params; a 2.8 GB checkpoint with adamw state against
+   8.9 GB at 12 layers), bf16: ``FaultTolerantFit`` over three one-epoch
+   segments, preempted by a ``train.segment`` fault after segment 2 and
+   resumed by a fresh ``Trainer`` from segment 1's checkpoint, bit-equal
+   to an uninterrupted run (params and updater state); the checkpoint
+   written and read, timed; a poisoned batch (a NaN in its label mask)
+   rolled back by ``DivergenceListener(action="rollback")`` to the last
+   validated snapshot, the learning rate scaled by 0.5, later losses
+   finite. K1, K2, K3 once a layer and step (``launches_by_path
+   ["recovery"]``).
+
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
@@ -4930,7 +4978,7 @@ def phase_train_api():
 # --- [fleet]: three full-width CausalLMs paged under one weight budget ---
 FLEET_NAMES = ("alpha", "beta", "gamma")     # seeds 0, 1, 2
 FLEET_DEVICE = "cuda"
-FLEET_SECONDS = 15.0        # the closed-loop window
+FLEET_SECONDS = 10.0        # the closed-loop window
 # predict prompt tokens (gold and free): the model's T, as
 # bench.py:_bench_fleet predicts at its model's whole input length
 FLEET_T = 1024
@@ -5909,6 +5957,8 @@ def aot_serve(tmp):
     from deeplearning4j_torch.fleet import FleetRegistry
     from deeplearning4j_torch.kernels import _build
     from deeplearning4j_torch.obs import profile
+    from deeplearning4j_torch.obs.costmodel import (ProfileAccumulator,
+                                                    put_profile)
     from deeplearning4j_torch.obs.metrics import MetricsRegistry
     from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
     from deeplearning4j_torch.serve import ContinuousBatcher
@@ -6047,6 +6097,12 @@ def aot_serve(tmp):
                 scrape = r.read().decode()
         finally:
             profile.uninstall()
+        # the card's cost profile, filed in the store for [cluster]'s tuner
+        cost = ProfileAccumulator().fold(
+            prof.snapshot(include_pairs=True)).profile()
+        check(put_profile(store, _aot_model_fp(), cost) is not None,
+              "[aot] the cost profile was not stored")
+        out["cost_profile"] = dict(cost.costs)
         tags = {e["tag"] for e in payload["executables"]}
         check(payload["enabled"] and {"engine_forward", "gen_decode_paged",
                                       "gen_prefill_chunk"} <= tags
@@ -6156,19 +6212,22 @@ def aot_serve(tmp):
     return 0
 
 
-def phase_aot():
+def phase_aot(keep=None):
     """[aot]: prebuild a store for _aot_config in one process, then boot a
     strict ModelServer from it in another (an empty kernel build
     directory) and hold it to every gate there. Returns every kernel's
     launches on the path, counted in that process: K1's are the launches
     captured in each engine graph times the graphs' replays (the strict
-    server's and the fleet's)."""
+    server's and the fleet's). ``keep``: a directory that holds the store
+    afterwards (with the card's cost profile, for [cluster]), else a
+    temporary one."""
     import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with (contextlib.nullcontext(keep) if keep is not None
+          else tempfile.TemporaryDirectory()) as tmp:
         cfg = os.path.join(tmp, "config.json")
         with open(cfg, "w") as f:
             json.dump(_aot_config(), f)
@@ -6221,7 +6280,8 @@ def phase_aot():
           f"{r['replayed_tick_greedy'][0]:.3f} / "
           f"{r['replayed_tick_greedy'][1]:.3f} ms (host p50 / device); "
           f"served tick p50 {r['served_tick_p50_ms']:.3f} ms; {r['card']}")
-    print(f"[aot] profile: {r['profile']}; padding waste {r['padding']}")
+    print(f"[aot] profile: {r['profile']}; padding waste {r['padding']}; "
+          f"cost profile filed for [cluster]: {r['cost_profile']}")
     print(f"[aot] fleet page cycle: freed {r['fleet_freed']} B a page-out "
           f"(weights {r['fleet_weight_bytes']} B); uncovered page-in "
           f"{r['fleet_uncovered']}")
@@ -6232,7 +6292,1560 @@ def phase_aot():
     return r["launches"]
 
 
+CLUSTER_NAMES = ("alpha", "beta")          # seeds 0, 1
+CLUSTER_DEVICE = "cuda"
+CLUSTER_BUCKETS = (1, 2, 4)
+CLUSTER_LENGTHS = (16, 128, 1024)
+# routed predicts: a JSON answer carries 32000 floats a token (744,024 B a
+# token, as [fleet] measures), parsed and written again by the router, so
+# the reference pass predicts at 16 tokens and once at 128; the 1024-token
+# predict runs in [fleet], in process
+CLUSTER_SHORT_T = 16
+CLUSTER_LONG_T = 128
+CLUSTER_PROMPTS = 2
+CLUSTER_VOCAB = 32000
+CLUSTER_SUSPECT_S, CLUSTER_DEAD_S = 2.0, 45.0
+CLUSTER_BEAT_S = 1.0          # the heartbeat while a kill drill runs
+CLUSTER_HEDGE_MS = 4000.0     # raised to 3x the routed p50 if that is more
+CLUSTER_TIMING_N = 3          # routed and direct predicts, each way
+CLUSTER_CLOSED_S = 8.0        # the closed loop that measures the rate:
+CLUSTER_CLOSED_N = 30         # at least this long, and on to 30 answers,
+CLUSTER_CLOSED_MAX_S = 60.0   # this long at most
+CLUSTER_CLOSED_THREADS = 4
+CLUSTER_REPLAY_S = 40.0       # the replayed day, in real time
+CLUSTER_TUNE_LENGTHS = (16,)  # the tuned replica's traffic: 16 tokens
+CLUSTER_TENANTS = {"gold": dict(rate_per_s=500.0, slo="gold"),
+                   "standard": dict(rate_per_s=500.0),
+                   "free": dict(rate_per_s=2.0, burst=2.0, slo="batch"),
+                   "batch": dict(rate_per_s=500.0, slo="batch")}
+CLUSTER_MEM_SHARE = 0.9       # peak reserved below this share of the card
+
+
+def _cluster_engine_opts():
+    return {"batch_buckets": CLUSTER_BUCKETS,
+            "length_buckets": CLUSTER_LENGTHS, "queue_limit": 64}
+
+
+class _SkewClock:
+    """Membership leases, SLO burn and the autoscaler's signals on one
+    clock that a drill can push forward: death detection and the burn
+    window never wait on wall time."""
+
+    def __init__(self):
+        self.skew = 0.0
+
+    def __call__(self):
+        return time.monotonic() + self.skew
+
+
+def _cluster_replica(rid, sources, budget, **fleet_kw):
+    """One replica: a FleetRegistry holding ``sources`` ({name: (model,
+    params, state)}) under ``budget`` weight bytes, served by
+    spawn_replica. Without a tuned config each model gets the cluster's
+    engine options and beta the [generate] phase's batcher."""
+    from deeplearning4j_torch.cluster import spawn_replica
+    from deeplearning4j_torch.fleet import FleetRegistry
+
+    fleet = FleetRegistry(hbm_budget_bytes=budget, device=CLUSTER_DEVICE,
+                          **fleet_kw)
+    tuned = fleet_kw.get("tuned_for") is not None
+    for name, (model, params, state) in sources.items():
+        fleet.add(name, model, params=params, state=state,
+                  input_dtype=np.int32,
+                  engine_opts=None if tuned else _cluster_engine_opts(),
+                  gen_opts=(None if tuned or name != "beta"
+                            else _fleet_gen_opts()))
+    return spawn_replica(rid, fleet)
+
+
+def _pinned_bytes(handle):
+    return sum(handle.fleet.get(n).weight_bytes for n in handle.fleet.names())
+
+
+def _routed(port, path, body, tenant):
+    """(status, JSON body, seconds) of one POST to 127.0.0.1:``port``."""
+    t0 = time.perf_counter()
+    code, payload, _ = _fleet_http(port, path, body, tenant=tenant)
+    return code, payload, time.perf_counter() - t0
+
+
+def _answer_ok(refs, name, j, payload):
+    out = np.asarray(payload["output"], np.float32)
+    return any(np.array_equal(out[0], r)
+               for b in CLUSTER_BUCKETS for r in refs[name][(j, b)])
+
+
+def cluster_build(where):
+    """alpha and beta at full width; every reference (predicts at every
+    bucket and row position, beta's batcher tokens); two replicas r1, r2,
+    each holding both models under a budget of 2.2 models."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    rng = np.random.RandomState(7)
+    prompts = ([rng.randint(0, CLUSTER_VOCAB, (1, CLUSTER_SHORT_T)).astype(
+        np.int32) for _ in range(CLUSTER_PROMPTS)]
+        + [rng.randint(0, CLUSTER_VOCAB, (1, CLUSTER_LONG_T)).astype(
+            np.int32)])
+    gen_prompt = rng.randint(0, CLUSTER_VOCAB, FLEET_GEN_PROMPT).astype(
+        np.int32)
+    models, refs = {}, {}
+    gen_want = cast_bytes = None
+    for seed, name in enumerate(CLUSTER_NAMES):
+        t0 = time.perf_counter()
+        m = _fleet_lm(seed)
+        refs[name], _ = _fleet_refs(m, prompts)
+        if name == "beta":
+            gen_want, cast_bytes, _ = _fleet_gen_refs(m, gen_prompt)
+        models[name] = m
+        print(f"[cluster] {name}: {m.param_count()} params (seed {seed}), "
+              f"references in {time.perf_counter() - t0:.2f} s; {where}")
+    wb = sum(t.numel() * t.element_size() for t in
+             tree_leaves((models["alpha"].params, models["alpha"].state)))
+    budget = int(FLEET_BUDGET_MODELS * wb)
+    sources = {n: (m, m.params, m.state) for n, m in models.items()}
+    handles = {}
+    for rid in ("r1", "r2"):
+        t0 = time.perf_counter()
+        handles[rid] = _cluster_replica(rid, sources, budget)
+        print(f"[cluster] replica {rid} at {handles[rid].base_url}: pinned "
+              f"host copies {_pinned_bytes(handles[rid])} B in "
+              f"{time.perf_counter() - t0:.2f} s; budget {budget} B; "
+              f"{where}")
+    return {"models": models, "refs": refs, "prompts": prompts,
+            "gen_prompt": gen_prompt, "gen_want": gen_want,
+            "cast_bytes": cast_bytes, "weight_bytes": wb, "budget": budget,
+            "handles": handles, "where": where}
+
+
+def _host_sources(handle):
+    """A live replica's models as sources for a new one: the model and its
+    pinned host copies (the new replica makes its own)."""
+    out = {}
+    for name in handle.fleet.names():
+        e = handle.fleet.get(name)
+        out[name] = (e.model, e._host_params, e._host_state)
+    return out
+
+
+def cluster_reference(st, router):
+    """A: gold and standard predicts of 16 and 128 tokens and beta's
+    generates (buffered and streamed) through the router, each equal to
+    what a replica gives alone; the free tenant's third request refused by
+    the router's one bucket; routed against direct predict p50."""
+    port = router.port
+    wrong, lat = 0, []
+    for name in CLUSTER_NAMES:
+        for j in range(len(st["prompts"])):
+            for tenant in ("gold", "standard"):
+                if j == CLUSTER_PROMPTS and (name, tenant) != ("alpha",
+                                                             "gold"):
+                    continue   # one 128-token predict: 95 MB of JSON
+                code, body, dt = _routed(
+                    port, f"/v1/models/{name}/predict",
+                    {"ndarray": st["prompts"][j].tolist()}, tenant)
+                check(code == 200, f"[cluster] A: {name} predict {j} "
+                      f"answered {code}: {body}")
+                wrong += not _answer_ok(st["refs"], name, j, body)
+                lat.append((st["prompts"][j].shape[1], dt))
+    code, body, dt = _routed(port, "/v1/models/beta/generate?stream=false",
+                             {"prompt": st["gen_prompt"].tolist(),
+                              "max_new_tokens": FLEET_GEN_TOKENS,
+                              "temperature": 0.0}, "standard")
+    check(code == 200, f"[cluster] A: generate answered {code}: {body}")
+    wrong += body["tokens"] != st["gen_want"]
+    sse = _sse_tokens(port, "/v1/models/beta/generate",
+                      {"prompt": st["gen_prompt"].tolist(),
+                       "max_new_tokens": FLEET_GEN_TOKENS,
+                       "temperature": 0.0}, "gold")
+    wrong += sse != st["gen_want"]
+    check(wrong == 0, f"[cluster] A: {wrong} wrong answers")
+    # three at once: the router's one bucket (burst 2) admits two
+    quota = []
+    threads = [threading.Thread(target=lambda: quota.append(_routed(
+        port, "/v1/models/alpha/predict",
+        {"ndarray": st["prompts"][0].tolist()}, "free")[0]))
+        for _ in range(3)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    quota.sort()
+    check(quota == [200, 200, 429],
+          f"[cluster] A: the free tenant's answers {quota}")
+    # the router's own cost: alpha's primary, routed and direct, in turns
+    primary = router.candidates("alpha")[0]
+    direct_port = int(st["handles"][primary].base_url.rsplit(":", 1)[1])
+    routed_s, direct_s = [], []
+    x = {"ndarray": st["prompts"][0].tolist()}
+    for _ in range(CLUSTER_TIMING_N):
+        code, body, dt = _routed(port, "/v1/models/alpha/predict", x,
+                                 "standard")
+        check(code == 200 and _answer_ok(st["refs"], "alpha", 0, body),
+              "[cluster] A: a timed routed predict")
+        routed_s.append(dt)
+        code, body, dt = _routed(direct_port, "/v1/models/alpha/predict", x,
+                                 "standard")
+        check(code == 200 and _answer_ok(st["refs"], "alpha", 0, body),
+              "[cluster] A: a timed direct predict")
+        direct_s.append(dt)
+    r50, d50 = (1e3 * statistics.median(v) for v in (routed_s, direct_s))
+    by_t = {t: [1e3 * d for tt, d in lat if tt == t] for t, _ in lat}
+    print(f"[cluster] A: {len(lat)} routed predicts (16 and 128 tokens), "
+          f"a buffered and a streamed generate of {FLEET_GEN_TOKENS} "
+          f"tokens: 0 wrong; routed ms by tokens "
+          + ", ".join(f"{t}: {statistics.median(v):.1f} p50" for t, v in
+                      sorted(by_t.items()))
+          + f"; free tenant {quota}; alpha 16-token predict p50 routed "
+          f"{r50:.1f} ms, direct to {primary} {d50:.1f} ms (router's own "
+          f"{r50 - d50:.1f} ms); {st['where']}")
+    return {"routed_p50_ms": r50, "direct_p50_ms": d50, "requests": len(lat)}
+
+
+def _sse_tokens(port, path, body, tenant):
+    """The tokens of one streamed generate (``data:`` events)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json", "X-Tenant": tenant})
+    toks = None
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for line in r:
+            if line.startswith(b"data: "):
+                ev = json.loads(line[6:])
+                check("error" not in ev, f"[cluster] SSE error event {ev}")
+                if ev.get("done"):
+                    toks = ev["tokens"]
+    return toks
+
+
+def cluster_hedge(st, router):
+    """B: one dispatch delay (the serve.dispatch seam has no scope: armed
+    for one firing while this request is the only traffic, it lands on
+    the primary's dispatch) makes a gold predict's primary slow; the hedge
+    to the other replica wins with a correct answer, both attempts are in
+    one request trace, the loser's work completes and its replica's
+    breaker stays closed."""
+    from deeplearning4j_torch.chaos import faults
+    from deeplearning4j_torch.obs import flight, reqtrace
+
+    port = router.port
+    cands = router.candidates("alpha")
+    delay_s = router.hedge_ms / 1e3 + 3.0
+    rec = flight.install(flight.FlightRecorder())
+    reqtrace.install(reqtrace.RequestTracer(flight=rec))
+    plane = faults.install(faults.FaultPlane(seed=0))
+    try:
+        plane.inject("serve.dispatch", delay_s=delay_s, times=1)
+        code, body, dt = _routed(port, "/v1/models/alpha/predict",
+                                 {"ndarray": st["prompts"][1].tolist()},
+                                 "gold")
+        check(code == 200 and _answer_ok(st["refs"], "alpha", 1, body),
+              f"[cluster] B: the hedged predict answered {code}")
+        check(dt < delay_s, f"[cluster] B: the hedged predict took "
+              f"{dt:.2f} s, the delay {delay_s:.2f} s")
+        time.sleep(delay_s - dt + 1.0)   # the loser's dispatch ends
+        fired = plane.injected().get(("serve.dispatch", "delay"), 0)
+    finally:
+        faults.uninstall()
+        reqtrace.uninstall()
+        flight.uninstall()
+    m = router.metrics
+    launched = m.counter("cluster_hedges_total", {"outcome": "launched"}
+                         ).value
+    won = m.counter("cluster_hedges_total", {"outcome": "won"}).value
+    check(fired == 1 and launched >= 1 and won >= 1,
+          f"[cluster] B: delay fired {fired}, hedges launched {launched}, "
+          f"won {won}")
+    rec_ = next(r for r in reversed(rec.requests())
+                if r["kind"] == "route:predict")
+    att = sorted((a["args"]["replica"], a["args"]["hedge"])
+                 for a in rec_["stages"] if a["name"] == "attempt")
+    check(att == sorted([(cands[0], False), (cands[1], True)]),
+          f"[cluster] B: attempts in the request trace {att}")
+    loser = st["handles"][cands[0]].fleet
+    brk = loser.status()["breakers"]["alpha"]
+    check(brk.get("state") == "closed", f"[cluster] B: the loser's alpha "
+          f"breaker {brk}")
+    # no other request harmed: the loser answers alone, correctly
+    lport = int(st["handles"][cands[0]].base_url.rsplit(":", 1)[1])
+    code, body, _ = _routed(lport, "/v1/models/alpha/predict",
+                            {"ndarray": st["prompts"][0].tolist()}, "gold")
+    check(code == 200 and _answer_ok(st["refs"], "alpha", 0, body),
+          "[cluster] B: the loser's next answer")
+    print(f"[cluster] B: hedge_ms {router.hedge_ms:.0f}, delay "
+          f"{delay_s:.2f} s on {cands[0]}: the hedge to {cands[1]} won in "
+          f"{1e3 * dt:.1f} ms with a correct answer; attempts {att}; the "
+          f"loser's breaker {brk.get('state')}; {st['where']}")
+    return dt
+
+
+def _mixed_load(port, st, stop, out, pause=0.0):
+    """Client threads until ``stop``: gold and standard predicts on alpha
+    and beta, standard generates on beta, each client waiting ``pause``
+    seconds between its requests. Records (kind, code, body-ok)."""
+    def predicts(tenant):
+        j = 0
+        while not stop.wait(pause):
+            name = CLUSTER_NAMES[j % 2]
+            try:
+                code, body, _ = _routed(
+                    port, f"/v1/models/{name}/predict",
+                    {"ndarray": st["prompts"][0].tolist()}, tenant)
+            except OSError as e:
+                out.append(("predict", "transport", type(e).__name__))
+                continue
+            out.append(("predict", code,
+                        _answer_ok(st["refs"], name, 0, body)
+                        if code == 200 else body.get("cause")))
+            j += 1
+
+    def generates():
+        while not stop.wait(pause):
+            try:
+                code, body, _ = _routed(
+                    port, "/v1/models/beta/generate?stream=false",
+                    {"prompt": st["gen_prompt"].tolist(),
+                     "max_new_tokens": FLEET_GEN_TOKENS,
+                     "temperature": 0.0}, "standard")
+            except OSError as e:
+                out.append(("generate", "transport", type(e).__name__))
+                continue
+            out.append(("generate", code,
+                        body["tokens"] == st["gen_want"] if code == 200
+                        else body.get("cause")))
+
+    threads = [threading.Thread(target=predicts, args=(t,), daemon=True)
+               for t in ("gold", "standard")]
+    threads.append(threading.Thread(target=generates, daemon=True))
+    for th in threads:
+        th.start()
+    return threads
+
+
+def _typed_or_correct(outcomes, what):
+    bad = [o for o in outcomes if not (
+        (o[1] == 200 and o[2] is True)
+        or (isinstance(o[1], int) and o[1] not in (200, 500)
+            and isinstance(o[2], str)))]
+    check(not bad, f"[cluster] {what}: {len(bad)} answers neither correct "
+          f"nor typed: {bad[:5]}")
+
+
+def _k1_check_on_card(st, what):
+    """K1 against its plain version at the shapes the cluster gives it: a
+    predict batch of 1, 2 or 4 rows (32 heads each) at the 16- and
+    128-token buckets, D 64, bf16, causal. Its launches are off the path
+    (``_off_path``)."""
+    from deeplearning4j_torch.ops.flash_attention import (
+        flash_attention_reference, flash_fwd_cuda)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(100)
+    err = 0.0
+    with _off_path(st):
+        for b in CLUSTER_BUCKETS:
+            for t in (CLUSTER_SHORT_T, CLUSTER_LONG_T):
+                q, k, v = _qkv(gen, 32 * b, t, 64, torch.bfloat16)
+                o, lse = flash_fwd_cuda(q, k, v, scale=0.125, causal=True)
+                o_ref, lse_ref = flash_attention_reference(
+                    q, k, v, scale=0.125, causal=True)
+                err = max(err, _compare(o, lse, o_ref, lse_ref,
+                                        f"{what}: K1 at BH {32 * b}, T {t}"))
+    return err
+
+
+@contextlib.contextmanager
+def _off_path(st):
+    """Kernel launches inside the block (comparisons with a plain version,
+    the references' forwards) are read into ``st["offpath"]`` and left out
+    of the path's counts; the wrappers' counters are never written. Only
+    for blocks that run while no traffic does."""
+    wrappers = _kernel_wrappers()
+    before = {k: w.launches for k, w in wrappers.items()}
+    try:
+        yield
+    finally:
+        for k, w in wrappers.items():
+            st["offpath"][k] += w.launches - before[k]
+
+
+class _HostTrace:
+    """What the process does over a window: every thread's Python stack
+    sampled every INTERVAL_S (its role: a replica's engine, batcher or
+    HTTP handler, the router, the clients, the main thread; its activity:
+    JSON, waiting, or the innermost frame of the repo), the process's CPU
+    seconds against the wall's (one interpreter lock lets about one
+    thread run Python at a time), and with ``device=True`` the card's
+    kernel time from torch.profiler's CUDA activity (busy: the union of
+    the kernels' intervals)."""
+
+    WAITS = {"wait", "acquire", "_wait_for_tstate_lock", "select", "poll",
+             "accept", "recv_into", "readinto", "readline", "sleep", "get",
+             "join", "_recv_bytes", "serve_forever"}
+
+    INTERVAL_S = 0.05
+
+    def __init__(self, st, router, device=False, begin_later=False):
+        self.device = device
+        self.begin_later = begin_later
+        self.ports = {router.port: "router"}
+        self.ports.update({int(h.base_url.rsplit(":", 1)[1]): rid
+                           for rid, h in st["handles"].items()})
+        self.idents = {}
+        for rid, h in st["handles"].items():
+            if not h.alive():
+                continue
+            for name in h.fleet.names():
+                for cname, comp in h.fleet.get(name).components():
+                    th = getattr(comp, "_thread", None)
+                    if th is not None and th.ident is not None:
+                        self.idents[th.ident] = f"{rid}/{cname}"
+        self.counts = collections.Counter()
+        self._th = None
+        self.ticks = 0
+        self.running = 0
+        self._stop = threading.Event()
+
+    def _role(self, th, frames):
+        if th.ident in self.idents:
+            return self.idents[th.ident]
+        if th is threading.main_thread():
+            return "main"
+        for f in frames:
+            # BaseHTTPRequestHandler.handle: its self is the handler, whose
+            # server's port names the replica or the router
+            if f.f_code.co_name != "handle" or not f.f_code.co_filename \
+                    .endswith(os.path.join("http", "server.py")):
+                continue
+            srv = getattr(f.f_locals.get("self"), "server", None)
+            addr = getattr(srv, "server_address", None)
+            if addr and addr[1] in self.ports:
+                return f"{self.ports[addr[1]]}/http"
+        if th.name.startswith("cluster-"):
+            return f"router/{th.name[8:]}"
+        if th.name.startswith("sim-replay"):
+            return "client"
+        for f in frames:
+            if f.f_code.co_name in ("predicts", "generates", "probe",
+                                    "client"):
+                return "client"
+        return th.name.split("-")[0]
+
+    @staticmethod
+    def _where(frames):
+        """The innermost frame of the repo's code (the port or this
+        script) as 'file:function', else the innermost frame's."""
+        for f in frames:
+            fn = f.f_code.co_filename
+            if "deeplearning4j_torch" + os.sep in fn:
+                rel = fn.split("deeplearning4j_torch" + os.sep, 1)[1]
+                return f"{rel}:{f.f_code.co_name}"
+            if fn.endswith("chip_smoke.py"):
+                return f"chip_smoke:{f.f_code.co_name}"
+        inner = frames[0]
+        return (f"{os.path.basename(inner.f_code.co_filename)}:"
+                f"{inner.f_code.co_name}")
+
+    def _activity(self, frames):
+        for f in frames:
+            fn = f.f_code.co_filename
+            if fn.endswith(os.path.join("json", "encoder.py")):
+                return "json encode"
+            if fn.endswith(os.path.join("json", "decoder.py")):
+                return "json decode"
+        if frames[0].f_code.co_name in self.WAITS:
+            return "wait " + self._where(frames)
+        return self._where(frames)
+
+    def _loop(self):
+        me = threading.get_ident()
+        while not self._stop.wait(self.INTERVAL_S):
+            threads = {t.ident: t for t in threading.enumerate()}
+            running = 0
+            for ident, top in sys._current_frames().items():
+                th = threads.get(ident)
+                if ident == me or th is None:
+                    continue
+                frames = []
+                f = top
+                while f is not None:
+                    frames.append(f)
+                    f = f.f_back
+                act = self._activity(frames)
+                running += not act.startswith("wait ")
+                self.counts[(self._role(th, frames), act)] += 1
+            self.ticks += 1
+            self.running += running
+
+    def __enter__(self):
+        """Starts torch.profiler (with ``device``) in a warm-up step whose
+        events are dropped, then the window, unless ``begin_later``: then
+        the window starts at :meth:`begin`, after the profiler's start-up
+        (the first session in a process was seen to take tens of seconds
+        to start under load)."""
+        self._prof = None
+        self.busy_ms = self.kernel_ms = None
+        t0 = time.perf_counter()
+        if self.device:
+            from torch.profiler import ProfilerActivity, profile, schedule
+
+            self._prof = profile(activities=[ProfilerActivity.CUDA],
+                                 schedule=schedule(wait=0, warmup=1,
+                                                   active=1, repeat=1))
+            self._prof.__enter__()
+        self.start_s = time.perf_counter() - t0
+        if not self.begin_later:
+            self.begin()
+        return self
+
+    def begin(self):
+        """The window starts: sampling, the CPU clock and the profiler's
+        recorded step."""
+        if self._prof is not None:
+            self._prof.step()
+        self.t0, self.cpu0 = time.perf_counter(), time.process_time()
+        self._th = threading.Thread(target=self._loop, daemon=True)
+        self._th.start()
+
+    def __exit__(self, *exc):
+        if self._th is None:   # the window never began
+            if self._prof is not None:
+                self._prof.__exit__(*exc)
+            return False
+        self._stop.set()
+        self._th.join()
+        self.wall = time.perf_counter() - self.t0
+        self.cpu = time.process_time() - self.cpu0
+        if self._prof is not None:
+            torch.cuda.synchronize()
+            self._prof.step()
+            self._prof.__exit__(None, None, None)
+            spans = sorted((e.time_range.start, e.time_range.end)
+                           for e in _on_card(self._prof))
+            self.kernel_ms = sum(b - a for a, b in spans) / 1e3
+            busy, end = 0.0, None
+            for a, b in spans:
+                if end is None or a > end:
+                    busy += b - a
+                    end = b
+                elif b > end:
+                    busy += b - end
+                    end = b
+            self.busy_ms = busy / 1e3
+        return False
+
+    def summary(self, top=10):
+        n = max(self.ticks, 1)
+
+        def rows(pick):
+            return ", ".join(
+                f"{role} {act} {c / n:.2f}" for (role, act), c in
+                sorted(((k, c) for k, c in self.counts.items() if pick(k[1])),
+                       key=lambda kc: -kc[1])[:top])
+
+        dev = ("" if self.busy_ms is None else
+               f"; torch.profiler started in {self.start_s:.2f} s before "
+               f"the window; the card busy {self.busy_ms:.1f} ms "
+               f"({self.busy_ms / 1e3 / self.wall:.3f} of the window), "
+               f"kernels {self.kernel_ms:.1f} ms")
+        return (f"{self.wall:.2f} s wall, process CPU {self.cpu:.2f} s "
+                f"({self.cpu / self.wall:.2f} cores); {self.ticks} samples, "
+                f"one every {1e3 * self.wall / n:.0f} ms (asked "
+                f"{1e3 * self.INTERVAL_S:.0f}: the sampler waits for the "
+                f"interpreter lock too); threads not in a wait "
+                f"{self.running / n:.2f} a sample{dev}; "
+                f"threads a sample, by role and activity, working: "
+                f"{rows(lambda a: not a.startswith('wait '))}; waiting: "
+                f"{rows(lambda a: a.startswith('wait '))}")
+
+
+def _kill_drill(st, router, clock, victim, crash, tag):
+    """Kill ``victim`` (beta's generate primary) under mixed load, with
+    the router's heartbeat polling every CLUSTER_BEAT_S, and time the
+    failover: from the kill to beta's first success after the victim's
+    listener refused a connection (so it came from the survivor). ``crash=False`` is ReplicaHandle.kill alone, the
+    reference's: the listener closes, then the fleet's shutdown drains
+    what the replica had admitted, on this process's card and interpreter.
+    ``crash=True`` is what a crashed process leaves: the listener closes
+    and the replica's queued work is cancelled (its engines and batcher
+    shut down without a drain, typed), then the same kill, with nothing
+    left to drain. Answers correct or typed (no raw 500), membership marks
+    the victim dead, placement re-plans; the window traced
+    (``_HostTrace``, with the card's kernel time)."""
+    import socket
+
+    port = router.port
+    survivor = next(r for r in router.candidates("beta") if r != victim)
+    first, attempts, kill_s = {}, [], {}
+    h = st["handles"][victim]
+    vport = int(h.base_url.rsplit(":", 1)[1])
+
+    def probe():
+        while "ok" not in first:
+            try:
+                code, body, _ = _routed(
+                    port, "/v1/models/beta/generate?stream=false",
+                    {"prompt": st["gen_prompt"].tolist(),
+                     "max_new_tokens": FLEET_GEN_TOKENS,
+                     "temperature": 0.0}, "standard")
+            except OSError as e:
+                attempts.append(type(e).__name__)
+                continue
+            attempts.append(code if code == 200 else body.get("cause"))
+            if code == 200 and body["tokens"] == st["gen_want"]:
+                first["ok"] = time.perf_counter()
+
+    def kill():
+        t0 = time.perf_counter()
+        if crash:
+            h.server.stop(drain=False)
+            for name in h.fleet.names():
+                for _, comp in h.fleet.get(name).components():
+                    comp.shutdown(drain=False)
+            kill_s["cancel"] = time.perf_counter() - t0
+        h.kill()
+        kill_s["s"] = time.perf_counter() - t0
+
+    def beats():
+        # the router's heartbeat, parked for the drills, runs for the
+        # window: a failed hop demotes a replica to suspect, and only a
+        # beat makes a live one alive again
+        while not beat_stop.wait(CLUSTER_BEAT_S):
+            try:
+                router.poll_once()
+            except Exception as e:  # reported after the window
+                beat_errors.append(repr(e))
+
+    stop, out, beat_stop = threading.Event(), [], threading.Event()
+    beat_errors = []
+    beater = threading.Thread(target=beats, daemon=True)
+    # the profiler starts before the load, the traced window at the kill
+    with _HostTrace(st, router, device=True, begin_later=True) as trace:
+        threads = _mixed_load(port, st, stop, out)
+        beater.start()
+        time.sleep(1.0)
+        before = len(out)
+        trace.begin()
+        t_kill = time.perf_counter()
+        killer = threading.Thread(target=kill, daemon=True)
+        killer.start()
+        while True:
+            try:
+                socket.create_connection(("127.0.0.1", vport),
+                                         timeout=1.0).close()
+            except OSError:
+                break
+            time.sleep(0.01)
+        t_refused = time.perf_counter()
+        pr = threading.Thread(target=probe, daemon=True)
+        pr.start()
+        pr.join(timeout=300)
+        killer.join(timeout=300)
+    beat_stop.set()
+    beater.join(timeout=300)
+    check(not beat_errors, f"[cluster] {tag}: heartbeat polls raised "
+          f"{beat_errors[:3]}")
+    check(not killer.is_alive(), f"[cluster] {tag}: the kill did not return")
+    check("ok" in first, f"[cluster] {tag}: beta never served again")
+    stop.set()
+    for th in threads:
+        th.join(timeout=300)
+        check(not th.is_alive(), f"[cluster] {tag}: a client thread hung")
+    _typed_or_correct(out, tag)
+    clock.skew += CLUSTER_DEAD_S
+    states = router.poll_once()
+    check(states.get(victim) == "dead", f"[cluster] {tag}: membership "
+          f"{states}")
+    cands = router.candidates("beta")
+    check(victim not in cands and survivor in cands,
+          f"[cluster] {tag}: beta's candidates {cands}")
+    ins = [r for r in st["handles"][survivor].fleet.get("beta").page_log
+           if r["kind"] == "page_in"]
+    codes = collections.Counter(o[1] for o in out[before:])
+    failover = first["ok"] - t_kill
+    how = ("crash (listener closed, queued work cancelled "
+           f"in {kill_s['cancel']:.2f} s, then ReplicaHandle.kill)" if crash
+           else "ReplicaHandle.kill (listener closed, admitted work drained)")
+    print(f"[cluster] {tag}: killed {victim} (beta's primary) under load by "
+          f"{how}: {len(out)} answers, after the kill {dict(codes)}; every "
+          f"one correct or typed; failover {1e3 * failover:.1f} ms from the "
+          f"kill to beta's first success on {survivor} (the listener "
+          f"refused after {1e3 * (t_refused - t_kill):.1f} ms; the kill "
+          f"returned after {kill_s['s']:.2f} s; the probe's attempts "
+          f"{attempts}); {victim} dead, placement {router.candidates('alpha')}"
+          f" / {cands}; beta page-ins on {survivor}: "
+          + ", ".join(f"{1e3 * r['seconds']:.1f} ms" for r in ins)
+          + f"; {st['where']}")
+    print(f"[cluster] {tag} window (kill to failover and the kill's "
+          f"return): {trace.summary()}; {st['where']}")
+    return {"victim": victim, "survivor": survivor,
+            "failover_ms": 1e3 * failover, "kill_s": kill_s["s"]}
+
+
+def cluster_kill(st, router, clock, factory):
+    """C: kill beta's generate primary twice under mixed load. C1 with
+    ReplicaHandle.kill (the reference's: its fleet shutdown drains the
+    admitted work); then a replacement replica joins and C2 kills beta's
+    new primary as a crash does (queued work cancelled first). Each:
+    answers correct or typed, the victim dead, placement re-planned, beta
+    served again from a survivor after a page-in. Then the card still
+    synchronizes and K1 still agrees with its plain version at the
+    cluster's shapes."""
+    c1 = _kill_drill(st, router, clock, router.candidates("beta")[0],
+                     crash=False, tag="C1")
+    t0 = time.perf_counter()
+    h = factory("r3")
+    router.add_replica("r3", h.base_url)
+    router.poll_once()
+    spawn_s = time.perf_counter() - t0
+    print(f"[cluster] C: replacement r3 joined in {spawn_s:.2f} s, beta's "
+          f"candidates {router.candidates('beta')}; {st['where']}")
+    c2 = _kill_drill(st, router, clock, router.candidates("beta")[0],
+                     crash=True, tag="C2")
+    torch.cuda.synchronize()
+    err = _k1_check_on_card(st, "[cluster] C")
+    print(f"[cluster] C: failover with the drain {c1['failover_ms']:.1f} ms, "
+          f"without it {c2['failover_ms']:.1f} ms; synchronize ok; K1 vs "
+          f"plain at the cluster's shapes (BH 32, 64, 128 x T "
+          f"{CLUSTER_SHORT_T}, {CLUSTER_LONG_T}, D 64, bf16, causal) max abs "
+          f"err {err:.3g}; {st['where']}")
+    return {"dead": sorted([c1["victim"], c2["victim"]]),
+            "failover_ms": c1["failover_ms"],
+            "failover_crash_ms": c2["failover_ms"]}
+
+
+def _checked_target(*args, **kw):
+    """A RouterTarget that keeps every answer, so that the replayed
+    predicts are checked against the direct forward afterwards."""
+    from deeplearning4j_torch.sim import RouterTarget
+
+    class CheckedTarget(RouterTarget):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.seen = []
+            self._seen_lock = threading.Lock()
+
+        def _post(self, path, body, tenant):
+            status, payload = super()._post(path, body, tenant)
+            with self._seen_lock:
+                self.seen.append((path, body, status, payload))
+            return status, payload
+
+    return CheckedTarget(*args, **kw)
+
+
+def _replay_spec(rate, seed=0):
+    """smoke_spec's shape at the card's widths: lognormal prompts up to the
+    model's 1024 tokens, Pareto outputs up to 64, vocab 32000; gold,
+    standard and batch tenants; alpha predict-only, beta half generate;
+    bursts of 2.5x the base rate, in real time."""
+    from deeplearning4j_torch.sim import LengthDist, WorkloadSpec
+
+    return WorkloadSpec(
+        seed=seed, duration_s=CLUSTER_REPLAY_S, base_rate_rps=rate,
+        diurnal_amplitude=0.6, diurnal_period_s=CLUSTER_REPLAY_S,
+        diurnal_phase=-0.25, burst_rate_mult=2.5, burst_mean_on_s=6.0,
+        burst_mean_off_s=10.0,
+        prompt_len=LengthDist("lognormal", 96.0, 0.7, 1024),
+        output_len=LengthDist("pareto", 8.0, 1.6, 64),
+        vocab=CLUSTER_VOCAB, time_scale=1.0,
+        tenants={"gold": {"weight": 0.5, "slo": "gold"},
+                 "standard": {"weight": 0.35, "slo": "standard"},
+                 "batch": {"weight": 0.15, "slo": "batch"}},
+        models={"alpha": {"weight": 0.6, "generate_frac": 0.0},
+                "beta": {"weight": 0.4, "generate_frac": 0.5}})
+
+
+def _closed_loop_rate(router):
+    """Completed requests a second that the live replicas sustain at the
+    replay's mix, closed loop (each client sends its next event when its
+    last answered), over a window of at least CLUSTER_CLOSED_S that runs
+    on until CLUSTER_CLOSED_N successes (CLUSTER_CLOSED_MAX_S at most; 20
+    at least, or the phase fails); the queue depths their beats reported,
+    and the typed sheds."""
+    from deeplearning4j_torch.sim import (TYPED_CAUSES, RouterTarget,
+                                          generate_trace)
+
+    target = RouterTarget("127.0.0.1", router.port,
+                          input_len=CLUSTER_SHORT_T, vocab=CLUSTER_VOCAB,
+                          timeout_s=300.0)
+    events = list(generate_trace(_replay_spec(4.0, seed=1)))
+    done, lock, stop = [], threading.Lock(), threading.Event()
+
+    def client(i):
+        k = i
+        while not stop.is_set():
+            ev = events[k % len(events)]
+            o = (target.generate(ev) if ev.kind == "generate"
+                 else target.predict(ev))
+            with lock:
+                done.append(o)
+            k += CLUSTER_CLOSED_THREADS
+
+    threads = [threading.Thread(target=client, args=(i,), daemon=True)
+               for i in range(CLUSTER_CLOSED_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    depths = []
+    while True:
+        time.sleep(1.0)
+        router.poll_once()
+        depths.append(sum(int(router.membership.payload(r).get(
+            "queue_depth") or 0) for r in router.membership.ids()))
+        el = time.perf_counter() - t0
+        with lock:
+            n_ok = sum(o.ok for o in done)
+        if el >= CLUSTER_CLOSED_MAX_S or (el >= CLUSTER_CLOSED_S
+                                          and n_ok >= CLUSTER_CLOSED_N):
+            break
+    with lock:
+        n = len(done)
+        t1 = time.perf_counter()
+    stop.set()
+    for th in threads:
+        th.join(timeout=300)
+    bad = [o for o in done if not o.ok and o.cause not in TYPED_CAUSES]
+    check(not bad, f"[cluster] D: closed loop failures {bad[:3]}")
+    ok = sum(o.ok for o in done[:n])
+    check(ok >= 20, f"[cluster] D: the closed loop "
+          f"completed {ok} requests in {t1 - t0:.1f} s")
+    shed = collections.Counter(o.cause for o in done[:n] if not o.ok)
+    return {"rate": ok / (t1 - t0), "ok": ok, "seconds": t1 - t0,
+            "depths": depths, "shed": dict(shed)}
+
+
+def cluster_autoscale(st, router, clock, factory, dead):
+    """D: the AutoscaleController adopts the replicas, the dead ones
+    included: its first tick reaps the corpses and repairs the floor of
+    two (``below_min``). Then the closed-loop rate two replicas sustain at
+    the replay's mix; a WorkloadSpec at 0.6x that rate with 2.5x bursts,
+    replayed open loop through RouterTarget by LiveReplayer while the
+    controller ticks every second: it scales out on the burst (spawn,
+    prewarm page-ins, first beat); once the traffic ends it scales in one
+    replica through /v1/admin/drain with requests in flight. Every outcome
+    typed or correct."""
+    import random as _random
+
+    from deeplearning4j_torch.autoscale import (AutoscaleController,
+                                                AutoscalePolicy)
+    from deeplearning4j_torch.sim import LiveReplayer, generate_trace
+    from deeplearning4j_torch.sim.workload import _burst_windows
+
+    # the policy's SLO burn thresholds (the router's per-class burn: a
+    # request shed on its deadline counts against the budget, wherever it
+    # waited) and queue watermarks of 2 and 0.5 a replica (the replicas'
+    # own queues stay short while requests wait on this process's host
+    # work, so the queue alone sees little of the load); ticks come about
+    # a second apart
+    policy = AutoscalePolicy(min_replicas=2, max_replicas=3,
+                             sustain_out_s=1.0, sustain_in_s=3.0,
+                             cooldown_out_s=10.0, cooldown_in_s=5.0,
+                             queue_high=2.0, queue_low=0.5)
+    ctl = AutoscaleController(router, factory, policy=policy, clock=clock,
+                              beat_wait_s=10.0)
+    for rid in router.membership.ids():
+        ctl.adopt(rid, st["handles"][rid])
+    d = ctl.tick()
+    first = json.loads(ctl.decision_log[0])
+    check((d.direction, d.reason) == ("out", "below_min")
+          and sorted(first["retired"]) == dead and first["actuated"] == 1,
+          f"[cluster] D: first tick {first}")
+    closed = _closed_loop_rate(router)
+    rate = closed["rate"]
+    # the closed loop's outcomes leave the burn window before the replay
+    clock.skew += 61.0
+    router.poll_once()
+    spec = _replay_spec(0.6 * rate)
+    trace = generate_trace(spec)
+    bursts = _burst_windows(_random.Random(spec.seed), spec)
+    print(f"[cluster] D: tick 0 reaped {dead} and spawned "
+          f"{ctl.snapshot()['managed']} (below_min); the closed loop "
+          f"({CLUSTER_CLOSED_THREADS} clients, {closed['seconds']:.1f} s, "
+          f"{closed['ok']} answered, shed {closed['shed']}) sustains "
+          f"{rate:.3f} requests/s on two replicas; summed queue depths "
+          f"{closed['depths']}; replaying {len(trace)} events at base "
+          f"{0.6 * rate:.3f}/s, bursts x2.5 at "
+          f"{[(round(a, 1), round(b, 1)) for a, b in bursts]} s, workload "
+          f"{spec.fingerprint()}; {st['where']}")
+    target = _checked_target("127.0.0.1", router.port,
+                             input_len=CLUSTER_SHORT_T, vocab=CLUSTER_VOCAB,
+                             timeout_s=300.0, autoscaler=ctl)
+    t_replay = clock()
+    ctl.start(interval_s=1.0)
+    try:
+        report = LiveReplayer(trace, target, join_timeout_s=600.0).run()
+    finally:
+        ctl.stop()
+    check(report["untyped_errors"] == 0 and report["requests"] == len(
+        trace), f"[cluster] D: replay shed {report['shed']}, "
+        f"{report['untyped_errors']} untyped")
+    outs = [json.loads(ln) for ln in ctl.decision_log]
+    outs = [o for o in outs if o["actuated"] and o["decision"]["direction"]
+            == "out" and o["decision"]["reason"] in ("burn", "queue")]
+    check(outs and ctl.replica_stats()["max"] == 3,
+          "[cluster] D: no scale-out under the replay; decisions:\n"
+          + "\n".join(ctl.decision_log))
+    t_out = outs[0]["decision"]["evidence"]["t"] - t_replay
+    in_burst = any(a <= t_out < b for a, b in bursts)
+    # offered rate (diurnal, and 2.5x inside a burst) where it scaled out
+    offered = spec.rate_at(t_out) * (spec.burst_rate_mult if in_burst
+                                     else 1.0)
+    # scale-in: the traffic is over, the burn window aged out
+    clock.skew += 61.0
+    router.poll_once()
+    stop, inflight = threading.Event(), []
+    threads = _mixed_load(router.port, st, stop, inflight)
+    t_in = None
+    for _ in range(12):
+        if ctl.replica_stats()["final"] <= 2:
+            break
+        clock.skew += 1.0
+        t0 = time.perf_counter()
+        d = ctl.tick()
+        if d.direction == "in":
+            t_in = time.perf_counter() - t0
+    time.sleep(1.0)
+    stop.set()
+    for th in threads:
+        th.join(timeout=300)
+        check(not th.is_alive(), "[cluster] D: a client thread hung")
+    _typed_or_correct(inflight, "D scale-in")
+    check(ctl.replica_stats()["final"] == 2 and t_in is not None,
+          "[cluster] D: no scale-in; decisions:\n"
+          + "\n".join(ctl.decision_log))
+    drains = router.metrics.counter("autoscale_drains_total",
+                                    {"outcome": "ok"}).value
+    check(drains >= 1, f"[cluster] D: {drains} drains answered 200")
+    with _off_path(st):   # the references' forwards
+        wrong = _replay_wrong(st, target.seen)
+    check(wrong == 0, f"[cluster] D: {wrong} wrong replayed predicts")
+    hist = router.metrics.histogram("autoscale_scale_seconds",
+                                    {"direction": "out"})
+    n_pred = sum(1 for s in target.seen if "predict" in s[0])
+    print(f"[cluster] D: replay {report['requests']} requests, completed "
+          f"{report['completed']}, shed {report['shed']}, untyped "
+          f"{report['untyped_errors']}, latency p50 "
+          f"{report['latency_ms']['p50']:.1f} ms p99 "
+          f"{report['latency_ms']['p99']:.1f} ms, replicas "
+          f"{report.get('replicas')}; first scale-out at {t_out:.1f} s of "
+          f"the replay ({'in' if in_burst else 'outside'} a burst, on "
+          f"{outs[0]['decision']['reason']}: burn "
+          f"{outs[0]['decision']['evidence']['burn']}, summed queue "
+          f"{outs[0]['decision']['evidence']['queue_depth']}; offered "
+          f"{offered:.3f}/s there, against the closed-loop {rate:.3f}/s); "
+          f"scale-out (spawn, prewarm, first beat) "
+          f"{hist.sum / max(hist.count, 1):.2f} s mean of {hist.count}; "
+          f"scale-in (drain, stop) {t_in:.2f} s with {len(inflight)} "
+          f"answers in flight, all correct or typed; 0 wrong of {n_pred} "
+          f"replayed predicts; {st['where']}")
+    print("[cluster] D: decision log:")
+    for ln in ctl.decision_log:
+        d = json.loads(ln)
+        print(f"  tick {d['tick']}: {d['decision']['direction']} "
+              f"{d['decision']['reason']} actuated {d['actuated']} current "
+              f"{d['current']} actual {d['actual']} retired {d['retired']} "
+              f"evidence {json.dumps(d['decision']['evidence'])}")
+    return {"trace": trace, "report": report}
+
+
+def _replay_wrong(st, seen):
+    """Replayed predicts whose answer is not the direct forward of their
+    16-token input at some bucket and row position."""
+    wrong = 0
+    cache = {}
+    for path, body, status, payload in seen:
+        if "predict" not in path or status != 200:
+            continue
+        name = path.split("/")[3]
+        x = np.asarray(body["ndarray"], np.int32)[None]
+        key = (name, x.tobytes())
+        if key not in cache:
+            cache[key] = _fleet_refs(st["models"][name], [x])[0]
+        refs = cache[key]
+        out = np.asarray(payload["output"], np.float32)[0]
+        wrong += not any(np.array_equal(out, r) for b in CLUSTER_BUCKETS
+                         for r in refs[(0, b)])
+    return wrong
+
+
+def cluster_tune(st, router, trace, aot_dir, factory_tuned,
+                 eager_batches):
+    """E: the card's cost profile from the [aot] store calibrates the
+    CostModel; a seeded Tuner search over the replayed workload; the
+    winner recorded; a store prebuilt for the winner's knobs while r1/r2
+    serve; a strict replica booted with tuned_for= under load, its knobs
+    the winner's and 0 compiles on covered signatures; the winner's
+    autoscale group read by AutoscalePolicy.from_config. Returns the
+    strict replica's predict batches (each a graph replay)."""
+    from deeplearning4j_torch.aot import AotStore, get_tuned
+    from deeplearning4j_torch.autoscale import AutoscalePolicy
+    from deeplearning4j_torch.obs.costmodel import get_profile
+    from deeplearning4j_torch.obs.metrics import MetricsRegistry
+    from deeplearning4j_torch.serve.continuous import gen_opts_from_config
+    from deeplearning4j_torch.serve.engine import ENGINE_KNOBS
+    from deeplearning4j_torch.sim import CostModel, Tuner, record_winner
+
+    store = AotStore(os.path.join(aot_dir, "store"))
+    m = MetricsRegistry()
+    profile = get_profile(store, _aot_model_fp(), metrics=m)
+    check(profile is not None and m.counter(
+        "profile_store_hits_total").value == 1,
+        "[cluster] E: no cost profile in the [aot] store")
+    cm = CostModel.from_profile(profile)
+    base = {"engine": {"batch_buckets": list(CLUSTER_BUCKETS),
+                       "length_buckets": list(CLUSTER_TUNE_LENGTHS)},
+            "gen": {"capacity": GEN_CAPACITY, "kv": "paged", "seed": 0}}
+    t0 = time.perf_counter()
+    res = Tuner(trace, cost_model=cm, base=base, seed=0).search(
+        candidates=8, eta=3, min_events=32)
+    tune_s = time.perf_counter() - t0
+    check(res.winner_score >= res.default_score,
+          "[cluster] E: the winner scored below the default")
+    key = record_winner(store, trace, res)
+    check(key is not None, "[cluster] E: record_winner failed")
+    fp = trace.fingerprint()
+    print(f"[cluster] E: cost model from the card's profile "
+          f"{dict(zip(cm._fields, cm))}; "
+          f"tuner over {len(trace)} events: {res.evaluated} evaluations in "
+          f"{tune_s:.2f} s, rungs {res.rungs}, winner score "
+          f"{res.winner_score:.6f} (default {res.default_score:.6f}): "
+          f"engine {res.winner['engine']}, gen {res.winner['gen']}; "
+          f"{st['where']}")
+    # prebuild the winner's serving config in a process of its own (as a
+    # deployment prebuilds), then boot the strict replica here, both while
+    # r1/r2 serve
+    winner = res.winner
+    config = {**_aot_config(),
+              "engine": {k: v for k, v in winner["engine"].items()
+                         if k in ENGINE_KNOBS},
+              "gen": dict(winner["gen"])}
+    cfg_path = os.path.join(aot_dir, "tuned_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    stop, bg = threading.Event(), []
+    threads = _mixed_load(router.port, st, stop, bg, pause=2.0)
+    k1 = _kernel_wrappers()["K1"]
+    k0, b0 = k1.launches, eager_batches()
+    boot = _HostTrace(st, router)
+    try:
+        t0 = time.perf_counter()
+        pb = subprocess.run(
+            [sys.executable, "-m", "deeplearning4j_torch.aot", "--store",
+             os.path.join(aot_dir, "store"), "--device", CLUSTER_DEVICE,
+             "prebuild", "--config", cfg_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=AOT_TIMEOUT_S)
+        prebuild_s = time.perf_counter() - t0
+        check(pb.returncode == 0, f"[cluster] E: prebuild exited "
+              f"{pb.returncode}:\n{pb.stdout[-3000:]}\n{pb.stderr[-3000:]}")
+        report = json.loads(pb.stdout)
+        with boot:
+            t0 = time.perf_counter()
+            h = factory_tuned("tuned", store, fp)
+            for name in h.fleet.names():
+                h.fleet.ensure(name)
+            h.fleet.get("beta").batcher()  # the batcher's graphs, under load
+            torch.cuda.synchronize()
+            boot_s = time.perf_counter() - t0
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=300)
+    _typed_or_correct(bg, "E (traffic during the prebuild and strict boot)")
+    # K1 over the boot: 12 a batch of the traffic on the eager replicas,
+    # and the strict page-ins' graph builds, off the path (their replays
+    # are counted): what the reading leaves over the eager batches, held
+    # to an eager warm-up and a capture (12 launches each) of every engine
+    # graph of both models
+    n_graphs = (len(winner["engine"]["batch_buckets"])
+                * len(winner["engine"]["length_buckets"])
+                * len(h.fleet.names()))
+    bg_batches = eager_batches() - b0
+    builds = k1.launches - k0 - 12 * bg_batches
+    st["offpath"]["K1"] += builds
+    check(builds == 2 * 12 * n_graphs,
+          f"[cluster] E: K1 launched {k1.launches - k0} times during the "
+          f"prebuild and boot for {bg_batches} eager batches: {builds} left "
+          f"for {n_graphs} engine graphs, {2 * 12 * n_graphs} expected")
+    want_engine = {k: v for k, v in winner["engine"].items()
+                   if k in ENGINE_KNOBS}
+    got_gen = dict(h.fleet.get("beta").gen_opts)
+    want_gen = gen_opts_from_config(winner)
+    sched = (got_gen.pop("scheduler", None), want_gen.pop("scheduler", None))
+    check(h.fleet.get("alpha").engine_opts == want_engine
+          and got_gen == want_gen
+          and (sched[0] is None) == (sched[1] is None)
+          and (sched[0] is None or (
+              (sched[0].decode_chunks, sched[0].idle_chunks)
+              == (sched[1].decode_chunks, sched[1].idle_chunks))),
+          f"[cluster] E: tuned knobs {h.fleet.get('alpha').engine_opts} / "
+          f"{got_gen}, winner {want_engine} / {want_gen}")
+    # traffic straight to the strict replica: graph replays only
+    hport = int(h.base_url.rsplit(":", 1)[1])
+    before = k1.launches
+    for j in range(CLUSTER_PROMPTS):
+        for name in CLUSTER_NAMES:
+            code, body, _ = _routed(hport, f"/v1/models/{name}/predict",
+                                    {"ndarray": st["prompts"][j].tolist()},
+                                    "gold")
+            check(code == 200 and _answer_ok(st["refs"], name, j, body),
+                  f"[cluster] E: the tuned replica's {name} answer {code}")
+    code, body, _ = _routed(hport, "/v1/models/beta/generate?stream=false",
+                            {"prompt": st["gen_prompt"].tolist(),
+                             "max_new_tokens": FLEET_GEN_TOKENS,
+                             "temperature": 0.0}, "standard")
+    check(code == 200, f"[cluster] E: the tuned replica's generate {code}")
+    check(k1.launches == before, f"[cluster] E: the strict replica "
+          f"launched K1 eagerly ({k1.launches - before})")
+    # the winner's batcher knobs chunk the prefill differently: its tokens
+    # are held to the reference's under the gap rule (the teacher's full
+    # forward launches K1 and is not on the path)
+    with _off_path(st):
+        lp = _teacher_logp(st["models"]["beta"], np.concatenate(
+            [st["gen_prompt"], np.asarray(st["gen_want"][:-1], np.int32)]))
+    met = _same_tokens(body["tokens"], st["gen_want"], lp,
+                       len(st["gen_prompt"]),
+                       "[cluster] E: the tuned replica's tokens",
+                       GEN_GAP_TOL_BF16)
+    snap = h.fleet.metrics.snapshot()
+
+    def total(name):
+        return sum(s["value"] for s in snap.get(name, {}).get("series", []))
+
+    compiles = total("serve_compile_misses_total")
+    batches = int(total("serve_batches_total"))
+    check(compiles == 0 and total("serve_aot_hits_total") > 0,
+          f"[cluster] E: strict replica compiles {compiles}, hits "
+          f"{total('serve_aot_hits_total')}")
+    check(h.fleet.metrics.counter("sim_tuned_config_hits_total").value == 1,
+          "[cluster] E: the tuned config was not resolved at boot")
+    pol = AutoscalePolicy.from_config(get_tuned(store, fp))
+    check(pol.forecast_confidence == winner["autoscale"][
+        "forecast_confidence"], "[cluster] E: from_config")
+    router.add_replica("tuned", h.base_url)
+    router.poll_once()
+    print(f"[cluster] E: prebuild of the winner's config "
+          f"{prebuild_s:.2f} s ({report['total_signatures']} signatures) "
+          f"and the strict tuned boot of replica 'tuned' (tuned_for={fp}) "
+          f"{boot_s:.2f} s, both while the replicas served {len(bg)} "
+          f"answers, all correct or typed; K1 graph builds {builds} = "
+          f"{builds / n_graphs:.1f} a graph x {n_graphs} engine graphs (an "
+          f"eager warm-up and a capture, 12 layers each); its knobs are the "
+          f"winner's; 0 compiles, "
+          f"{int(total('serve_aot_hits_total'))} store hits, {batches} "
+          f"predict batches replayed, tokens equal before a near-tie "
+          f"{met[0]} of {FLEET_GEN_TOKENS}; policy from_config "
+          f"forecast_confidence {pol.forecast_confidence}; {st['where']}")
+    host_s = [sum(getattr(h.fleet.get(n), a) for n in h.fleet.names())
+              for a in ("host_alloc_s", "host_fill_s")]
+    print(f"[cluster] E: the strict boot under load traced: "
+          f"{boot.summary()}; of it the new replica's pinned host copies "
+          f"({_pinned_bytes(h)} B): allocation {host_s[0]:.2f} s, filling "
+          f"{host_s[1]:.2f} s; {st['where']}")
+    return batches
+
+
+def _aot_model_fp():
+    """The fingerprint [aot]'s strict server files its cost profile under:
+    the serving config it prebuilt, canonical JSON."""
+    import hashlib
+
+    return hashlib.sha256(json.dumps(_aot_config(), sort_keys=True).encode()
+                          ).hexdigest()[:16]
+
+
+def _cluster_mem():
+    return torch.cuda.max_memory_reserved(), torch.cuda.get_device_properties(
+        0).total_memory
+
+
+def _meminfo():
+    """/proc/meminfo's MemTotal and MemAvailable, in bytes."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable"):
+                out[k] = int(v.split()[0]) * 1024
+    return out
+
+
+def phase_cluster(aot_dir=None):
+    """[cluster]: two full-width CausalLMs (alpha, beta) on two replicas
+    behind one ClusterRouter in this process, on the card: the reference
+    pass, a hedge, a crash-kill under load, autoscaling under a replayed
+    workload and a tuned strict boot (the drills of
+    scripts/smoke_cluster.py and smoke_autoscale.py at full width).
+    ``aot_dir`` is [aot]'s store directory (its cost profile); without
+    one [aot] runs first. Returns every kernel's launches over the phase:
+    K1's eager launches plus 12 a strict replay."""
+    import random as _random
+    import shutil
+    import tempfile
+
+    from deeplearning4j_torch.cluster import ClusterRouter
+
+    own_dir = aot_dir is None
+    if own_dir:
+        aot_dir = tempfile.mkdtemp()
+        phase_aot(aot_dir)
+    where = card()
+    mem = _meminfo()
+    print(f"[cluster] host memory: MemTotal {mem['MemTotal']} B, "
+          f"MemAvailable {mem['MemAvailable']} B; {where}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    st = cluster_build(where)
+    st["offpath"] = collections.Counter()
+    clock = _SkewClock()
+    router = ClusterRouter(port=0, heartbeat_s=3600.0,
+                           hedge_ms=CLUSTER_HEDGE_MS,
+                           suspect_after_s=CLUSTER_SUSPECT_S,
+                           dead_after_s=CLUSTER_DEAD_S, clock=clock,
+                           jitter_rng=_random.Random(0))
+    for tenant, kw in CLUSTER_TENANTS.items():
+        router.tenants.register(tenant, **kw)
+    for rid, h in st["handles"].items():
+        router.add_replica(rid, h.base_url)
+    router.start()
+
+    def factory(rid):
+        src = next(h for h in st["handles"].values() if h.alive())
+        h = _cluster_replica(rid, _host_sources(src), st["budget"])
+        st["handles"][rid] = h
+        return h
+
+    def factory_tuned(rid, store, fp):
+        src = next(h for h in st["handles"].values() if h.alive())
+        h = _cluster_replica(rid, _host_sources(src), st["budget"],
+                             aot_store=store, strict_aot=True, tuned_for=fp)
+        st["handles"][rid] = h
+        return h
+
+    def eager_batches():
+        """Predict batches of every replica but the strict one."""
+        return sum(
+            int(sum(s["value"] for s in h.fleet.metrics.snapshot().get(
+                "serve_batches_total", {}).get("series", [])))
+            for rid, h in st["handles"].items() if rid != "tuned")
+
+    wrappers = _kernel_wrappers()
+    try:
+        router.poll_once()
+        plan = {n: router.candidates(n) for n in CLUSTER_NAMES}
+        print(f"[cluster] router on 127.0.0.1:{router.port}, placement "
+              f"{plan}")
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        a = cluster_reference(st, router)
+        router.hedge_ms = max(CLUSTER_HEDGE_MS, 3.0 * a["routed_p50_ms"])
+        t1 = time.perf_counter()
+        cluster_hedge(st, router)
+        t2 = time.perf_counter()
+        kill = cluster_kill(st, router, clock, factory)
+        t3 = time.perf_counter()
+        d = cluster_autoscale(st, router, clock, factory, kill["dead"])
+        t4 = time.perf_counter()
+        strict = cluster_tune(st, router, d["trace"], aot_dir,
+                              factory_tuned, eager_batches)
+        t5 = time.perf_counter()
+        print(f"[cluster] seconds: A {t1 - t0:.1f}, B {t2 - t1:.1f}, C "
+              f"{t3 - t2:.1f}, D {t4 - t3:.1f}, E {t5 - t4:.1f}; {where}")
+        read = {k: w.launches for k, w in wrappers.items()}
+        n_eager = eager_batches()
+        peak, total = _cluster_mem()
+    finally:
+        router.stop()
+        for h in st["handles"].values():
+            h.kill()
+        if own_dir:
+            shutil.rmtree(aot_dir, ignore_errors=True)
+    # on the path: what the counters read less the launches read off it
+    # (comparisons, the references' forwards, the strict graphs' builds)
+    eager = {k: read[k] - st["offpath"][k] for k in read}
+    check(eager["K1"] == 12 * n_eager, f"[cluster] K1 launched "
+          f"{eager['K1']} times eagerly on the path ({read['K1']} read, "
+          f"{st['offpath']['K1']} off it) for {n_eager} batches")
+    check(all(v == 0 for k, v in eager.items() if k != "K1"),
+          f"[cluster] kernels other than K1 launched: {eager}")
+    check(peak < CLUSTER_MEM_SHARE * total, f"[cluster] peak reserved "
+          f"{peak} B of {total} B")
+    # a strict replay launches K1 inside its graph, 12 times, uncounted by
+    # the wrapper: counted as [aot] counts them
+    counts = dict(eager, K1=eager["K1"] + 12 * strict)
+    check(counts["K1"] > 0, "[cluster] K1 never launched")
+    pinned = {rid: _pinned_bytes(h) for rid, h in st["handles"].items()}
+    print(f"[cluster] K1 {counts['K1']} = {eager['K1']} read eagerly "
+          f"({read['K1']} on the counter less {st['offpath']['K1']} off the "
+          f"path) = 12 x {n_eager} eager batches, + 12 x {strict} strict "
+          f"replays; every other kernel 0; peak "
+          f"reserved {peak} B of the card's {total} B "
+          f"({peak / total:.3f}); pinned host bytes a replica {pinned}; "
+          f"{where}")
+    return counts
+
+
+REC_LAYERS = 2                # the depth cut: 12 -> 2 layers at width 2048
+REC_B, REC_T = 4, 1024
+REC_BATCHES = 2               # batches a segment (one epoch each)
+REC_SEGMENTS = 3
+REC_RB_BATCHES = 4            # the rollback run's epoch; batch 2 poisoned
+REC_ZIP_SAMPLE = 64 * 2**20   # the checkpoint's bytes both writers time
+
+
+def _rec_lm(seed=0):
+    """CausalLM(flash=True) at width 2048 (32 heads, vocab 32000, T 1024,
+    bf16 compute) with the depth cut to REC_LAYERS."""
+    from deeplearning4j_torch.models import CausalLM
+
+    m = CausalLM(seed=seed, input_shape=(REC_T,), num_layers=REC_LAYERS,
+                 d_model=2048, num_heads=32, vocab=32000, flash=True,
+                 device="cuda").build()
+    m.config.compute_dtype = "bfloat16"
+    m.init(seed=seed)
+    return m
+
+
+def _rec_iter(n_batches, poison=None):
+    """Random token batches (seed 3) with an all-ones label mask; the
+    ``poison``-th batch carries a NaN in its mask, so its loss is NaN."""
+    from deeplearning4j_torch.data import ArrayIterator
+
+    rng = np.random.RandomState(3)
+    n = REC_B * n_batches
+    x = rng.randint(0, 32000, (n, REC_T)).astype(np.int32)
+    y = rng.randint(0, 32000, (n, REC_T)).astype(np.int32)
+    lm = np.ones((n, REC_T), np.float32)
+    if poison is not None:
+        lm[poison * REC_B, 5] = np.nan
+    return ArrayIterator(x, y, batch_size=REC_B, labels_mask=lm)
+
+
+def recovery_resume(tmp, where):
+    """Three one-epoch segments of FaultTolerantFit; a train.segment fault
+    preempts the run after segment 2, before its checkpoint lands; a fresh
+    Trainer resumes from segment 1's checkpoint and finishes, its params
+    and updater state bit-equal to an uninterrupted run's. Returns the
+    steps run and the checkpoint's write and read seconds and bytes."""
+    from deeplearning4j_torch.chaos import faults
+    from deeplearning4j_torch.chaos.recovery import FaultTolerantFit
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.train import (Trainer, load_model,
+                                            load_opt_state, save_model)
+
+    with _deterministic() as caught:
+        base = Trainer(_rec_lm())
+        t0 = time.perf_counter()
+        base.fit(_rec_iter(REC_BATCHES), epochs=REC_SEGMENTS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        want = [t.detach().clone()
+                for t in tree_leaves((base.params, base.opt_state))]
+        n_params = base.model.param_count()
+        del base
+        _release()
+        d = os.path.join(tmp, "ckpt")
+        plane = faults.install(faults.FaultPlane(seed=0))
+        try:
+            plane.inject_spec(
+                "train.segment:error:type=runtime,scope=2,times=1")
+            first = FaultTolerantFit(Trainer(_rec_lm()), d)
+            t0 = time.perf_counter()
+            try:
+                first.fit(_rec_iter(REC_BATCHES), epochs=REC_SEGMENTS)
+                preempted = False
+            except RuntimeError as e:
+                preempted = "train.segment" in str(e)
+            preempt_s = time.perf_counter() - t0
+        finally:
+            faults.uninstall()
+        check(preempted and first.completed_epochs() == 1,
+              f"[recovery] preemption: raised {preempted}, completed "
+              f"{first.completed_epochs()}")
+        del first
+        _release()
+        resumed = FaultTolerantFit(Trainer(_rec_lm()), d)
+        t0 = time.perf_counter()
+        tr = resumed.fit(_rec_iter(REC_BATCHES), epochs=REC_SEGMENTS)
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        got = tree_leaves((tr.params, tr.opt_state))
+        same = len(got) == len(want) and all(
+            torch.equal(a.detach(), b) for a, b in zip(got, want))
+        diff = _max_diff([a.detach() for a in got], want)
+    check(resumed.completed_epochs() == REC_SEGMENTS, "[recovery] resume")
+    check(same, f"[recovery] resumed params and updater state differ from "
+          f"the uninterrupted run's by up to {diff}; nondeterministic ops "
+          f"{_nondeterministic(caught)}")
+    # the checkpoint itself, written and read once more, timed
+    path = os.path.join(tmp, "timed.zip")
+    t0 = time.perf_counter()
+    save_model(path, tr.model, params=tr.params, state=tr.state,
+               opt_state=tr.opt_state)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    _, params, _ = load_model(path, device=tr.device)
+    opt = load_opt_state(path, tr.opt_state)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    check(all(torch.equal(a, b.detach()) for a, b in zip(
+        tree_leaves((params, opt)), tree_leaves((tr.params, tr.opt_state)))),
+        "[recovery] the reloaded checkpoint differs")
+    writers = recovery_zip_writers(tr, tmp)
+    del tr, resumed, params, opt, want, got
+    _release()
+    steps = REC_BATCHES * (REC_SEGMENTS + 2 + 2)
+    print(f"[recovery] CausalLM(flash=True) at width 2048, depth cut 12 -> "
+          f"{REC_LAYERS} layers ({n_params} params), B {REC_B} x T {REC_T}, "
+          f"bf16, adamw: uninterrupted {REC_SEGMENTS} segments "
+          f"{fit_s:.2f} s; preempted at the train.segment seam after "
+          f"segment 2 ({preempt_s:.2f} s), resumed from segment 1's "
+          f"checkpoint by a fresh Trainer ({resume_s:.2f} s): params and "
+          f"updater state bit-equal to the uninterrupted run's; checkpoint "
+          f"{nbytes} B written in {write_s:.2f} s "
+          f"({nbytes / write_s / 1e9:.2f} GB/s), read in {read_s:.2f} s "
+          f"({nbytes / read_s / 1e9:.2f} GB/s); {where}")
+    print(f"[recovery] the checkpoint's write: its {writers['bytes']} B "
+          f"copied to host memory in {writers['d2h_s']:.2f} s "
+          f"({writers['bytes'] / writers['d2h_s'] / 1e9:.2f} GB/s); on its "
+          f"first {writers['sample_bytes']} B, one run each: "
+          + ", ".join(f"{k} {v[0]:.3f} s "
+                      f"({writers['sample_bytes'] / v[0] / 1e6:.1f} MB/s, "
+                      f"{v[1]} B)" for k, v in writers["sample"].items())
+          + f"; {where}")
+    return steps
+
+
+def recovery_zip_writers(tr, tmp):
+    """The checkpoint write's stages: the trained params and updater state
+    copied to host memory (the whole tree, as ``save_model`` does); then
+    on the first REC_ZIP_SAMPLE bytes of those arrays, three writers of
+    one params.npz member: the reference's (``np.savez`` into memory, then
+    a deflated member), the same stored, and the port's
+    (``serialization._save_npz``: ``np.savez`` streamed into a stored
+    member). Returns the bytes, the copy's seconds and each writer's
+    (seconds, file bytes)."""
+    import io
+    import zipfile
+
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.train.serialization import _save_npz
+
+    t0 = time.perf_counter()
+    host = [t.detach().cpu().numpy()
+            for t in tree_leaves((tr.params, tr.opt_state))]
+    d2h_s = time.perf_counter() - t0
+    sample, left = {}, REC_ZIP_SAMPLE
+    for i, a in enumerate(host):
+        if left <= 0:
+            break
+        flat = a.reshape(-1)[:left // a.itemsize]
+        sample[str(i)] = flat
+        left -= flat.nbytes
+
+    def through_memory(path, kind):
+        with zipfile.ZipFile(path, "w", kind) as zf:
+            buf = io.BytesIO()
+            np.savez(buf, **sample)
+            zf.writestr("params.npz", buf.getvalue())
+
+    def streamed(path):
+        with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+            _save_npz(zf, "params.npz", sample)
+
+    out = {}
+    for name, fn in (
+            ("the reference's (in memory, deflated)",
+             lambda p: through_memory(p, zipfile.ZIP_DEFLATED)),
+            ("in memory, stored",
+             lambda p: through_memory(p, zipfile.ZIP_STORED)),
+            ("the port's (streamed, stored)", streamed)):
+        path = os.path.join(tmp, "writer.zip")
+        t0 = time.perf_counter()
+        fn(path)
+        out[name] = (time.perf_counter() - t0, os.path.getsize(path))
+        os.remove(path)
+    return {"bytes": sum(a.nbytes for a in host), "d2h_s": d2h_s,
+            "sample_bytes": sum(a.nbytes for a in sample.values()),
+            "sample": out}
+
+
+def recovery_rollback(where):
+    """A poisoned batch (a NaN in its label mask) gives a NaN loss;
+    DivergenceListener(action="rollback") restores the last validated
+    snapshot, scales the learning rate by 0.5 and training goes on with
+    finite losses. Returns the steps run."""
+    from deeplearning4j_torch.chaos.recovery import DivergenceListener
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    tr = Trainer(_rec_lm())
+    lst = DivergenceListener(action="rollback", snapshot_every=2)
+    rec = CollectScoresListener()
+    t0 = time.perf_counter()
+    tr.fit(_rec_iter(REC_RB_BATCHES, poison=2), listeners=[lst, rec])
+    tr.fit(_rec_iter(REC_RB_BATCHES), listeners=[lst, rec])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = [s for _, s in rec.scores]
+    bad = [i for i, s in enumerate(losses) if not np.isfinite(s)]
+    check(bad == [2] and lst.rollbacks == 1 and lst.lr_scale == 0.5,
+          f"[recovery] rollback: non-finite at {bad}, rollbacks "
+          f"{lst.rollbacks}, lr scale {lst.lr_scale}")
+    check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(tr.params)),
+          "[recovery] non-finite params after the rollback")
+    check(len(tr.opt_state) == 2 and tr.opt_state[1] == (),
+          "[recovery] the updater state is not the chained structure")
+    print(f"[recovery] poisoned batch 2 (a NaN in its label mask): losses "
+          + " ".join(f"{s:.4f}" for s in losses)
+          + f"; rolled back to the last validated snapshot, lr x "
+          f"{lst.lr_scale}, {len(losses) - 3} finite losses after it; "
+          f"{fit_s:.2f} s for {len(losses)} steps with a host snapshot "
+          f"every 2; {where}")
+    del tr
+    _release()
+    return len(losses)
+
+
+def phase_recovery():
+    """[recovery]: FaultTolerantFit preempted and resumed, and a NaN rolled
+    back, on a 2-layer cut of the full-width CausalLM. Returns every
+    kernel's launches over the phase: K1, K2 and K3 once a layer and
+    step, every other 0."""
+    import shutil
+    import tempfile
+
+    where = card()
+    wrappers = _kernel_wrappers()
+    _release()
+    for w in wrappers.values():
+        w.launches = 0
+    tmp = tempfile.mkdtemp()
+    try:
+        steps = recovery_resume(tmp, where) + recovery_rollback(where)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = REC_LAYERS * steps
+    check(counts["K1"] == counts["K2"] == counts["K3"] == want,
+          f"[recovery] K1-K3 launched {counts['K1']}, {counts['K2']}, "
+          f"{counts['K3']}: want {want} ({REC_LAYERS} a step, {steps} steps)")
+    check(all(v == 0 for k, v in counts.items()
+              if k not in ("K1", "K2", "K3")),
+          f"[recovery] other kernels launched: {counts}")
+    print(f"[recovery] launches {counts} over {steps} steps; {where}")
+    return counts
+
+
 def main() -> int:
+    import shutil
+    import tempfile
+
     if len(sys.argv) == 3 and sys.argv[1] == "--aot-serve":
         return aot_serve(sys.argv[2])
     if not torch.cuda.is_available():
@@ -6272,7 +7885,14 @@ def main() -> int:
     transfer = phase_transfer()
     moe_counts = phase_train_api()
     fleet_counts = phase_fleet()
-    aot_counts = phase_aot()
+    # [aot]'s store outlives it: [cluster]'s tuner reads its cost profile
+    aot_dir = tempfile.mkdtemp()
+    try:
+        aot_counts = phase_aot(aot_dir)
+        cluster_counts = phase_cluster(aot_dir)
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    recovery_counts = phase_recovery()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -6321,6 +7941,10 @@ def main() -> int:
         # strict prebuilt serving: K1's launches captured in each engine
         # graph times the replays; every other kernel's counter
         row["launches_by_path"]["aot"] = aot_counts[key]
+        # the replica cluster: K1's eager launches on every replica plus 12
+        # a replay of the strict tuned replica; the recovery fits (K1-K3)
+        row["launches_by_path"]["cluster"] = cluster_counts[key]
+        row["launches_by_path"]["recovery"] = recovery_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -1,6 +1,6 @@
 """chaos/ — deterministic fault injection and shared resilience primitives;
 the port's copy of ``deeplearning4j_tpu/chaos/`` (its training-side
-``recovery`` comes with the distributed trainers).
+``recovery`` module loads the trainer only when used).
 
 Stdlib-only base layer: the seeded :class:`FaultPlane` with its named
 injection points, and the :class:`RetryPolicy` that serve/ and fleet/ wrap

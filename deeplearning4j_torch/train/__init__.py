@@ -1,9 +1,12 @@
 """Training-side modules of the port: the trainer, its listeners, early
-stopping, the line-search solvers and model serialization (params, state,
-updater state and the data normalizer)."""
+stopping, the line-search solvers, divergence rollback and segmented
+checkpoint-resume (``faults``, from ``chaos/recovery``) and model
+serialization (params, state, updater state and the data normalizer)."""
 
 from .earlystopping import (EarlyStoppingConfiguration, EarlyStoppingResult,
                             EarlyStoppingTrainer)
+from .faults import (DivergenceListener, FaultTolerantFit,
+                     TrainingDivergedException)
 from .listeners import (CheckpointListener, CollectScoresListener,
                         DeferredScoreReporter, EvaluativeListener,
                         PerformanceListener, ScoreIterationListener,
@@ -15,11 +18,13 @@ from .serialization import (load_model, load_normalizer, load_opt_state,
 from .trainer import Trainer, build_updater, evaluate_model, score_model
 
 __all__ = ["CheckpointListener", "CollectScoresListener",
-           "DeferredScoreReporter", "EarlyStoppingConfiguration",
+           "DeferredScoreReporter", "DivergenceListener",
+           "EarlyStoppingConfiguration",
            "EarlyStoppingResult", "EarlyStoppingTrainer",
-           "EvaluativeListener", "PerformanceListener",
+           "EvaluativeListener", "FaultTolerantFit", "PerformanceListener",
            "ScoreIterationListener", "SleepyTrainingListener",
-           "TimeIterationListener", "Trainer", "TrainingListener",
+           "TimeIterationListener", "Trainer", "TrainingDivergedException",
+           "TrainingListener",
            "build_updater", "evaluate_model", "load_model",
            "load_normalizer", "load_opt_state", "model_from_json",
            "opt_state_from_numpy", "params_from_numpy", "save_model",

@@ -107,9 +107,9 @@ def opt_state_from_numpy(template, leaves: Sequence[Any],
 
 
 def _save_npz(zf: zipfile.ZipFile, name: str, tree: Any) -> None:
-    buf = io.BytesIO()
-    np.savez(buf, **_flatten(tree))
-    zf.writestr(name, buf.getvalue())
+    # streamed into the member: the archive is never held whole in memory
+    with zf.open(name, "w", force_zip64=True) as f:
+        np.savez(f, **_flatten(tree))
 
 
 def _load_npz(zf: zipfile.ZipFile, name: str) -> Optional[dict]:
@@ -140,7 +140,10 @@ def save_model(path: str, model: Union[Sequential, Graph], *, params=None,
     updater state and the data normalizer when given, as a zip."""
     params = params if params is not None else model.params
     state = state if state is not None else model.state
-    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+    # stored, not deflated (the reference deflates): zipfile reads either,
+    # and deflate is the slowest stage of a large checkpoint's write
+    # (chip_smoke.py's [recovery] times both writers)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
         zf.writestr("configuration.json", model.to_json())
         _save_npz(zf, "params.npz", params or {})
         if state:

@@ -324,6 +324,16 @@ class Trainer:
         self._graph_stream = None
         self._static = None
 
+    def replace_updater(self, tx: Transform, opt_state) -> None:
+        """Train on with ``tx`` from ``opt_state`` (a rollback's
+        learning-rate backoff chains a scale stage onto the updater). The
+        steps captured under the old updater are dropped, so none of them
+        replays it or writes the old state's tensors."""
+        self.tx = tx
+        self.opt_state = opt_state
+        self._graphs = {}
+        self._static = None
+
     def step(self, params, opt_state, net_state, x, y, gen=None, mask=None,
              label_mask=None):
         """One training step on one batch: returns ``(params, opt_state,

@@ -68,7 +68,22 @@ last line):
    Gated: every loss finite, the last below the first. Printed: step time
    (window / steps), tokens/s, model FLOP per step, MFU and peak memory,
    and where a step's time goes (forward, backward, the f32 head, the
-   updater, each timed alone).
+   updater, each timed alone). Then [telemetry] on the same trainer, from
+   its params, updater state and generator snapshotted on the card and
+   restored before each run: 4 steps plain, 4 with ``StepTelemetry``
+   alone (the fence's cost: step time beside the plain steps', and the
+   dispatch/device split), 4 with ``StepTelemetry`` and a
+   ``ProfilerListener(start_iteration=1, num_iterations=2)``. Gated: the
+   losses of both telemetered runs bit-equal to the plain run's; 4 steps
+   and 1 compile miss counted, 4 observations in the data-wait, dispatch
+   and device histograms; the ``peak_bytes_in_use`` gauge of ``cuda:0``
+   within 1% of ``torch.cuda.max_memory_allocated()``; K1, K2 and K3 12
+   launches each a step under telemetry as without it
+   (``launches_by_path["telemetry"]``); the profiler's trace exactly
+   iterations 1 and 2 by its markers, naming ``flash_fwd_sm90_kernel``,
+   ``flash_bwd_dq_sm90_kernel`` and ``flash_bwd_dkv_sm90_kernel`` among
+   its CUDA kernels, at most 24 launches of each; the exposition passes
+   ``obs.promcheck``.
 7. flash vs dense gradients — a 2-layer model of the same width, one
    2 x 1024 batch: in f32 every param's gradient within 1e-3 of the dense
    path's, relative to its largest entry (gated); bf16 reported.
@@ -215,7 +230,15 @@ last line):
    loss falls), a two-input Graph on MultiDataSet batches, a ``Lambda``
    layer; an LM of two ``MoETransformerBlock`` (d_model 512, 8 heads, 8
    experts, top-2, T 1024, batch 4, bf16, flash): K1, K2, K3 once each a
-   block and step, the aux loss finite and in the loss.
+   block and step, the aux loss finite and in the loss. ``model.fit`` on
+   the LeNet of ``lenet_mnist`` (batch 1024, ``steps_per_execution=16``,
+   its Dense layers drawn by ``lecun_normal``) over the port's
+   ``load_mnist`` (its synthetic replica when no files are there): losses
+   bit-equal to ``Trainer(model).fit`` from the same init, and a second
+   ``model.fit`` resuming at the cached trainer's iteration. Every
+   registered weight init drawn once on the card at 1024 x 1024, its
+   mean, variance and bounds held to the reference's formula at 5 sigma
+   (``identity``, ``zeros``, ``ones`` exact).
 
 16. fleet — multi-model serving (every kernel's launch count is zeroed
    before the phase and read after it, into the kernels line under
@@ -306,13 +329,27 @@ last line):
    load: every answer correct or typed, none a raw 500; membership dead,
    placement re-planned, beta served again from the survivor after a
    page-in (failover time); the card synchronizes and K1 agrees with its
-   plain version. D: an ``AutoscaleController`` (min 2, max 3) reaps the
+   plain version. The telemetry plane (a ``FederatedScraper`` attached as
+   ``router.telemetry`` with a ``TimeSeriesStore`` and the default
+   ``AlertEngine``, driven by hand on the drill's clock) scrapes the
+   healthy cluster before A (every source ok, no alert), and F, after C,
+   runs the reference's telemetry drill: the alive replicas partitioned at
+   ``cluster.transport`` scrape as error and the dead as stale,
+   replica_dead fires, two gold predicts shed typed, gold_burn_high
+   pending, pending at +10 s, firing at +21 s (GET /v1/alerts, one
+   notification, the burn's history on GET /v1/tsdb), resolved once after
+   the heal; the router's and the replicas' /metrics pass promcheck (as
+   do [generate]'s and [aot]'s). D: an ``AutoscaleController`` (min 2,
+   max 3) reaps the
    dead replica and repairs the floor; the closed-loop rate of two
    replicas at the replay's mix is measured, then a ``WorkloadSpec``
    shaped as ``smoke_spec`` (lognormal prompts up to 1024 tokens, Pareto
    outputs up to 64, vocab 32000, bursts of 2.5x) at 0.6x that rate is
-   replayed open loop through ``RouterTarget`` by ``LiveReplayer``: a
-   scale-out on the burst (spawn, prewarm, first beat), then a scale-in
+   replayed open loop through ``RouterTarget`` by ``LiveReplayer``, the
+   controller forecasting each class's burn with a ``BurnForecaster`` over
+   a store of the replay's own scrapes (one a tick): a scale-out on the
+   burst (burn, queue or forecast; spawn, prewarm, first beat), then a
+   scale-in
    through ``/v1/admin/drain`` with requests in flight; every outcome
    typed or correct (replayed predicts against the direct forward). E:
    the cost profile [aot] filed in its store calibrates a ``CostModel``;
@@ -342,6 +379,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -1991,6 +2029,7 @@ def gen_http(model, measured):
         time.sleep(0.05)  # request metrics land after the reply
         with _http(srv.port, "/metrics") as r:
             scrape = r.read().decode()
+        _promcheck(scrape, "[generate] the server's /metrics")
         check(health["status"] == "ok" and ready["status"] == "ready",
               f"/health {health}, /ready {ready}")
         for name in ("serve_gen_tokens_total", "serve_kv_live_bytes",
@@ -2204,6 +2243,154 @@ def train_breakdown(trainer, x, y, attn_ms):
           f"{attn_ms['K2'] + attn_ms['K3']:.4f} = {k23:.2f}); adamw update "
           f"{t['update']:.2f} ms")
     return t
+
+
+TEL_STEPS = 4
+
+
+def _tel_trace(path):
+    """(iterations marked, {kernel name: launches}) of a ProfilerListener
+    trace: its ``ProfilerListener.iteration_<k>`` markers and its CUDA
+    kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    marks = sorted(int(e["name"].rsplit("_", 1)[1]) for e in events
+                   if e.get("name", "").startswith(
+                       "ProfilerListener.iteration_"))
+    kernels = collections.Counter(e.get("name", "") for e in events
+                                  if e.get("cat") == "kernel")
+    return marks, kernels
+
+
+def phase_telemetry(trainer, x, y):
+    """[telemetry]: the full-width CausalLM's trainer (after [train]) from
+    one snapshot of its params, updater state and generator, restored on
+    the card before each run of TEL_STEPS steps on the training batch:
+    plain, under ``StepTelemetry`` alone, and under ``StepTelemetry`` with
+    a ``ProfilerListener(start_iteration=1, num_iterations=2)``. Returns
+    each kernel's launches in the last run."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.obs import StepTelemetry
+    from deeplearning4j_torch.obs.promcheck import check_text
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+    from deeplearning4j_torch.train import (CollectScoresListener,
+                                            ProfilerListener)
+
+    where = card()
+    t_phase = time.perf_counter()
+    B, n, L = x.shape[0], TEL_STEPS, 12
+    params = tree_leaves(trainer.params)
+    saved_p = [p.detach().clone() for p in params]
+    saved_opt = tree_unflatten(trainer.opt_state, [
+        t.clone() for t in tree_leaves(trainer.opt_state)])
+    saved_state, saved_gen = trainer.state, trainer._gen.get_state()
+    wrappers = _kernel_wrappers()
+
+    def run(tel=None, listeners=()):
+        with torch.no_grad():
+            for p, s in zip(params, saved_p):
+                p.copy_(s)
+        trainer.opt_state = tree_unflatten(saved_opt, [
+            t.clone() for t in tree_leaves(saved_opt)])
+        trainer.state = saved_state
+        trainer._gen.set_state(saved_gen)
+        trainer.iteration = 0
+        it = ArrayIterator(np.repeat(x, n, 0), np.repeat(y, n, 0),
+                           batch_size=B)
+        scores = CollectScoresListener()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        trainer.fit(it, listeners=[scores, *listeners], telemetry=tel)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / n
+        return ([l for _, l in scores.scores], ms,
+                {k: w.launches for k, w in wrappers.items()},
+                torch.cuda.max_memory_allocated())
+
+    plain, plain_ms, plain_counts, _ = run()
+    tel_a = StepTelemetry()
+    alone, alone_ms, alone_counts, _ = run(tel_a)
+    log_dir = tempfile.mkdtemp()
+    try:
+        tel = StepTelemetry()
+        prof = ProfilerListener(log_dir, start_iteration=1, num_iterations=2)
+        losses, prof_ms, counts, peak = run(tel, [prof])
+        check(len(prof.paths) == 1 and os.path.exists(prof.paths[0]),
+              f"[telemetry] the profiler wrote {prof.paths}")
+        marks, kernels = _tel_trace(prof.paths[0])
+        trace_mb = os.path.getsize(prof.paths[0]) / 2**20
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    check(len(plain) == n and all(np.isfinite(plain)),
+          f"[telemetry] plain losses {plain}")
+    check(alone == plain and losses == plain, f"[telemetry] losses under "
+          f"telemetry {alone}, with the profiler {losses}, plain {plain}")
+    reg = tel.registry
+    snap = tel.snapshot()
+    hists = {name: reg.histogram(name).count for name in (
+        "train_data_wait_seconds", "train_dispatch_seconds",
+        "train_device_compute_seconds", "train_step_seconds")}
+    check(snap["steps"] == n and snap["compile_cache_misses"] == 1
+          and all(v == n for v in hists.values()),
+          f"[telemetry] steps {snap['steps']}, compile misses "
+          f"{snap['compile_cache_misses']}, histogram counts {hists}")
+    gauge = reg.gauge("device_memory_bytes",
+                      {"device": "cuda:0", "kind": "peak_bytes_in_use"}).value
+    check(abs(gauge - peak) <= 0.01 * peak, f"[telemetry] peak_bytes_in_use "
+          f"{gauge:.0f} against max_memory_allocated {peak}")
+    for got, what in ((plain_counts, "plain"), (alone_counts, "telemetry"),
+                      (counts, "telemetry + profiler")):
+        check(all(got[k] == L * n for k in ("K1", "K2", "K3")),
+              f"[telemetry] {what}: launches {got}, want {L} each a step")
+    names = ("flash_fwd_sm90_kernel", "flash_bwd_dq_sm90_kernel",
+             "flash_bwd_dkv_sm90_kernel")
+    in_trace = {k: sum(c for name, c in kernels.items() if k in name)
+                for k in names}
+    check(marks == [1, 2], f"[telemetry] the trace marks iterations {marks}")
+    check(all(0 < v <= 2 * L for v in in_trace.values()),
+          f"[telemetry] kernels in the trace {in_trace}")
+    findings = check_text(tel.to_prometheus())
+    check(findings == [], f"[telemetry] promcheck: {findings}")
+    phases = {"dispatch": "train_dispatch_seconds",
+              "device": "train_device_compute_seconds",
+              "step": "train_step_seconds",
+              "data_wait": "train_data_wait_seconds"}
+    # the histograms' exact means (their quantiles are bucket estimates)
+    split, split_a = ({k: 1e3 * r.histogram(name).mean
+                       for k, name in phases.items()}
+                      for r in (reg, tel_a.registry))
+    print(f"[telemetry] {n} steps a run of the full-width CausalLM (B={B}, "
+          f"T={x.shape[1]}, bf16, adamw) from one snapshot: losses "
+          + " ".join(f"{l:.6f}" for l in plain) + " plain, bit-equal under "
+          f"StepTelemetry and under StepTelemetry + ProfilerListener; "
+          f"{where}")
+    print(f"[telemetry] step ms (fit window / {n}, synchronized at both "
+          f"ends): plain {plain_ms:.2f}, StepTelemetry {alone_ms:.2f} "
+          f"({100 * (alone_ms / plain_ms - 1):+.2f}%: the fence), with the "
+          f"profiler window {prof_ms:.2f}; StepTelemetry means, alone: step "
+          f"{split_a['step']:.2f} = dispatch {split_a['dispatch']:.2f} + "
+          f"device {split_a['device']:.2f} ms, data wait "
+          f"{split_a['data_wait']:.3f} ms; with the profiler: step "
+          f"{split['step']:.2f} = dispatch {split['dispatch']:.2f} + device "
+          f"{split['device']:.2f} ms; {where}")
+    print(f"[telemetry] snapshot {json.dumps(snap)}; peak_bytes_in_use "
+          f"{gauge:.0f} B, max_memory_allocated {peak} B; launches K1 "
+          f"{counts['K1']}, K2 {counts['K2']}, K3 {counts['K3']} ({L} each "
+          f"a step); trace {trace_mb:.1f} MB marks iterations {marks}, "
+          f"kernels {in_trace}; promcheck clean; "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    with torch.no_grad():
+        for p, s in zip(params, saved_p):
+            p.copy_(s)
+    trainer.opt_state = saved_opt
+    del saved_p
+    return counts
 
 
 def phase_grad_flash_vs_dense():
@@ -4899,6 +5086,150 @@ def api_solvers_graph_lambda(where):
           f"max abs diff {diff:.3g}")
 
 
+API_FIT_BATCHES = 1 + LENET_SPE    # iteration 0 alone, then one window
+
+
+def api_model_fit(where):
+    """``model.fit`` on the LeNet of ``lenet_mnist`` (batch 1024, spe 16),
+    its Dense layers drawn by ``lecun_normal``, over the port's
+    ``load_mnist``: bit-equal to ``Trainer(model).fit`` from the same
+    init, under the deterministic settings; a second ``model.fit`` resumes
+    the cached trainer."""
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.data import datasets
+    from deeplearning4j_torch.models import LeNet
+    from deeplearning4j_torch.nn.layers import Dense
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    t_phase = time.perf_counter()
+    x, y = datasets.load_mnist(train=True)
+    n = API_FIT_BATCHES * LENET_B
+    reps = -(-n // x.shape[0])
+    x, y = np.concatenate([x] * reps)[:n], np.concatenate([y] * reps)[:n]
+    synthetic = "mnist" in datasets.synthetic_fallbacks
+
+    def net():
+        m = LeNet(num_classes=10, seed=0, input_shape=(28, 28, 1)).build()
+        m.layers = [dataclasses.replace(l, weight_init="lecun_normal")
+                    if isinstance(l, Dense) else l for l in m.layers]
+        m.init(seed=0)
+        return m
+
+    def batches(lo, hi):
+        return ArrayIterator(x[lo * LENET_B:hi * LENET_B],
+                             y[lo * LENET_B:hi * LENET_B],
+                             batch_size=LENET_B)
+
+    model, other = net(), net()
+    w = model.params["layer_5"]["w"]
+    fan_in = w.shape[0]
+    std = float(w.float().std())
+    check(abs(std / (1 / fan_in) ** 0.5 - 1) < 0.05,
+          f"[train_api] lecun_normal Dense std {std:.5f}, fan_in {fan_in}")
+    out = {}
+    with _deterministic():
+        for which, m in (("model.fit", model), ("Trainer.fit", other)):
+            c = CollectScoresListener()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if which == "model.fit":
+                m.fit(batches(0, API_FIT_BATCHES), listeners=[c],
+                      steps_per_execution=LENET_SPE)
+                tr = m.trainer()
+            else:
+                tr = Trainer(m, seed=m.config.seed)
+                tr.fit(batches(0, API_FIT_BATCHES), listeners=[c],
+                       steps_per_execution=LENET_SPE)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / API_FIT_BATCHES
+            c2 = CollectScoresListener()
+            if which == "model.fit":
+                m.fit(batches(0, 2), listeners=[c2])
+                check(m.trainer() is tr, "[train_api] model.fit rebuilt "
+                      "its trainer")
+            else:
+                tr.fit(batches(0, 2), listeners=[c2])
+            out[which] = (c.scores, c2.scores, tr, ms)
+    (a1, a2, ta, ms_a), (b1, b2, tb, ms_b) = out["model.fit"], \
+        out["Trainer.fit"]
+    check(len(a1) == API_FIT_BATCHES and a1 == b1 and ta.windows == 1
+          and tb.windows == 1, f"[train_api] model.fit losses {a1[:3]}... "
+          f"({ta.windows} windows) against Trainer.fit {b1[:3]}... "
+          f"({tb.windows})")
+    check([i for i, _ in a2] == [API_FIT_BATCHES, API_FIT_BATCHES + 1]
+          and a2 == b2 and ta.iteration == API_FIT_BATCHES + 2,
+          f"[train_api] the second model.fit reported {a2} (Trainer {b2}), "
+          f"iteration {ta.iteration}")
+    print(f"[train_api] model.fit: LeNet (lenet_mnist, batch {LENET_B}, "
+          f"spe {LENET_SPE}, Dense drawn by lecun_normal: std {std:.5f} "
+          f"against 1/sqrt({fan_in}) = {(1 / fan_in) ** 0.5:.5f}) over "
+          f"load_mnist ({'its synthetic replica' if synthetic else 'IDX files'}"
+          f", {n} rows): {API_FIT_BATCHES} losses bit-equal to Trainer.fit "
+          f"({a1[0][1]:.6f} -> {a1[-1][1]:.6f}), {ta.windows} captured "
+          f"window each, {ms_a:.3f} against {ms_b:.3f} ms a step with the "
+          f"capture; the second model.fit resumed at iteration "
+          f"{a2[0][0]}, bit-equal; {time.perf_counter() - t_phase:.1f} s; "
+          f"{where}")
+    del model, other, out
+    _release()
+
+
+def api_inits(where):
+    """Every registered weight init drawn once on the card at 1024 x 1024
+    (fan_in = fan_out = 1024): the mean within 5 standard errors of 0 and
+    the variance within 5 standard errors of the reference's formula, a
+    uniform's draws inside its bound; zero, zeros, ones and identity
+    exact."""
+    import math
+
+    from deeplearning4j_torch.ops import initializers
+
+    t0 = time.perf_counter()
+    shape, f = (1024, 1024), 1024.0
+    var = {"normal": 1 / f, "xavier": 2 / (2 * f), "xavier_fan_in": 1 / f,
+           "xavier_legacy": 1 / (2 * f), "relu": 2 / f, "lecun_normal": 1 / f}
+    bound = {"uniform": math.sqrt(3 / f),
+             "xavier_uniform": math.sqrt(6 / (2 * f)),
+             "relu_uniform": math.sqrt(6 / f),
+             "lecun_uniform": math.sqrt(3 / f),
+             "sigmoid_uniform": 4 * math.sqrt(6 / (2 * f))}
+    for mode in ("fan_in", "fan_out", "fan_avg"):
+        var[f"var_scaling_{mode}_normal"] = 1 / f
+        bound[f"var_scaling_{mode}_uniform"] = math.sqrt(3 / f)
+    exact = {"zero": torch.zeros, "zeros": torch.zeros, "ones": torch.ones,
+             "identity": lambda s, **kw: torch.eye(s[0], **kw)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    n = shape[0] * shape[1]
+    rows = []
+    for name in initializers.names():
+        w = initializers.init_param(gen, name, shape, device="cuda")
+        check(w.is_cuda and w.shape == shape, f"[train_api] init {name}")
+        if name in exact:
+            want = exact[name](shape, dtype=torch.float32, device="cuda")
+            check(torch.equal(w, want), f"[train_api] init {name} not exact")
+            continue
+        w = w.double()
+        if name in bound:
+            a = bound[name]
+            v, kurt = a * a / 3, 0.8
+            check(float(w.abs().max()) <= a, f"[train_api] init {name} past "
+                  f"its bound {a}")
+        else:
+            v, kurt = var[name], 2.0
+        mean, got = float(w.mean()), float(w.var())
+        check(abs(mean) < 5 * math.sqrt(v / n)
+              and abs(got - v) < 5 * math.sqrt(kurt / n) * v,
+              f"[train_api] init {name}: mean {mean:.3g}, variance "
+              f"{got:.6g} against {v:.6g}")
+        rows.append(f"{name} {got / v:.4f}")
+    print(f"[train_api] weight inits on the card, 1024 x 1024: every one of "
+          f"{len(initializers.names())} registered schemes within 5 sigma "
+          f"of the reference's formula (variance / formula: "
+          + ", ".join(rows) + f"; zero, zeros, ones, identity exact); "
+          f"{time.perf_counter() - t0:.2f} s; {where}")
+
+
 def api_moe(where):
     """An LM of MOE_BLOCKS MoETransformerBlocks (d_model MOE_D, MOE_H heads
     of 64, MOE_E experts, top-2, causal, flash=True) at T MOE_T, batch
@@ -4972,6 +5303,8 @@ def phase_train_api():
     api_updaters(where)
     api_pretrain(where)
     api_solvers_graph_lambda(where)
+    api_model_fit(where)
+    api_inits(where)
     return api_moe(where)
 
 
@@ -6095,6 +6428,7 @@ def aot_serve(tmp):
                 payload = json.loads(r.read())
             with _http(srv.port, "/metrics") as r:
                 scrape = r.read().decode()
+            _promcheck(scrape, "[aot] the strict server's /metrics")
         finally:
             profile.uninstall()
         # the card's cost profile, filed in the store for [cluster]'s tuner
@@ -7116,6 +7450,196 @@ def _closed_loop_rate(router):
             "depths": depths, "shed": dict(shed)}
 
 
+def _promcheck(body, what):
+    """Hold a /metrics body to obs.promcheck: no finding."""
+    from deeplearning4j_torch.obs.promcheck import check_text
+
+    findings = check_text(body)
+    check(findings == [], f"{what}: promcheck {findings[:5]}")
+    return len(body)
+
+
+def _plain_get(port, path):
+    """(status, body text) of one GET to 127.0.0.1:``port``."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _telemetry_plane(router, clock):
+    """The cluster telemetry plane on the drill's clock: a TimeSeriesStore,
+    the default AlertEngine with a capturing notifier, and a
+    FederatedScraper attached as ``router.telemetry``; driven by hand (no
+    background thread)."""
+    from deeplearning4j_torch.obs import (AlertEngine, FederatedScraper,
+                                          TimeSeriesStore)
+
+    class Capture:
+        channel = "capture"
+
+        def __init__(self):
+            self.events = []
+
+        def notify(self, event):
+            self.events.append(event)
+
+    store = TimeSeriesStore(clock=clock, metrics=router.metrics)
+    cap = Capture()
+    engine = AlertEngine(store, metrics=router.metrics, clock=clock,
+                         notifiers=(cap,), renotify_s=3600.0)
+    scraper = FederatedScraper(router, store, alerts=engine, clock=clock)
+    check(router.telemetry is scraper, "[cluster] the scraper is not "
+          "attached as router.telemetry")
+    return scraper, engine, cap
+
+
+def cluster_telemetry(st, router, clock, plane):
+    """F (after C): the telemetry drill of the reference's
+    scripts/smoke_cluster.py, on the skewable clock. The alive replicas
+    partitioned at the ``cluster.transport`` seam: the scrape reports
+    them ``error`` (soft-staled) and the dead ones ``stale``, never a
+    crash; replica_dead fires; gold predicts shed typed (503) push the
+    gold burn past 1: gold_burn_high pending, still pending 10 s later,
+    firing past its 20 s sustain, on GET /v1/alerts, one notification,
+    its history on GET /v1/tsdb; healed (the partition lifted, the burn
+    window aged out, good gold traffic on every model), it resolves once.
+    The router's and a replica's /metrics pass promcheck."""
+    from deeplearning4j_torch.chaos import faults
+
+    scraper, engine, cap = plane
+    t0 = time.perf_counter()
+    port = router.port
+    router.poll_once()
+    alive = sorted(r for r in router.membership.ids()
+                   if router.membership.state(r) == "alive")
+    dead = sorted(r for r in router.membership.ids()
+                  if router.membership.state(r) == "dead")
+    plane_f = faults.install(faults.FaultPlane(seed=0,
+                                               metrics=router.metrics))
+    try:
+        for rid in alive:
+            plane_f.inject_spec(f"cluster.transport:error:type=connection,"
+                                f"scope={rid},times=-1")
+        outcomes = scraper.scrape_once()
+        check(outcomes["router"] == "ok"
+              and all(outcomes[r] == "error" for r in alive)
+              and all(outcomes[r] == "stale" for r in dead),
+              f"[cluster] F: partitioned scrape {outcomes} (alive {alive}, "
+              f"dead {dead})")
+        check("replica_dead" in engine.active(), f"[cluster] F: active "
+              f"{engine.active()}")
+        shed = []
+        for j in range(2):
+            code, body, _ = _routed(port, "/v1/models/alpha/predict",
+                                    {"ndarray": st["prompts"][j].tolist()},
+                                    "gold")
+            shed.append((code, body.get("cause")))
+        check(all(c == (503, "upstream_unreachable") for c in shed),
+              f"[cluster] F: gold predicts behind the partition {shed}")
+        states = []
+        for skew in (0.0, 10.0, 11.0):
+            clock.skew += skew
+            scraper.scrape_once()
+            states.append(engine.snapshot()["rules"]["gold_burn_high"]
+                          ["state"])
+        check(states == ["pending", "pending", "firing"],
+              f"[cluster] F: gold_burn_high {states} at +0, +10, +21 s")
+        code, body = _plain_get(port, "/v1/alerts")
+        view = json.loads(body)
+        check(code == 200 and view["rules"]["gold_burn_high"]["state"]
+              == "firing", f"[cluster] F: GET /v1/alerts {code}")
+        engine.evaluate()  # still firing: deduplicated, not paged again
+        fired = [e for e in cap.events if e["rule"] == "gold_burn_high"
+                 and e["state"] == "firing"]
+        check(len(fired) == 1, f"[cluster] F: {len(fired)} firing "
+              f"notifications")
+        code, body = _plain_get(
+            port, "/v1/tsdb?name=fleet_slo_burn_rate&label.slo_class=gold"
+                  "&label.window=1m")
+        hist = json.loads(body)
+        check(code == 200 and hist["series"]
+              and all(sr["points"] for sr in hist["series"]),
+              f"[cluster] F: GET /v1/tsdb {code} {body[:200]}")
+        peak_burn = max(pt[1] for sr in hist["series"]
+                        for pt in sr["points"])
+        code, body = _plain_get(port, "/v1/tsdb")
+        families = json.loads(body)
+        check(code == 200 and "fleet_slo_burn_rate" in families["families"],
+              f"[cluster] F: GET /v1/tsdb (families) {code}")
+    finally:
+        faults.uninstall()
+    # heal: the partition lifted, the bad outcomes aged out of the 1 m
+    # window, leases renewed, good gold traffic on every model refreshes
+    # the gauges (a burn gauge moves only when its subject records an
+    # outcome: C's gold sheds on beta can leave beta's gauge high)
+    clock.skew += 61.0
+    router.poll_once()
+    for name in CLUSTER_NAMES:
+        for j in range(5):
+            code, body, _ = _routed(
+                port, f"/v1/models/{name}/predict",
+                {"ndarray": st["prompts"][j % 2].tolist()}, "gold")
+            check(code == 200 and _answer_ok(st["refs"], name, j % 2, body),
+                  f"[cluster] F: gold predict on {name} after the heal "
+                  f"answered {code}")
+    outcomes = scraper.scrape_once()
+    view = json.loads(_plain_get(port, "/v1/alerts")[1])
+    gb = [f for f in view["firings"] if f["rule"] == "gold_burn_high"]
+    resolved = [e for e in cap.events if e["rule"] == "gold_burn_high"
+                and e["state"] == "resolved"]
+    check(all(outcomes[r] == "ok" for r in alive)
+          and view["rules"]["gold_burn_high"]["state"] == "ok"
+          and gb and gb[-1]["resolved_at_s"] is not None
+          and len(resolved) == 1
+          and resolved[0]["dedup_key"] == fired[0]["dedup_key"],
+          f"[cluster] F: after the heal {outcomes}, gold_burn_high "
+          f"{view['rules']['gold_burn_high']}, resolutions {len(resolved)}")
+    code, body = _plain_get(port, "/metrics")
+    sizes = {"router": _promcheck(body, "[cluster] F: the router's /metrics")}
+    for rid in alive:
+        rport = int(st["handles"][rid].base_url.rsplit(":", 1)[1])
+        code, body = _plain_get(rport, "/metrics")
+        check(code == 200, f"[cluster] F: {rid} /metrics {code}")
+        sizes[rid] = _promcheck(body, f"[cluster] F: {rid}'s /metrics")
+    stats = scraper.store.stats()
+    print(f"[cluster] F: telemetry plane (FederatedScraper as "
+          f"router.telemetry, TimeSeriesStore, AlertEngine with the default "
+          f"rules, on the drill's clock): {alive} partitioned at "
+          f"cluster.transport -> scraped error, {dead} stale, replica_dead "
+          f"firing; gold predicts shed {shed}; gold_burn_high {states} at "
+          f"+0/+10/+21 s (peak 1m burn {peak_burn:.2f}), one firing "
+          f"notification; GET /v1/alerts and /v1/tsdb 200; healed: scrape "
+          f"{outcomes}, gold_burn_high resolved once; store {stats}; "
+          f"/metrics bytes {sizes} pass promcheck; "
+          f"{time.perf_counter() - t0:.1f} s; {st['where']}")
+    return {"states": states, "peak_burn": peak_burn}
+
+
+class _ScrapedForecaster:
+    """The autoscaler's forecaster for the replay: each controller tick's
+    first call scrapes the cluster into the scraper's store, then every
+    class is forecast from it by a ``BurnForecaster``."""
+
+    def __init__(self, scraper, forecaster, clock):
+        self.scraper, self.forecaster, self._clock = scraper, forecaster, clock
+        self._last = None
+        self.scrapes = 0
+
+    def forecast_burn(self, slo_class):
+        t = self._clock()
+        if self._last is None or t - self._last >= 0.5:
+            self._last = t
+            self.scraper.scrape_once(now=t)
+            self.scrapes += 1
+        return self.forecaster.forecast_burn(slo_class)
+
+
 def cluster_autoscale(st, router, clock, factory, dead):
     """D: the AutoscaleController adopts the replicas, the dead ones
     included: its first tick reaps the corpses and repairs the floor of
@@ -7143,6 +7667,22 @@ def cluster_autoscale(st, router, clock, factory, dead):
                              sustain_out_s=1.0, sustain_in_s=3.0,
                              cooldown_out_s=10.0, cooldown_in_s=5.0,
                              queue_high=2.0, queue_low=0.5)
+    # the replay's burn forecast: one season is the replayed day
+    # (CLUSTER_REPLAY_S), the horizon 5 s, over a store of the replay's own
+    # scrapes: F's burn spike, in the plane's store, forecast as a coming
+    # breach and pre-spawned a replica 4 s into an idle replay. The router
+    # keeps the plane as its telemetry.
+    from deeplearning4j_torch.obs import (BurnForecaster, FederatedScraper,
+                                          MetricsRegistry, TimeSeriesStore)
+
+    plane = router.telemetry
+    store = TimeSeriesStore(clock=clock)
+    forecaster = _ScrapedForecaster(
+        FederatedScraper(router, store, clock=clock,
+                         metrics=MetricsRegistry()),
+        BurnForecaster(store, season_s=CLUSTER_REPLAY_S, horizon_s=5.0,
+                       metrics=router.metrics), clock)
+    router.telemetry = plane
     ctl = AutoscaleController(router, factory, policy=policy, clock=clock,
                               beat_wait_s=10.0)
     for rid in router.membership.ids():
@@ -7173,17 +7713,28 @@ def cluster_autoscale(st, router, clock, factory, dead):
                              input_len=CLUSTER_SHORT_T, vocab=CLUSTER_VOCAB,
                              timeout_s=300.0, autoscaler=ctl)
     t_replay = clock()
+    ctl.forecaster = forecaster   # the replay's ticks forecast
     ctl.start(interval_s=1.0)
     try:
         report = LiveReplayer(trace, target, join_timeout_s=600.0).run()
     finally:
         ctl.stop()
+        ctl.forecaster = None
     check(report["untyped_errors"] == 0 and report["requests"] == len(
         trace), f"[cluster] D: replay shed {report['shed']}, "
         f"{report['untyped_errors']} untyped")
     outs = [json.loads(ln) for ln in ctl.decision_log]
+    # a confident forecast pre-spawns ("forecast"): a scale-out on the
+    # load too
     outs = [o for o in outs if o["actuated"] and o["decision"]["direction"]
-            == "out" and o["decision"]["reason"] in ("burn", "queue")]
+            == "out" and o["decision"]["reason"] in ("burn", "queue",
+                                                     "forecast")]
+    fc_trig = [json.loads(ln)["decision"] for ln in ctl.decision_log]
+    fc_trig = [d for d in fc_trig if d["reason"] == "forecast"
+               or d["evidence"].get("trigger") == "forecast"]
+    fc_reqs = {tuple(sorted(sr["labels"].items())): sr["value"]
+               for sr in router.metrics.snapshot().get(
+                   "forecast_requests_total", {}).get("series", [])}
     check(outs and ctl.replica_stats()["max"] == 3,
           "[cluster] D: no scale-out under the replay; decisions:\n"
           + "\n".join(ctl.decision_log))
@@ -7240,6 +7791,12 @@ def cluster_autoscale(st, router, clock, factory, dead):
           f"scale-in (drain, stop) {t_in:.2f} s with {len(inflight)} "
           f"answers in flight, all correct or typed; 0 wrong of {n_pred} "
           f"replayed predicts; {st['where']}")
+    print(f"[cluster] D: BurnForecaster (season {CLUSTER_REPLAY_S:.0f} s, "
+          f"horizon 5 s) over {forecaster.scrapes} scrapes of the replay: "
+          f"forecasts by outcome {fc_reqs}; decisions that took the "
+          f"forecast trigger: {len(fc_trig)} "
+          f"{[(d['direction'], d['reason']) for d in fc_trig]}; "
+          f"{st['where']}")
     print("[cluster] D: decision log:")
     for ln in ctl.decision_log:
         d = json.loads(ln)
@@ -7247,7 +7804,8 @@ def cluster_autoscale(st, router, clock, factory, dead):
               f"{d['decision']['reason']} actuated {d['actuated']} current "
               f"{d['current']} actual {d['actual']} retired {d['retired']} "
               f"evidence {json.dumps(d['decision']['evidence'])}")
-    return {"trace": trace, "report": report}
+    return {"trace": trace, "report": report, "forecast_decisions":
+            len(fc_trig)}
 
 
 def _replay_wrong(st, seen):
@@ -7538,6 +8096,14 @@ def phase_cluster(aot_dir=None):
         plan = {n: router.candidates(n) for n in CLUSTER_NAMES}
         print(f"[cluster] router on 127.0.0.1:{router.port}, placement "
               f"{plan}")
+        plane = _telemetry_plane(router, clock)
+        outcomes = plane[0].scrape_once()
+        check(outcomes == {"router": "ok", **{r: "ok" for r in
+                                              st["handles"]}}
+              and not plane[1].active(), f"[cluster] the healthy scrape "
+              f"{outcomes}, alerts firing {plane[1].active()}")
+        print(f"[cluster] telemetry plane attached: healthy scrape "
+              f"{outcomes}, no alert firing; {where}")
         for w in wrappers.values():
             w.launches = 0
         t0 = time.perf_counter()
@@ -7548,13 +8114,16 @@ def phase_cluster(aot_dir=None):
         t2 = time.perf_counter()
         kill = cluster_kill(st, router, clock, factory)
         t3 = time.perf_counter()
+        cluster_telemetry(st, router, clock, plane)
+        t3f = time.perf_counter()
         d = cluster_autoscale(st, router, clock, factory, kill["dead"])
         t4 = time.perf_counter()
         strict = cluster_tune(st, router, d["trace"], aot_dir,
                               factory_tuned, eager_batches)
         t5 = time.perf_counter()
         print(f"[cluster] seconds: A {t1 - t0:.1f}, B {t2 - t1:.1f}, C "
-              f"{t3 - t2:.1f}, D {t4 - t3:.1f}, E {t5 - t4:.1f}; {where}")
+              f"{t3 - t2:.1f}, F {t3f - t3:.1f}, D {t4 - t3f:.1f}, E "
+              f"{t5 - t4:.1f}; {where}")
         read = {k: w.launches for k, w in wrappers.items()}
         n_eager = eager_batches()
         peak, total = _cluster_mem()
@@ -7869,6 +8438,7 @@ def main() -> int:
         phase_train(model)
     train_breakdown(trainer, x, y, {"K1": k1["ms"], "K2": bwd_rows[0]["ms"],
                                     "K3": bwd_rows[1]["ms"]})
+    tel_counts = phase_telemetry(trainer, x, y)
     del model, trainer
     torch.cuda.empty_cache()
     phase_grad_flash_vs_dense()
@@ -7945,6 +8515,8 @@ def main() -> int:
         # a replay of the strict tuned replica; the recovery fits (K1-K3)
         row["launches_by_path"]["cluster"] = cluster_counts[key]
         row["launches_by_path"]["recovery"] = recovery_counts[key]
+        # the telemetered fit of the full-width CausalLM (4 steps)
+        row["launches_by_path"]["telemetry"] = tel_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

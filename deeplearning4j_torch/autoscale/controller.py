@@ -86,8 +86,8 @@ class AutoscaleController:
         self.policy = policy if policy is not None else AutoscalePolicy()
         self.signals = signals if signals is not None else SignalReader(
             slo=router.slo, membership=router.membership, clock=self._clock)
-        #: Optional BurnForecaster-shaped hook (the reference's
-        #: ``obs/forecast.py``; duck-typed here, item 15 of the roadmap)
+        #: Optional BurnForecaster-shaped hook (``obs.forecast``;
+        #: duck-typed, so autoscale/ does not import obs/)
         #: (``forecast_burn(slo_class) -> Forecast | None``); when set,
         #: every tick hands the policy a per-class burn forecast so it
         #: can pre-spawn ahead of a predicted ramp.

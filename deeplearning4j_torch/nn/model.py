@@ -111,13 +111,89 @@ def _apply_layer(cfg: NetConfig, layer: Layer, p, s, x, *, training, rng,
     return layer.apply(p, s, x, training=training, rng=rng, mask=mask)
 
 
-class _Evaluable:
-    """The Trainer-free evaluation of a model at its own params and state
-    (no updater state is made)."""
+class _SingleBatch:
+    """One-DataSet iterator for the fit(x, y) / fit(DataSet) overloads."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __iter__(self):
+        return iter([self.ds])
+
+    def reset(self):
+        pass
+
+
+class TrainableModel:
+    """The ``net.fit(iterator)`` front door (the reference's
+    ``TrainableModel``): builds and caches ONE ``Trainer``, so repeated
+    fits resume — params, updater state, the generator's stream and the
+    iteration count carry across calls, as refitting the same network
+    object does. ``net.trainer()`` exposes the cached one; evaluation and
+    scoring go through it when it exists, and otherwise run at the model's
+    own params and state (no updater state is made)."""
+
+    _trainer = None
+    _trainer_kw = None
+
+    def trainer(self, reset: bool = False, **kw):
+        """The cached Trainer (built on first use, seeded from
+        ``config.seed``). A call with no kwargs always returns the cached
+        one; different kwargs rebuild it, which resets the updater state,
+        the generator and the iteration count (with a warning when the old
+        trainer has trained, unless ``reset=True`` acknowledges it); the
+        same kwargs reuse it. ``reset=True`` forces a rebuild, with the
+        cached kwargs when none are given."""
+        if not kw and self._trainer is not None and not reset:
+            return self._trainer
+        if reset and not kw and self._trainer_kw is not None:
+            kw = dict(self._trainer_kw)
+        kw.setdefault("seed", self.config.seed)
+        if self._trainer is None or reset or kw != self._trainer_kw:
+            from ..train.trainer import Trainer
+
+            old = self._trainer
+            if (old is not None and getattr(old, "iteration", 0) > 0
+                    and not reset):
+                import warnings
+
+                warnings.warn(
+                    f"net.trainer(**{kw!r}) discards the existing trainer at "
+                    f"iteration {old.iteration} — optimizer state, rng "
+                    f"stream and iteration count reset. Pass reset=True to "
+                    f"acknowledge, or call net.trainer() with no kwargs to "
+                    f"keep training with the current one.", stacklevel=2)
+            self._trainer = Trainer(self, **kw)
+            self._trainer_kw = dict(kw)
+        return self._trainer
+
+    def fit(self, data, labels=None, epochs: int = 1, **kw):
+        """fit(iterator), fit(iterator, num_epochs), fit(DataSet) or
+        fit(x, y), the reference's overloads; other keywords go to
+        ``Trainer.fit``. Arrays or a single DataSet train as one full
+        batch per epoch."""
+        from ..data.iterators import DataSet
+
+        if isinstance(labels, int):  # fit(iterator, numEpochs)
+            labels, epochs = None, labels
+        it = data
+        if labels is not None:
+            if not hasattr(data, "shape") or not hasattr(labels, "shape"):
+                raise TypeError(
+                    "fit(x, y) expects two arrays; to set the epoch count "
+                    "use fit(iterator, epochs=N)")
+            it = _SingleBatch(DataSet(data, labels))
+            kw.setdefault("prefetch", False)  # nothing to prefetch
+        elif isinstance(data, DataSet):
+            it = _SingleBatch(data)
+            kw.setdefault("prefetch", False)
+        return self.trainer().fit(it, epochs=epochs, **kw)
 
     def evaluate(self, iterator, evaluation=None):
         """Streaming evaluation of the primary output (an ``Evaluation``
         unless one is given)."""
+        if self._trainer is not None:
+            return self._trainer.evaluate(iterator, evaluation)
         from ..train.trainer import evaluate_model
 
         if self.params is None:
@@ -125,8 +201,41 @@ class _Evaluable:
         return evaluate_model(self, self.params, self.state, iterator,
                               evaluation)
 
+    def output_iterator(self, iterator):
+        """Inference outputs over an iterator, batches concatenated along
+        axis 0 (``output(DataSetIterator)``): one tensor for a Sequential,
+        a list of all the outputs for a Graph. A fit leaves the model's
+        params and state the trainer's own."""
+        from ..train.staging import BatchStager
+        from ..train.trainer import unpack_batch
+
+        if self.params is None:
+            self.init()
+        stage = BatchStager(self.device)
+        chunks = []
+        with torch.no_grad():
+            for ds in iterator:
+                x, _, fm, _ = unpack_batch(self, ds)
+                x, fm = stage(x), stage(fm)
+                if isinstance(self, Graph):
+                    chunks.append(self.forward(self.params, self.state, x,
+                                               training=False, masks=fm)[0])
+                else:
+                    chunks.append(self.forward(self.params, self.state, x,
+                                               training=False, mask=fm)[0])
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        if not chunks:
+            return []
+        if isinstance(chunks[0], (list, tuple)):  # Graph: all outputs
+            return [torch.cat([c[i] for c in chunks], dim=0)
+                    for i in range(len(chunks[0]))]
+        return torch.cat(chunks, dim=0)
+
     def score_iterator(self, iterator) -> float:
         """The average inference-mode loss over an iterator."""
+        if self._trainer is not None:
+            return self._trainer.score_iterator(iterator)
         from ..train.trainer import score_model
 
         if self.params is None:
@@ -134,7 +243,7 @@ class _Evaluable:
         return score_model(self, self.params, self.state, iterator)
 
 
-class Sequential(_Evaluable):
+class Sequential(TrainableModel):
     """An ordered stack of layers on one device (the card unless
     ``device`` names another)."""
 
@@ -215,6 +324,21 @@ class Sequential(_Evaluable):
         if return_mask:
             return x, new_state, mask
         return x, new_state
+
+    def activations(self, params: Params, state: State, x, **kw
+                    ) -> List[torch.Tensor]:
+        """Each layer's output in order (the feedForward list), for
+        listeners and debugging: the layers applied one by one with
+        ``kw`` (``training``, ``rng``, ``mask``), without casting to
+        ``compute_dtype``, as the reference's."""
+        outs = []
+        mask = kw.pop("mask", None)
+        for i, layer in enumerate(self.layers):
+            k = _layer_key(i, layer)
+            x, _, mask = layer.apply(params.get(k, {}), state.get(k, {}), x,
+                                     mask=mask, **kw)
+            outs.append(x)
+        return outs
 
     def score(self, params: Params, state: State, x: torch.Tensor,
               labels: torch.Tensor, *, training: bool = True,
@@ -431,7 +555,7 @@ class GraphNode:
         return isinstance(self.spec, Layer)
 
 
-class Graph(_Evaluable):
+class Graph(TrainableModel):
     """ComputationGraph equivalent: a DAG of layers and vertices on one
     device (the card unless ``device`` names another).
 

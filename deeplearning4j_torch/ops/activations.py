@@ -245,6 +245,12 @@ def names():
     return sorted(_REGISTRY)
 
 
+def softmax_stable(x, axis: int = -1):
+    """The loss layers' numerically stable softmax (shifted by the max):
+    :func:`softmax` along ``axis``."""
+    return softmax(x, dim=axis)
+
+
 register("identity")(lambda x: x)
 register("linear")(lambda x: x)
 register("relu")(torch.relu)

@@ -412,6 +412,25 @@ def multi_transform(transforms: Dict[str, Transform],
     return Transform(init, update)
 
 
+def build_multi(label_fn, transforms: Dict[str, Transform]) -> Transform:
+    """Per-layer updater overrides (optax ``multi_transform`` with a label
+    function): ``label_fn(leaves)`` names the transform of each leaf (a
+    sequence of labels may be given instead). The labels are read from the
+    params at ``init`` and from the updates at each ``update``, as optax
+    reads them; the state is :func:`multi_transform`'s."""
+    def labels_of(leaves):
+        return list(label_fn(leaves) if callable(label_fn) else label_fn)
+
+    def init(params):
+        return multi_transform(transforms, labels_of(params)).init(params)
+
+    def update(updates, state, params=None):
+        return multi_transform(transforms, labels_of(updates)).update(
+            updates, state, params)
+
+    return Transform(init, update)
+
+
 _REGISTRY: Dict[str, Callable[..., Transform]] = {}
 
 

@@ -174,10 +174,10 @@ class RegressionScoreCalculator(ScoreCalculator):
 
     def score(self, trainer):
         from ..eval import RegressionEvaluation
-        from .trainer import _model_output_width
+        from .trainer import model_output_width
 
         ev = trainer.evaluate(self.iterator, evaluation=RegressionEvaluation(
-            _model_output_width(trainer.model)))
+            model_output_width(trainer.model)))
         val = float(np.mean([getattr(ev, self.metric)(i)
                              for i in range(ev.n)]))
         return -val if self.metric in self._HIGHER_IS_BETTER else val

@@ -46,8 +46,14 @@ model's own ``evaluate``), :func:`score_model`, ``save(path,
 normalizer=)`` and ``pretrain_layer`` (layerwise unsupervised fit of an
 ``AutoEncoder`` or ``VAE`` with adam, as the reference's).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md, Queue
-1): ``mesh=`` (item 14) and ``telemetry=`` (item 15).
+``fit(telemetry=)`` takes an ``obs.StepTelemetry``-shaped object
+(duck-typed: this module never imports ``obs``, so a fit without telemetry
+makes no call into it); a listener's ``.telemetry`` is adopted when none
+is given. Telemetry times each step's data wait, dispatch and device
+compute, fencing every step, so it forces single steps.
+
+Not ported yet, raising ``NotImplementedError`` (ROADMAP.md, Queue 1):
+``mesh=`` (item 14).
 """
 
 from __future__ import annotations
@@ -67,7 +73,6 @@ from .serialization import load_model, load_opt_state, save_model
 from .staging import BatchStager
 
 _NOT_PORTED_MESH = "not ported yet (ROADMAP.md, Queue 1: item 14)"
-_NOT_PORTED_TELEMETRY = "not ported yet (ROADMAP.md, Queue 1: item 15)"
 
 
 def accum_supported(model, mask, label_mask) -> bool:
@@ -104,11 +109,18 @@ def _ndim(a) -> int:
     return a.ndim if hasattr(a, "ndim") else np.ndim(a)
 
 
-def _batch_sig(parts) -> tuple:
-    """Shapes and dtypes of a staged (x, y, mask, label mask): the batches
-    of one captured window must agree on it."""
-    return tuple(None if t is None else (tuple(t.shape), t.dtype)
-                 for t in parts)
+def _batch_sig(obj):
+    """Structure, shapes and dtypes of a batch's parts (arrays or tensors,
+    in tuples, lists and dicts): the batches of one captured window must
+    agree on it, and telemetry counts a compile miss per new one."""
+    if obj is None:
+        return None
+    if isinstance(obj, dict):
+        return ("dict",) + tuple((k, _batch_sig(v)) for k, v in
+                                 sorted(obj.items()))
+    if isinstance(obj, (list, tuple)):
+        return (type(obj).__name__,) + tuple(_batch_sig(v) for v in obj)
+    return (tuple(np.shape(obj)), str(getattr(obj, "dtype", type(obj))))
 
 
 class _Captured:
@@ -195,7 +207,8 @@ def frozen_leaves(model) -> List[bool]:
     return [k in frozen for k in _leaf_owners(model.param_shapes())]
 
 
-def _model_output_width(model) -> int:
+def model_output_width(model) -> int:
+    """Width of the model's primary output (Sequential or Graph)."""
     return (model.output_shape[-1] if isinstance(model, Sequential)
             else model.output_shapes[0][-1])
 
@@ -204,7 +217,7 @@ def default_evaluation(model):
     """A multiclass ``Evaluation`` sized to the model's primary output."""
     from ..eval import Evaluation
 
-    return Evaluation(_model_output_width(model))
+    return Evaluation(model_output_width(model))
 
 
 def unpack_batch(model, ds):
@@ -510,14 +523,24 @@ class Trainer:
         ``requires_sync`` or ``snapshots_state`` (under a window such a
         listener would act or read up to K steps late), and under
         truncated BPTT (``tbptt_length`` set), whose batches of 3 or more
-        dimensions go through :meth:`_fit_tbptt_batch`."""
-        if telemetry is not None or any(getattr(l, "telemetry", None) is not None
-                                        for l in listeners):
-            raise NotImplementedError(f"step telemetry is {_NOT_PORTED_TELEMETRY}")
+        dimensions go through :meth:`_fit_tbptt_batch`.
+
+        ``telemetry``: an ``obs.StepTelemetry``-shaped object; when
+        omitted, the first listener with a ``.telemetry`` attribute
+        (``obs.TelemetryListener``) lends its own. Active telemetry times
+        data wait, dispatch and device compute of every step (fencing
+        each) and turns the window off: K steps as one program have no
+        per-iteration edges to time."""
+        tel = telemetry
+        if tel is None:
+            for lst in listeners:
+                tel = getattr(lst, "telemetry", None)
+                if tel is not None:
+                    break
         reporter = DeferredScoreReporter(self, listeners)
         perf = [l for l in listeners if isinstance(l, PerformanceListener)]
         spe = max(1, int(steps_per_execution))
-        use_window = (spe > 1 and self.grad_accum == 1
+        use_window = (spe > 1 and self.grad_accum == 1 and tel is None
                       and not self.model.config.tbptt_length
                       and not any(getattr(l, "requires_sync", False)
                                   or getattr(l, "snapshots_state", False)
@@ -525,9 +548,13 @@ class Trainer:
         buf: List[tuple] = []
         for epoch in range(epochs):
             self.epoch = epoch
+            if tel is not None:
+                tel.tracer.instant("epoch_start", epoch=epoch)
             for lst in listeners:
                 lst.on_epoch_start(self, epoch)
             it = AsyncIterator(iterator) if prefetch else iterator
+            if tel is not None:
+                it = tel.wrap_iterator(it)
             for ds in it:
                 batch = unpack_batch(self.model, ds)
                 if use_window and self.iteration > 0 \
@@ -540,7 +567,7 @@ class Trainer:
                     continue
                 # a MultiDataSet batch runs alone, after what is buffered
                 self._exec_singles(buf + [(batch, ds.num_examples)],
-                                   reporter, epoch, perf)
+                                   reporter, epoch, perf, tel)
                 buf.clear()
             if buf:  # ragged tail: fewer than K buffered at epoch end
                 self._exec_singles(buf, reporter, epoch, perf)
@@ -553,15 +580,21 @@ class Trainer:
         self.model.params, self.model.state = self.params, self.state
         return self
 
-    def _exec_singles(self, buf, reporter, epoch, perf):
-        """Buffered batches through the single-batch step, in order."""
+    def _exec_singles(self, buf, reporter, epoch, perf, tel=None):
+        """Buffered batches through the single-batch step, in order; each
+        through ``tel.step`` when telemetry is on."""
         for batch, n in buf:
             for lst in perf:
                 lst.step_begin(n)
-            if self.model.config.tbptt_length and _ndim(batch[0]) >= 3:
-                loss = self._fit_tbptt_batch(*batch)
+            tbptt = (self.model.config.tbptt_length
+                     and _ndim(batch[0]) >= 3)
+            fn = self._fit_tbptt_batch if tbptt else self._dispatch_train_step
+            if tel is not None:
+                loss = tel.step(lambda: fn(*batch), sig=_batch_sig(batch),
+                                batch_size=n,
+                                kind="tbptt" if tbptt else "train")
             else:
-                loss = self._dispatch_train_step(*batch)
+                loss = fn(*batch)
             reporter.report(self.iteration, epoch, loss)
             self.iteration += 1
 

@@ -370,6 +370,26 @@ last line):
    validated snapshot, the learning rate scaled by 0.5, later losses
    finite. K1, K2, K3 once a layer and step (``launches_by_path
    ["recovery"]``).
+20. parallel — data parallelism on a world-1 NCCL group (a file-store
+   rendezvous; the last phase, one trainer resident at a time): the
+   full-width CausalLM(flash=True) at [train]'s batch (B 4 x T 1024, bf16,
+   adamw) from one snapshot of its seed-0 params, PAR_STEPS steps each of
+   ``Trainer.fit`` and ``ParallelWrapper`` in shared_gradients,
+   zero_sharded, averaging (frequency 2) and encoded_gradients (exact
+   top-k, threshold 0, full capacity), each one's params held against
+   Trainer's within PAR_PARAM_TOL (bit-equality reported);
+   encoded_gradients quantized at staleness 1, default threshold and
+   capacity, PAR_Q_STEPS steps under ``StepTelemetry`` (loss finite and
+   falling, count within capacity, residual finite, ``replica="0"``
+   gauged); ``MultiHostTrainer`` over ``ProcessShardIterator``, its
+   PAR_MH_STEPS steps against Trainer's. K1, K2, K3 12 launches each a
+   step in every run (``launches_by_path["parallel"]``, with
+   ParallelInference's). Printed with the card: each mode's step ms beside
+   Trainer's and its peak memory, the collectives at world 1, the codec's
+   encode + decode ms over every param beside its bytes bound, ZeRO-1's
+   update beside the plain updater's; ``ParallelInference`` coalescing
+   PAR_PI_REQS concurrent 1024-token predicts, each answer held against its
+   direct forward as [serve] holds answers. The group is destroyed after.
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -2390,6 +2410,347 @@ def phase_telemetry(trainer, x, y):
             p.copy_(s)
     trainer.opt_state = saved_opt
     del saved_p
+    return counts
+
+
+PAR_STEPS = 3               # steps of each run (one warm-up, two timed)
+PAR_MH_STEPS = 2            # MultiHostTrainer's steps against Trainer's
+PAR_Q_STEPS = 5             # the quantized run: at threshold 1e-3 adamw's
+#                             first updates (about lr = 3e-4 an entry) fill
+#                             the residual to the threshold at step 4, so
+#                             nothing is sent before it
+PAR_PARAM_TOL = 1e-6        # f32 params after the steps, a mode vs Trainer:
+#                             max |diff| / max |Trainer's| of each leaf
+PAR_PI_REQS = 8             # ParallelInference's concurrent predicts
+
+
+def _par_gap(got, want):
+    """(max over leaves of max |a - b| / max |b|, every leaf bit-equal)."""
+    gap, equal = 0.0, True
+    for a, b in zip(got, want):
+        equal = equal and torch.equal(a, b)
+        gap = max(gap, float((a.detach().float() - b.float()).abs().max())
+                  / max(float(b.float().abs().max()), 1e-30))
+    return gap, equal
+
+
+def phase_parallel(device="cuda"):
+    """[parallel]: data parallelism on a world-1 NCCL group on the card
+    (loopback rendezvous through a file store), driving the full-width
+    CausalLM(flash=True) of [train] (B 4 x T 1024, bf16, adamw) from one
+    snapshot of its seed-0 params: PAR_STEPS steps each of Trainer.fit,
+    ParallelWrapper in shared_gradients, zero_sharded, averaging
+    (frequency 2) and encoded_gradients (exact top-k, threshold 0, full
+    capacity), each one's params held against Trainer's (PAR_PARAM_TOL,
+    bit-equality reported); encoded_gradients quantized at staleness 1 with
+    the default threshold and capacity under StepTelemetry (loss finite
+    and falling, count within capacity, residual finite, replica "0"
+    gauged); MultiHostTrainer's PAR_MH_STEPS steps against Trainer's.
+    Every run launches K1, K2 and K3 once a layer and step. Then the
+    collectives at world 1, the codec over every param against its bytes
+    bound, ZeRO-1's update against the plain updater's, and
+    ParallelInference coalescing PAR_PI_REQS concurrent 1024-token
+    predicts. One trainer at a time is resident. Returns each kernel's
+    launches over the runs."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.obs import StepTelemetry
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.parallel import (MultiHostTrainer,
+                                               ParallelInference,
+                                               ParallelWrapper,
+                                               ProcessShardIterator,
+                                               distributed_init, make_mesh)
+    from deeplearning4j_torch.parallel import compression as C
+    from deeplearning4j_torch.parallel.dp import DataParallel, ZeroOne
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+
+    where = card()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    check(distributed_init(f"file://{tmp}/store", 1, 0, device=device),
+          "[parallel] no process group made")
+    try:
+        check(dist.get_backend() == ("nccl" if device == "cuda" else "gloo")
+              and dist.get_world_size() == 1,
+              f"[parallel] group {dist.get_backend()} of "
+              f"{dist.get_world_size()}")
+        mesh = make_mesh()
+        model = _lm(True)
+        model.init(seed=0)
+        n_params = model.param_count()
+        snap = [p.detach().clone() for p in tree_leaves(model.params)]
+        B, T, V, L = 4, 1024, 32000, 12
+        rng = np.random.RandomState(0)
+        x = rng.randint(0, V, (B, T)).astype(np.int32)
+        y = rng.randint(0, V, (B, T)).astype(np.int32)
+        wrappers = _kernel_wrappers()
+        total = collections.Counter()
+
+        def restore():
+            with torch.no_grad():
+                for p, s in zip(tree_leaves(model.params), snap):
+                    p.copy_(s)
+
+        def run(name, make, fits=(1, PAR_STEPS - 1), shards=False,
+                tel=None, after=None):
+            """``make()``'s fits of ``fits`` steps each from the snapshot,
+            every fit synchronized; all but the first timed
+            (``after(i, trainer)`` runs after fit i, inside the timing
+            when i > 0; ``tel`` goes to the last fit)."""
+            restore()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for w in wrappers.values():
+                w.launches = 0
+            t = make()
+            scores = CollectScoresListener()
+            steps = sum(fits)
+
+            def it(n):  # the batch n times over
+                xs, ys = np.tile(x, (n, 1)), np.tile(y, (n, 1))
+                return (ProcessShardIterator(xs, ys, B) if shards
+                        else ArrayIterator(xs, ys, batch_size=B))
+
+            t0 = None
+            for i, n in enumerate(fits):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                kw = ({"telemetry": tel} if tel is not None
+                      and i == len(fits) - 1 else {})
+                t.fit(it(n), listeners=[scores], **kw)
+                if after is not None:
+                    after(i, t)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / (steps - fits[0])
+            counts = {k: w.launches for k, w in wrappers.items()}
+            total.update(counts)
+            check(tuple(counts[k] for k in ("K1", "K2", "K3"))
+                  == (L * steps,) * 3,
+                  f"[parallel] {name}: launches K1, K2, K3 "
+                  f"{[counts[k] for k in ('K1', 'K2', 'K3')]}, want "
+                  f"{L * steps} each over {steps} steps")
+            losses = [l for _, l in scores.scores]
+            check(len(losses) == steps and all(np.isfinite(losses)),
+                  f"[parallel] {name}: losses {losses}")
+            return t, losses, ms, torch.cuda.max_memory_allocated()
+
+        rows = {}
+        after2 = {}
+
+        def keep_after_2(i, t):
+            if i == 1:
+                after2["params"] = [p.detach().clone()
+                                    for p in tree_leaves(t.params)]
+
+        t, _, _, _ = run("Trainer (2 steps)", lambda: Trainer(model),
+                         fits=(1, 1), after=keep_after_2)
+        del t
+        t, ref_losses, ref_ms, ref_peak = run("Trainer",
+                                              lambda: Trainer(model))
+        ref = [p.detach().clone() for p in tree_leaves(t.params)]
+        del t
+        rows["Trainer"] = (ref_ms, ref_peak, None, None, ref_losses)
+        modes = (
+            ("shared_gradients", {}),
+            ("zero_sharded", {}),
+            ("averaging", {"averaging_frequency": 2}),
+            ("encoded_gradients", {"threshold": 0.0, "capacity_frac": 1.0,
+                                   "quantize": False}),
+        )
+        for mode, kw in modes:
+            t, losses, ms, peak = run(mode, lambda: ParallelWrapper(
+                model, mesh=mesh, mode=mode, **kw))
+            gap, equal = _par_gap(tree_leaves(t.model.params), ref)
+            del t
+            rows[mode] = (ms, peak, gap, equal, losses)
+            check(gap <= PAR_PARAM_TOL,
+                  f"[parallel] {mode}: params after {PAR_STEPS} steps "
+                  f"{gap:.3g} off Trainer's (limit {PAR_PARAM_TOL})")
+        tel = StepTelemetry()
+        q, q_losses, q_ms, q_peak = run(
+            "encoded_quantized", lambda: ParallelWrapper(
+                model, mesh=mesh, mode="encoded_gradients", staleness=1),
+            fits=(1, PAR_Q_STEPS - 1), tel=tel)
+        count, cap = int(q.last_count), q.capacity
+        res_ok = bool(torch.isfinite(q.residual).all())
+        res_abs = float(q.residual.abs().sum())
+        del q
+        rows["encoded_quantized"] = (q_ms, q_peak, None, None, q_losses)
+        check(q_losses[-1] < q_losses[0], f"[parallel] quantized encoded "
+              f"loss did not fall: {q_losses}")
+        check(count <= cap and res_ok,
+              f"[parallel] quantized: count {count} of capacity {cap}, "
+              f"residual finite {res_ok}")
+        prom = tel.to_prometheus()
+        check('parallel_replica_step_seconds{replica="0"}' in prom,
+              "[parallel] parallel_step recorded no replica 0")
+        t, mh_losses, mh_ms, mh_peak = run(
+            "MultiHostTrainer", lambda: MultiHostTrainer(model, mesh=mesh),
+            fits=(1, PAR_MH_STEPS - 1), shards=True)
+        gap, equal = _par_gap(tree_leaves(t.params), after2["params"])
+        del t
+        rows["MultiHostTrainer"] = (mh_ms, mh_peak, gap, equal, mh_losses)
+        check(gap <= PAR_PARAM_TOL, f"[parallel] MultiHostTrainer: params "
+              f"after {PAR_MH_STEPS} steps {gap:.3g} off Trainer's")
+        del after2["params"], ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[parallel] ({where}) world-1 NCCL group, CausalLM "
+              f"{n_params} params, B={B} T={T}, bf16 compute, adamw; "
+              f"{PAR_STEPS} steps a mode from one snapshot (a fit of one "
+              f"warm-up step, then one fit of the rest timed), quantized "
+              f"{PAR_Q_STEPS}, MultiHostTrainer {PAR_MH_STEPS} against a "
+              f"Trainer run of as many")
+        for name, (ms, peak, gap, equal, losses) in rows.items():
+            vs = ("" if gap is None else
+                  f"; params vs Trainer's {gap:.3g} "
+                  f"({'bit-equal' if equal else 'not bit-equal'})")
+            print(f"[parallel] ({where}) {name}: step {ms:.2f} ms "
+                  f"({ms / ref_ms:.3f}x Trainer's {ref_ms:.2f}), peak "
+                  f"allocated {peak / 2**30:.2f} GiB{vs}; losses "
+                  + " ".join(f"{l:.6f}" for l in losses))
+        print(f"[parallel] ({where}) quantized encoded: count {count} of "
+              f"capacity {cap}, residual |sum| {res_abs:.4g}; launches K1, "
+              f"K2, K3 {L} each a step in every run, {total['K1']} each in "
+              f"all")
+        dev = torch.device(device)
+        dp = DataParallel(mesh)
+        one = torch.ones(1, device=dev)
+        flat = torch.randn(n_params, device=dev)
+        k = max(1, int(n_params * C.auto_capacity_frac(1)))
+        idx = torch.randint(0, n_params, (k,), device=dev,
+                            dtype=torch.int32)
+        val = torch.randn(k, device=dev)
+        ar1 = time_ms(lambda: dist.all_reduce(one))
+        arn = time_ms(lambda: dist.all_reduce(flat), reps=5)
+        ag = time_ms(lambda: (dp.all_gather_rows(idx[None]),
+                              dp.all_gather_rows(val[None])), reps=5)
+        print(f"[parallel] ({where}) collectives at world 1: all-reduce of "
+              f"1 f32 {ar1:.4f} ms, of {n_params} f32 (the flat gradient, "
+              f"{4 * n_params / 1e9:.2f} GB) {arn:.3f} ms; all-gather of a "
+              f"{k}-slot message (int32 + f32) {ag:.3f} ms")
+        del idx, val
+        g = flat.mul_(1e-3)
+        r = torch.randn(n_params, device=dev).mul_(1e-4)
+        box = {}
+
+        def enc():
+            box["e"] = C.threshold_encode(g, 1e-3, k, r)
+
+        enc_ms = time_ms(enc, reps=5, warmup=1)
+        e, r_new = box.pop("e")
+        dense = torch.zeros(n_params, device=dev)
+        dec_ms = time_ms(lambda: C.threshold_decode(e, out=dense), reps=5)
+        count_q = int(e.count)
+        del r_new, e, dense
+        bound_ms = 1e3 * (12 * n_params + 5 * k) / PEAK_BYTES_PER_S
+        print(f"[parallel] ({where}) codec over {n_params} f32 (capacity "
+              f"{k} = auto_capacity_frac(1), threshold 1e-3, random "
+              f"normal gradient, {count_q} over): encode {enc_ms:.3f} ms + "
+              f"decode {dec_ms:.3f} ms = {enc_ms + dec_ms:.3f} ms against "
+              f"a {bound_ms:.3f} ms bytes bound (gradient and residual "
+              f"read, residual and {5 * k / 1e9:.3f} GB message written, "
+              f"at 3.35 TB/s): {(enc_ms + dec_ms) / bound_ms:.2f}x")
+        del g, r, flat
+        gc.collect()
+        torch.cuda.empty_cache()
+        tx_model = Trainer(model)
+        leaves = tree_leaves(tx_model.params)
+        grads = [torch.randn_like(p).mul_(1e-3) for p in leaves]
+        zero = ZeroOne(dp, tx_model.tx, leaves)
+        z_state = zero.init(leaves)
+        with torch.no_grad():
+            plain_ms = time_ms(lambda: tx_model.tx.update(
+                grads, tx_model.opt_state, leaves), reps=5)
+            zero_ms = time_ms(lambda: zero.updates(grads, z_state, leaves),
+                              reps=5)
+        del z_state, grads, tx_model, zero, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[parallel] ({where}) ZeRO-1 update at world 1 (adamw on "
+              f"the shards, the updates all-gathered): {zero_ms:.2f} ms "
+              f"against the plain updater's {plain_ms:.2f} ms")
+        restore()
+        pi_counts = parallel_inference(model, where)
+        total.update(pi_counts)
+        del model, snap
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[parallel] ({where}) phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(total)
+
+
+def parallel_inference(model, where):
+    """PAR_PI_REQS concurrent 1024-token predicts through
+    ParallelInference (buckets 1, 2, 4, 8): coalesced into fewer batches
+    than requests, K1 once a layer and batch, each answer held against
+    its request's direct forward as [serve] holds answers (ENGINE_RTOL,
+    with another request's output as the control). Returns the kernels'
+    launches."""
+    from deeplearning4j_torch.parallel import ParallelInference
+
+    wrappers = _kernel_wrappers()
+    rng = np.random.RandomState(3)
+    reqs = [rng.randint(0, 32000, (1, 1024)).astype(np.int32)
+            for _ in range(PAR_PI_REQS)]
+    answers, errors = [None] * PAR_PI_REQS, []
+    pi = ParallelInference(model, batch_limit=8, max_wait_ms=50.0,
+                           buckets=(1, 2, 4, 8))
+
+    def client(i):
+        try:
+            answers[i] = pi.output(reqs[i])
+        except Exception as e:  # reported below, fails the phase
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(PAR_PI_REQS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        wall = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in threads), "clients hung")
+        counts = {k: w.launches for k, w in wrappers.items()}
+    finally:
+        pi.shutdown()
+    check(not errors, "; ".join(errors))
+    batches = int(pi.engine.metrics.counter("serve_batches_total").value)
+    check(0 < batches < PAR_PI_REQS,
+          f"[parallel] {PAR_PI_REQS} predicts ran as {batches} batches")
+    check(counts["K1"] == 12 * batches and counts["K2"] == 0,
+          f"[parallel] ParallelInference launches {counts} for {batches} "
+          f"batches")
+    direct = [model.output(r).cpu().numpy() for r in reqs]
+
+    def rel_gap(a, b):
+        return float((np.abs(a - b) / b).max())
+
+    own = [rel_gap(a, d) for a, d in zip(answers, direct)]
+    other = min(rel_gap(a, direct[(i + 1) % PAR_PI_REQS])
+                for i, a in enumerate(answers))
+    check(max(own) <= ENGINE_RTOL and other > ENGINE_RTOL,
+          f"[parallel] ParallelInference answers {own} against their "
+          f"forwards, control {other}")
+    print(f"[parallel] ({where}) ParallelInference: {PAR_PI_REQS} "
+          f"concurrent 1 x 1024 predicts in {batches} batches, {wall:.3f} s "
+          f"wall; max rel diff to the direct forward "
+          f"{max(own):.3g} (control {other:.3g}); K1 {counts['K1']}")
     return counts
 
 
@@ -7281,7 +7642,15 @@ def _kill_drill(st, router, clock, victim, crash, tag):
     check(not beat_errors, f"[cluster] {tag}: heartbeat polls raised "
           f"{beat_errors[:3]}")
     check(not killer.is_alive(), f"[cluster] {tag}: the kill did not return")
-    check("ok" in first, f"[cluster] {tag}: beta never served again")
+    if "ok" not in first:  # where every thread waits, for the record
+        import faulthandler
+
+        faulthandler.dump_traceback(all_threads=True)
+    check("ok" in first, f"[cluster] {tag}: beta never served again; the "
+          f"probe's attempts {collections.Counter(map(str, attempts))}, "
+          f"the load's outcomes after the kill "
+          f"{collections.Counter((o[0], o[1], str(o[2])) for o in out[before:])}"
+          f", membership {dict((r, router.membership.state(r)) for r in router.membership.ids())}")
     stop.set()
     for th in threads:
         th.join(timeout=300)
@@ -8463,6 +8832,8 @@ def main() -> int:
     finally:
         shutil.rmtree(aot_dir, ignore_errors=True)
     recovery_counts = phase_recovery()
+    # last: the only phase that makes a process group
+    par_counts = phase_parallel()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -8517,6 +8888,9 @@ def main() -> int:
         row["launches_by_path"]["recovery"] = recovery_counts[key]
         # the telemetered fit of the full-width CausalLM (4 steps)
         row["launches_by_path"]["telemetry"] = tel_counts[key]
+        # data parallelism at world 1: Trainer and every wrapper mode's
+        # fits, MultiHostTrainer's, ParallelInference's batches
+        row["launches_by_path"]["parallel"] = par_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -557,9 +557,16 @@ class ClusterRouter(JsonHTTPServerMixin):
     def _reply_upstream(self, handler, att: _Attempt,
                         error: bool = False) -> None:
         """Relay an upstream answer verbatim (status, JSON body, and the
-        backpressure/tracing headers that matter to the client)."""
+        backpressure/tracing headers that matter to the client). A
+        success's body goes out as the replica wrote it: parsing and
+        re-encoding a predict's answer (about 12 MB of JSON at 16 tokens)
+        held the interpreter lock that the in-process replicas share."""
         keep = {k: v for k, v in att.headers.items()
                 if k.lower() in ("retry-after", "x-request-id")}
+        if not error and att.status < 400 and att.data:
+            handler.reply(att.status, att.data.decode("utf-8"),
+                          headers=keep or None)
+            return
         try:
             payload = json.loads(att.data) if att.data else {}
         except ValueError:

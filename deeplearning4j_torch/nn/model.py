@@ -351,6 +351,25 @@ class Sequential(TrainableModel):
         layer-propagated feature mask. The output layer scores the f32
         features with its f32 params, whatever ``compute_dtype`` is.
         ``with_mass=True`` also returns ``losses.reduction_mass``."""
+        (loss,), (reduction,), aux, new_state = self.score_parts(
+            params, state, x, labels, training=training, rng=rng, mask=mask,
+            label_mask=label_mask)
+        if aux is not None:  # an MoE's load-balancing loss
+            loss = loss + aux
+        if with_mass:
+            return loss, new_state, reduction_mass(*reduction)
+        return loss, new_state
+
+    def score_parts(self, params: Params, state: State, x, labels, *,
+                    training: bool = True,
+                    rng: Optional[torch.Generator] = None, mask=None,
+                    label_mask=None):
+        """:meth:`score` in its parts (data parallelism reduces them by
+        loss mass): ``(losses, reductions, aux, new_state)``, the output
+        layer's masked-mean loss and its (labels, mask) pair, the mask it
+        reduced with (the label mask, else the propagated feature mask,
+        else None), one each; and the auxiliary loss (None when no layer
+        adds one)."""
         out_layer = self.layers[-1]
         if not _is_loss_layer(out_layer):
             raise ValueError("Last layer must be an Output/Loss layer to "
@@ -362,11 +381,9 @@ class Sequential(TrainableModel):
         eff_mask = label_mask if label_mask is not None else prop_mask
         loss = out_layer.score(params.get(k, {}), state.get(k, {}), feats,
                                labels, mask=eff_mask)
-        if _has_aux_losses(new_state):  # an MoE's load-balancing loss
-            loss = loss + _collect_aux_losses(new_state, loss.device)
-        if with_mass:
-            return loss, new_state, reduction_mass(labels, eff_mask)
-        return loss, new_state
+        aux = (_collect_aux_losses(new_state, loss.device)
+               if _has_aux_losses(new_state) else None)
+        return [loss], [(labels, eff_mask)], aux, new_state
 
     def output(self, x, params: Optional[Params] = None,
                state: Optional[State] = None, mask=None) -> torch.Tensor:
@@ -722,6 +739,23 @@ class Graph(TrainableModel):
         plus any auxiliary loss in the layers' state; and the new state.
         ``labels`` (and ``label_masks``) are one per output, or a single
         one for a one-output graph."""
+        losses, _, aux, new_state = self.score_parts(
+            params, state, inputs, labels, training=training, rng=rng,
+            masks=masks, label_masks=label_masks)
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for loss in losses:
+            total = total + loss
+        return total + aux, new_state
+
+    def score_parts(self, params: Params, state: State, inputs, labels, *,
+                    training: bool = True,
+                    rng: Optional[torch.Generator] = None, masks=None,
+                    label_masks=None):
+        """:meth:`score` in its parts (data parallelism reduces them by
+        loss mass): ``(losses, reductions, aux, new_state)``, each
+        loss-bearing output's masked-mean loss (f32) and its (labels,
+        mask) pair, in ``self.outputs`` order, and the auxiliary loss
+        (f32, zero when no layer adds one)."""
         if not any(_is_loss_layer(self.nodes[o].spec) for o in self.outputs):
             raise ValueError("Graph has no loss-bearing output layer — "
                              "score/fit would silently return 0")
@@ -729,7 +763,7 @@ class Graph(TrainableModel):
             labels = [labels]
         cdt, acts, act_masks = self._start(inputs, masks)
         new_state = dict(state)
-        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        losses, reductions = [], []
         out_idx = {o: i for i, o in enumerate(self.outputs)}
         consumed = {i for node in self.nodes.values() for i in node.inputs}
         for name in self.topo_order:
@@ -749,15 +783,16 @@ class Graph(TrainableModel):
                 p = params.get(name, {})
                 if cdt is not None:
                     p = _cast_floats(p, cdt)
-                loss = node.spec.score(p, state.get(name, {}),
-                                       acts[node.inputs[0]], labels[li],
-                                       mask=lm)
-                total = total + loss.float()
+                losses.append(node.spec.score(
+                    p, state.get(name, {}), acts[node.inputs[0]],
+                    labels[li], mask=lm).float())
+                reductions.append((labels[li], lm))
                 if name not in consumed:  # nothing downstream needs it
                     continue
             self._run_layer(name, params, state, acts, act_masks, new_state,
                             cdt, training, rng)
-        return total + _collect_aux_losses(new_state, total.device), new_state
+        return (losses, reductions,
+                _collect_aux_losses(new_state, self.device), new_state)
 
     def output(self, inputs, params: Optional[Params] = None,
                state: Optional[State] = None, masks=None) -> List[torch.Tensor]:

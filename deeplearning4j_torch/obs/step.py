@@ -25,6 +25,14 @@ each CUDA device (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``
 under ``device="cuda:<i>"``), with the reference's host-RSS fallback
 where there is no card.
 
+``parallel_step`` is ``ParallelWrapper.fit``'s: one rank sees one
+device, so with the fence on each rank times its own step (CUDA events
+on the card, ``perf_counter`` on the CPU) and one all-gather of that
+scalar over the default process group publishes
+``parallel_replica_step_seconds{replica=r}`` for every rank ``r`` (give
+every rank its own ``StepTelemetry``: the all-gather is a collective).
+With the fence off it adds no collective and sets no replica gauge.
+
 Everything here is host-side, and torch is imported only inside the
 calls that need it, so the module loads without touching CUDA.
 """
@@ -36,9 +44,6 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional, Set
 
 from .metrics import MetricsRegistry
 from .trace import Tracer
-
-_NOT_PORTED_PARALLEL = "not ported yet (ROADMAP.md, Queue 1: item 14)"
-
 
 def _host_rss_bytes() -> float:
     """Process resident set size; 0.0 where unavailable (non-POSIX)."""
@@ -78,6 +83,25 @@ def _fence(out) -> None:
     ev = torch.cuda.Event()
     ev.record(torch.cuda.current_stream(t.device))
     ev.synchronize()
+
+
+def _all_ranks(value: float, out) -> list:
+    """``value`` of every rank of the default process group (one
+    all-gather of a scalar, on the step output's device), or ``[value]``
+    without a group."""
+    import torch
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return [value]
+    t = _first_cuda_tensor(out)
+    dev = t.device if t is not None else torch.device("cpu")
+    mine = torch.tensor([value], dtype=torch.float64, device=dev)
+    every = torch.empty(dist.get_world_size(), dtype=torch.float64,
+                        device=dev)
+    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    gather(every, mine)
+    return every.tolist()
 
 
 class StepTelemetry:
@@ -176,10 +200,55 @@ class StepTelemetry:
         return out
 
     def parallel_step(self, thunk: Callable[[], Any], batch_size: int = 0):
-        """The ``ParallelWrapper`` step (per-replica skew gauges) belongs
-        with ``parallel/``, which the port does not have yet."""
-        raise NotImplementedError(
-            f"StepTelemetry.parallel_step is {_NOT_PORTED_PARALLEL}")
+        """A ``ParallelWrapper`` step: aggregate throughput
+        (``parallel_samples_per_second``, ``parallel_step_seconds``) and,
+        with the fence on, every rank's own step time as
+        ``parallel_replica_step_seconds{replica=r}`` (the max-min spread
+        is the skew; the slowest rank gates the step)."""
+        import torch
+
+        reg = self.registry
+        if self._t0 is None:
+            self._t0 = time.perf_counter()
+        start = None
+        if self.fence and torch.cuda.is_available() \
+                and torch.cuda.is_initialized():
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        with self.tracer.span("parallel_step"):
+            with self.tracer.span("dispatch"):
+                out = thunk()
+            if self.fence:
+                with self.tracer.span("device_compute"):
+                    _fence(out)
+                    mine = time.perf_counter() - t0
+                    if start is not None and _first_cuda_tensor(out) \
+                            is not None:
+                        end = torch.cuda.Event(enable_timing=True)
+                        end.record()
+                        end.synchronize()
+                        mine = start.elapsed_time(end) / 1e3
+                    for r, t in enumerate(_all_ranks(mine, out)):
+                        reg.gauge("parallel_replica_step_seconds",
+                                  {"replica": str(r)},
+                                  help="each rank's own step time (skew "
+                                       "gauge)").set(t)
+        dt = time.perf_counter() - t0
+        reg.histogram("parallel_step_seconds",
+                      help="end-to-end multi-device step wall time"
+                      ).observe(dt)
+        if batch_size and dt > 0:
+            reg.gauge("parallel_samples_per_second",
+                      help="aggregate training throughput over all replicas"
+                      ).set(batch_size / dt)
+        self._steps += 1
+        self._steps_counter.inc()
+        if batch_size:
+            self._samples_counter.inc(batch_size)
+        if self.memory_every and self._steps % self.memory_every == 1:
+            self.record_memory()
+        return out
 
     def record_memory(self) -> None:
         """Device memory gauges of every CUDA device, host-RSS fallback

@@ -4,7 +4,8 @@ checkpoint-resume (``faults``, from ``chaos/recovery``), the profiler
 window listener and phase timer, and model serialization (params, state,
 updater state and the data normalizer)."""
 
-from .earlystopping import (EarlyStoppingConfiguration, EarlyStoppingResult,
+from .earlystopping import (EarlyStoppingConfiguration,
+                            EarlyStoppingParallelTrainer, EarlyStoppingResult,
                             EarlyStoppingTrainer)
 from .faults import (DivergenceListener, FaultTolerantFit,
                      TrainingDivergedException)
@@ -22,7 +23,7 @@ from .trainer import (Trainer, build_updater, evaluate_model,
 
 __all__ = ["CheckpointListener", "CollectScoresListener",
            "DeferredScoreReporter", "DivergenceListener",
-           "EarlyStoppingConfiguration",
+           "EarlyStoppingConfiguration", "EarlyStoppingParallelTrainer",
            "EarlyStoppingResult", "EarlyStoppingTrainer",
            "EvaluativeListener", "FaultTolerantFit", "PerformanceListener",
            "PhaseTimer", "ProfilerListener",

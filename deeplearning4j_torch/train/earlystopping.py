@@ -16,12 +16,16 @@ draw their noise from a ``torch.Generator`` seeded with ``seed``: the same
 seed gives the same score run to run, but not the reference's (the
 packages draw different random streams).
 
-``EarlyStoppingParallelTrainer`` waits for ``parallel/`` (ROADMAP.md,
-Queue 1: item 14).
+``EarlyStoppingParallelTrainer`` drives a data-parallel trainer
+(``parallel.ParallelWrapper`` or ``parallel.MultiHostTrainer``) the same
+way, on every rank; its model saver sees the synced model. The iteration
+guard fires on every rank (``every_rank``), so every rank stops at the
+same epoch.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from dataclasses import dataclass, field
@@ -350,6 +354,8 @@ class _IterationGuard(TrainingListener):
     """Reads every step's loss against the iteration conditions and
     records the first that fires."""
 
+    every_rank = True  # MultiHostTrainer fires it on every rank
+
     def __init__(self, conditions):
         self.conditions = conditions
         self.requires_sync = bool(conditions)
@@ -398,3 +404,43 @@ class EarlyStoppingTrainer:
                     break
         return EarlyStoppingResult(reason, details, best_epoch,
                                    float(best_score), epoch + 1, scores)
+
+
+class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
+    """parallelism/EarlyStoppingParallelTrainer.java: early stopping
+    driving a data-parallel trainer (anything with ``fit(iterator,
+    epochs, listeners)`` and ``score_iterator``). The configured model
+    saver is wrapped so that it saves the synced model. Run it on every
+    rank: scores and losses are the group's, so every rank takes the same
+    decisions, and a file saver's ``save`` is collective."""
+
+    class _SyncedSaver(ModelSaver):
+        def __init__(self, inner: ModelSaver, wrapper):
+            self.inner = inner
+            self.wrapper = wrapper
+
+        def save_best(self, trainer, score):
+            w = self.wrapper
+            if hasattr(w, "_sync_model"):
+                w._sync_model()
+
+            class _View:
+                params = w.model.params
+                state = w.model.state
+                model = w.model
+                device = getattr(w, "device", None)
+                save = staticmethod(getattr(w, "save", None))
+
+            self.inner.save_best(_View(), score)
+
+        def get_best(self):
+            return self.inner.get_best()
+
+    def __init__(self, config: EarlyStoppingConfiguration, wrapper):
+        for attr in ("fit", "score_iterator"):
+            if not hasattr(wrapper, attr):
+                raise TypeError(f"parallel trainer lacks .{attr}(); got "
+                                f"{type(wrapper).__name__}")
+        config = copy.copy(config)
+        config.model_saver = self._SyncedSaver(config.model_saver, wrapper)
+        super().__init__(config, wrapper)

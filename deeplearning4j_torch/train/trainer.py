@@ -52,8 +52,19 @@ makes no call into it); a listener's ``.telemetry`` is adopted when none
 is given. Telemetry times each step's data wait, dispatch and device
 compute, fencing every step, so it forces single steps.
 
-Not ported yet, raising ``NotImplementedError`` (ROADMAP.md, Queue 1):
-``mesh=`` (item 14).
+``Trainer(model, mesh=make_mesh({"data": n}))`` is pure data parallelism
+over the mesh's process group (``parallel/``), the reference's "no rules"
+case: every rank builds the trainer, rank 0's params and net state are
+broadcast to the others, and every rank feeds the same global batches to
+``fit``, of which it trains on its own contiguous block of rows
+(``Mesh.rows``: the batch must divide over the data axis); gradients and
+the loss are reduced over the group by loss mass (``parallel.dp``), so
+each step is the global batch's step. ``score_iterator`` and
+``evaluate`` split each global batch over the ranks the same way, and
+``save`` writes from rank 0. Under a mesh ``steps_per_execution`` runs
+single steps, and tBPTT is refused. ``rules=`` (tensor and sequence
+parallelism) is not ported yet (ROADMAP.md, Queue 1: item 19) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -72,8 +83,6 @@ from .listeners import DeferredScoreReporter, PerformanceListener, TrainingListe
 from .serialization import load_model, load_opt_state, save_model
 from .staging import BatchStager
 
-_NOT_PORTED_MESH = "not ported yet (ROADMAP.md, Queue 1: item 14)"
-
 
 def accum_supported(model, mask, label_mask) -> bool:
     """Whether ``grad_accum``'s microbatch accumulation is exact for this
@@ -87,6 +96,12 @@ def accum_supported(model, mask, label_mask) -> bool:
         return False
     return not any(getattr(l, "aux_loss_weight", None) is not None
                    for l in model.layers)
+
+
+def _one_loss_output(model) -> bool:
+    """A Sequential, or a Graph with one output: grad_accum over a mesh
+    divides one summed loss by one summed mass."""
+    return not isinstance(model, Graph) or len(model.outputs) == 1
 
 
 def _clone_tree(tree):
@@ -297,6 +312,39 @@ def score_model(model, params, state, iterator, stage=None) -> float:
     return total / max(n, 1)
 
 
+def dp_score_iterator(dp, model, params, state, iterator, stage) -> float:
+    """:func:`score_model` with each global batch split over ``dp``'s
+    ranks (``DataParallel.score``): the mean of the batches' losses."""
+    total, n = 0.0, 0
+    for ds in iterator:
+        x, y, fm, lm = (stage(a) for a in unpack_batch(model, ds))
+        total += float(dp.score(model, params, state, x, y, fm, lm))
+        n += 1
+    if hasattr(iterator, "reset"):
+        iterator.reset()
+    return total / max(n, 1)
+
+
+def dp_evaluate(dp, model, params, state, iterator, evaluation=None,
+                stage=None):
+    """:func:`evaluate_model` with each global batch's forward split over
+    ``dp``'s ranks (``DataParallel.infer``); every rank evaluates the
+    whole batch's predictions."""
+    if evaluation is None:
+        evaluation = default_evaluation(model)
+    stage = stage or BatchStager(model.device)
+    for ds in iterator:
+        x, y, fm, lm = unpack_batch(model, ds)
+        preds = dp.infer(model, params, state, stage(x), stage(fm))
+        if isinstance(y, list):
+            y = y[0]
+            lm = lm[0] if lm else None
+        evaluation.eval(y, preds, mask=lm)
+    if hasattr(iterator, "reset"):
+        iterator.reset()
+    return evaluation
+
+
 class Trainer:
     """Owns the params, net state and updater state of one model and runs
     its training steps (Solver parity)."""
@@ -304,8 +352,10 @@ class Trainer:
     def __init__(self, model: Union[Sequential, Graph],
                  updater: Optional[Transform] = None,
                  seed: int = 0, mesh=None, rules=None, grad_accum: int = 1):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(f"training over a mesh is {_NOT_PORTED_MESH}")
+        if rules is not None:
+            from ..parallel.sharding import NOT_PORTED_RULES
+
+            raise NotImplementedError(f"Trainer(rules=) is {NOT_PORTED_RULES}")
         self.model = model
         self.grad_accum = max(1, int(grad_accum))
         self.tx = updater if updater is not None else build_updater(model)
@@ -323,6 +373,20 @@ class Trainer:
             p.detach().requires_grad_(p.is_floating_point() and not frozen)
             for p, frozen in zip(tree_leaves(model.params), self._frozen)])
         self.state = model.state if model.state is not None else {}
+        self.mesh = mesh
+        self._dp = None
+        self._zero = None  # parallel.dp.ZeroOne: ParallelWrapper's ZeRO-1
+        if mesh is not None:
+            from ..parallel.dp import DataParallel
+            from ..parallel.mesh import replicate
+
+            if not mesh.drives(self.device):
+                raise ValueError(f"the model is on {self.device}, the "
+                                 f"mesh's rank drives {mesh.device}")
+            self._dp = DataParallel(mesh)
+            # one program: every rank starts from rank 0's params and state
+            replicate(self.params, mesh)
+            self.state = replicate(self.state, mesh)
         self.opt_state = self.tx.init(tree_leaves(self.params))
         self.iteration = 0
         self.epoch = 0
@@ -356,11 +420,16 @@ class Trainer:
                                   for a in (x, y, mask, label_mask))
         leaves = tree_leaves(params)
         trained = [p for p in leaves if p.requires_grad]
-        with torch.enable_grad():
-            loss, new_state = _score(self.model, params, net_state, x, y,
-                                     training=True, rng=gen, mask=mask,
-                                     label_mask=label_mask)
-            grads = torch.autograd.grad(loss, trained, allow_unused=True)
+        if self._dp is not None:  # the global batch's loss and gradient
+            loss, new_state, grads = self._dp.loss_and_grads(
+                self.model, params, trained, net_state, x, y, gen, mask,
+                label_mask)
+        else:
+            with torch.enable_grad():
+                loss, new_state = _score(self.model, params, net_state, x,
+                                         y, training=True, rng=gen,
+                                         mask=mask, label_mask=label_mask)
+                grads = torch.autograd.grad(loss, trained, allow_unused=True)
         opt_state = self._apply_update(leaves, grads, opt_state)
         return params, opt_state, new_state, loss.detach()
 
@@ -417,11 +486,13 @@ class Trainer:
             n += 1
         return total / max(n, 1)
 
-    def _apply_update(self, leaves, grads, opt_state):
+    def _updates(self, leaves, grads, opt_state):
         """The updater on the trained leaves' gradients (zeros for unused
         params and the other leaves; None for frozen leaves under the
-        ``noop`` of ``build_updater``, whose update is None), added to the
-        params in place where the update is not None."""
+        ``noop`` of ``build_updater``, whose update is None): returns
+        ``(updates, opt_state)``, an update (or None) a leaf. Under
+        ParallelWrapper's ZeRO-1 the updater runs on this rank's shards
+        and the updates are gathered."""
         grads = iter(grads)
         with torch.no_grad():
             full = []
@@ -431,7 +502,15 @@ class Trainer:
                     continue
                 g = next(grads) if p.requires_grad else None
                 full.append(torch.zeros_like(p) if g is None else g)
-            updates, opt_state = self.tx.update(full, opt_state, leaves)
+            if self._zero is not None:
+                return self._zero.updates(full, opt_state, leaves)
+            return self.tx.update(full, opt_state, leaves)
+
+    def _apply_update(self, leaves, grads, opt_state):
+        """:meth:`_updates`, added to the params in place where the update
+        is not None."""
+        updates, opt_state = self._updates(leaves, grads, opt_state)
+        with torch.no_grad():
             pairs = [(p, u) for p, u in zip(leaves, updates) if u is not None]
             if pairs:
                 torch._foreach_add_([p for p, _ in pairs],
@@ -454,6 +533,12 @@ class Trainer:
         mb = x.shape[0] // n
         leaves = tree_leaves(params)
         trained = [p for p in leaves if p.requires_grad]
+        if self._dp is not None:  # strided microbatches, mass over the group
+            loss, net_state, grads = self._dp.accum_loss_and_grads(
+                self.model, params, trained, net_state, x, y, gen, mask,
+                label_mask, n)
+            opt_state = self._apply_update(leaves, grads, opt_state)
+            return params, opt_state, net_state, loss
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
         g_sum, loss_sum, w_sum = None, zero, zero
         for i in range(n):
@@ -497,7 +582,8 @@ class Trainer:
                                   for a in (x, y, mask, label_mask))
         fn = self.step
         if self.grad_accum > 1 and x.shape[0] % self.grad_accum == 0 \
-                and accum_supported(self.model, mask, label_mask):
+                and accum_supported(self.model, mask, label_mask) \
+                and (self._dp is None or _one_loss_output(self.model)):
             fn = self.accum_step
         self.params, self.opt_state, self.state, loss = fn(
             self.params, self.opt_state, self.state, x, y, self._gen, mask,
@@ -541,6 +627,7 @@ class Trainer:
         perf = [l for l in listeners if isinstance(l, PerformanceListener)]
         spe = max(1, int(steps_per_execution))
         use_window = (spe > 1 and self.grad_accum == 1 and tel is None
+                      and self._dp is None
                       and not self.model.config.tbptt_length
                       and not any(getattr(l, "requires_sync", False)
                                   or getattr(l, "snapshots_state", False)
@@ -557,6 +644,11 @@ class Trainer:
                 it = tel.wrap_iterator(it)
             for ds in it:
                 batch = unpack_batch(self.model, ds)
+                if self._dp is not None:  # this rank's block of rows
+                    from ..parallel.dp import n_rows, take_rows
+
+                    rows = self.mesh.rows(n_rows(batch[0]))
+                    batch = tuple(take_rows(a, rows) for a in batch)
                 if use_window and self.iteration > 0 \
                         and not isinstance(ds, MultiDataSet):
                     buf.append((tuple(self._stage(a) for a in batch),
@@ -588,6 +680,10 @@ class Trainer:
                 lst.step_begin(n)
             tbptt = (self.model.config.tbptt_length
                      and _ndim(batch[0]) >= 3)
+            if tbptt and self._dp is not None:
+                raise NotImplementedError(
+                    "truncated BPTT over a mesh is not ported; train "
+                    "full-BPTT (tbptt_length=0) or without mesh=")
             fn = self._fit_tbptt_batch if tbptt else self._dispatch_train_step
             if tel is not None:
                 loss = tel.step(lambda: fn(*batch), sig=_batch_sig(batch),
@@ -741,13 +837,22 @@ class Trainer:
         return losses
 
     def score_iterator(self, iterator) -> float:
-        """Average loss over an iterator (model.score(DataSetIterator))."""
+        """Average loss over an iterator (model.score(DataSetIterator));
+        over a mesh each global batch is split over the ranks."""
+        if self._dp is not None:
+            return dp_score_iterator(self._dp, self.model, self.params,
+                                     self.state, iterator, self._stage)
         return score_model(self.model, self.params, self.state, iterator,
                            self._stage)
 
     def evaluate(self, iterator, evaluation=None):
         """Streaming evaluation (an ``Evaluation`` of the primary output
-        unless one is given) at the trainer's params and state."""
+        unless one is given) at the trainer's params and state; over a
+        mesh each rank forwards its block and every rank evaluates the
+        gathered predictions."""
+        if self._dp is not None:
+            return dp_evaluate(self._dp, self.model, self.params, self.state,
+                               iterator, evaluation, self._stage)
         return evaluate_model(self.model, self.params, self.state, iterator,
                               evaluation, self._stage)
 
@@ -797,9 +902,16 @@ class Trainer:
 
     def save(self, path: str, normalizer=None) -> None:
         """The model zip with params, state and updater state, and the
-        data normalizer when given (``normalizer.json``)."""
-        save_model(path, self.model, params=self.params, state=self.state,
-                   opt_state=self.opt_state, normalizer=normalizer)
+        data normalizer when given (``normalizer.json``). Over a mesh rank
+        0 writes and every rank waits for it (call it on every rank)."""
+        if self._dp is None or self.mesh.rank == 0:
+            save_model(path, self.model, params=self.params,
+                       state=self.state, opt_state=self.opt_state,
+                       normalizer=normalizer)
+        if self._dp is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.mesh.group)
 
     @classmethod
     def load(cls, path: str, seed: int = 0, device=None) -> "Trainer":

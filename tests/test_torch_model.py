@@ -334,10 +334,23 @@ def test_port_imports_nothing_of_jax(path):
 
 
 def test_importing_the_port_loads_no_jax():
+    """Importing the port (``parallel`` too) loads no JAX module, and
+    neither does a spawned gloo rank of ``parallel.RankGroup`` (its cases
+    come from ``tests/torch_parallel_ranks.py``)."""
     code = ("import sys, deeplearning4j_torch.serve, deeplearning4j_torch.models,"
-            " deeplearning4j_torch.train, deeplearning4j_torch.kernels._build;"
+            " deeplearning4j_torch.train, deeplearning4j_torch.kernels._build,"
+            " deeplearning4j_torch.parallel;"
             " bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{sorted(FORBIDDEN_ROOTS)!r}); sys.exit(str(bad) if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    code = ("import sys; sys.path.insert(0, 'tests');"
+            " import torch_parallel_ranks as R;"
+            " from deeplearning4j_torch.parallel import run_ranks;"
+            " info = run_ranks(R.rank_info, 2);"
+            " bad = info['jax'] + R.jax_modules();"
+            " sys.exit(str(bad) if bad or info['backend'] != 'gloo' else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=str(REPO),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

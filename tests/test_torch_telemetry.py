@@ -322,13 +322,22 @@ def test_tbptt_batches_are_timed_as_tbptt():
 
 
 def test_parallel_step_names_its_queue_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        StepTelemetry().parallel_step(lambda: None)
+    """parallel_step named its queue item (14) until ``parallel/`` was
+    ported; now it runs the step: without a process group, one replica
+    gauged, the step counted, the output returned."""
+    tel = StepTelemetry()
+    assert tel.parallel_step(lambda: 7, batch_size=4) == 7
+    text = tel.to_prometheus()
+    assert 'parallel_replica_step_seconds{replica="0"}' in text
+    assert 'replica="1"' not in text
+    assert tel.snapshot()["steps"] == 1
 
 
 def test_mesh_is_still_refused(ref_model):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Trainer(_port_model(ref_model), mesh=object())
+    """A data mesh trains now (``parallel/``, item 14's data-parallel
+    half); a mesh with sharding rules is refused, naming item 19."""
+    with pytest.raises(NotImplementedError, match="item 19"):
+        Trainer(_port_model(ref_model), mesh=object(), rules=[(".*", ())])
 
 
 # --------------------------------------------------------- ProfilerListener

@@ -390,6 +390,28 @@ last line):
    update beside the plain updater's; ``ParallelInference`` coalescing
    PAR_PI_REQS concurrent 1024-token predicts, each answer held against its
    direct forward as [serve] holds answers. The group is destroyed after.
+21. tp_sp — tensor, sequence and pipeline parallelism on a second
+   world-1 NCCL group, mesh {data 1, model 1, seq 1}, every collective
+   through its group: the full-width CausalLM(flash=True, ring=True) at
+   [train]'s batch from one snapshot, TP_STEPS steps each of Trainer,
+   Trainer(mesh=, rules=TRANSFORMER_RULES), ParallelWrapper(rules=) in
+   shared_gradients and zero_sharded, held against Trainer's params
+   (TP_PARAM_TOL, bit-equality reported), MultiHostTrainer(rules=)'s
+   TP_MH_STEPS steps then ``evaluate(global_mesh=True)``, and
+   ``sharded_lm_step``'s one step (its loss Trainer's first); K1, K2, K3
+   12 launches each a step. The ring's schedule over RING_N blocks of
+   RING_BLOCK at (B 4, T 1024, H 32, D 64), f32 and bf16, causal and not,
+   against one flash_attention call and the dense reference element by
+   element, each against its row's largest (RING_F32_TOL,
+   RING_F32_DENSE_TOL, RING_BF16_TOL, RING_BF16_DENSE_TOL; a planted fault
+   in the merge and the backward, RING_FAULT, must read above them), 10
+   launches each of K1-K3 causal, 16 not, timed beside the call; ``pipeline_apply`` over pipe 1 with PIPE_M
+   microbatches of one full-width block, equal to the block in turn.
+   Step ms and peak memory of each run beside the card. The launches of
+   the rules paths, the ring and the pipeline (the plain Trainer's
+   reference runs excluded) are tallied against the count they must come
+   to (``launches_by_path["tp_sp"]``). Quick call: ``python3 -c "import
+   chip_smoke as c; c.phase_build(); c.phase_tp_sp()"``.
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -402,6 +424,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2752,6 +2775,589 @@ def parallel_inference(model, where):
           f"wall; max rel diff to the direct forward "
           f"{max(own):.3g} (control {other:.3g}); K1 {counts['K1']}")
     return counts
+
+
+TP_STEPS = 5                # steps of each run (one warm-up, four timed:
+#                             host time spreads about 10% between fits)
+TP_MH_STEPS = 2             # MultiHostTrainer's steps against Trainer's
+TP_PARAM_TOL = 1e-6         # f32 params after the steps, a rules run vs
+#                             Trainer's, as [parallel]'s PAR_PARAM_TOL: at
+#                             world 1 each collective passes its operand
+#                             through, so bit-equality is expected and
+#                             reported; the bound is the gate
+RING_N, RING_BLOCK = 4, 256  # the ring's blocks at the full-width shape
+# The ring's readings are element-wise: max |got - want| / (the largest
+# |want| of the element's row, the D values of one (b, t, h), or the
+# tensor's mean |want| where that is larger), so a row of small values is
+# held to its own scale, not the tensor's largest.
+# Limits: ring vs one flash call (the gate a ring fault meets), and ring
+# vs the dense reference (f32 scores, no rounding inside, on the same
+# inputs), where one flash call's own reading is printed beside: where a
+# causal dq row's terms cancel (its first positions) the dense autograd's
+# and the kernels' roundings part most. "sound": the largest reading of
+# the unbroken ring on an H100 80GB HBM3 at 700 W.
+RING_F32_TOL = 1e-5          # vs flash; sound 3.4e-6
+RING_F32_DENSE_TOL = 1e-4    # vs dense; sound 1.74e-5 (causal dq)
+# bf16: each block's output is rounded to bf16 by K1 before the f32 merge
+# (one call rounds once), and each block's dq/dk/dv by K2/K3 before the f32
+# sums; K2/K3 round p and ds to bf16 as the reference's Pallas kernels do
+RING_BF16_TOL = 2.0 ** -5    # 8 bf16 ulps vs flash; sound 0.0142
+RING_BF16_DENSE_TOL = 2.0 ** -3  # vs dense; sound 0.0786 (causal dq), 0.0104
+#                                  elsewhere
+RING_FAULT = math.log(2.0)  # the planted fault: one block's lse off by ln 2
+#                             (its weight doubled) in the first merge of two
+#                             blocks and in the first backward step off the
+#                             diagonal; it read 0.70-1.12 in bf16, and its
+#                             readings must exceed both limits
+TP_SHAPE = dict(B=4, T=1024, V=32000, L=12, d=2048, H=32)  # [train]'s
+PIPE_M = 4                  # microbatches of the pipeline check
+PIPE_TOL = 1e-5             # f32 gradients, pipeline vs the block applied in
+#                             turn: the same products summed in another
+#                             order (max |diff| / max |want| a leaf)
+
+
+class _TokenAccuracy:
+    """A mergeable evaluation (the protocol of eval/evaluation.py's
+    _Mergeable) of top-1 token accuracy: a confusion matrix at a 32000-way
+    vocabulary would be 8 GB."""
+
+    _STATE_FIELDS = ("correct", "total")
+
+    def __init__(self):
+        self.correct, self.total = 0, 0
+
+    def new_like(self):
+        return _TokenAccuracy()
+
+    def eval(self, labels, predictions, mask=None):
+        y = torch.as_tensor(np.asarray(labels)).to(predictions.device)
+        self.correct += int((predictions.argmax(-1) == y.long()).sum())
+        self.total += int(y.numel())
+        return self
+
+    def state(self):
+        return {f: np.asarray(getattr(self, f)) for f in self._STATE_FIELDS}
+
+    def load_state(self, d):
+        self.correct, self.total = int(d["correct"]), int(d["total"])
+        return self
+
+    def merge(self, other):
+        self.correct += other.correct
+        self.total += other.total
+        return self
+
+
+def phase_tp_sp(device="cuda"):
+    """[tp_sp]: tensor, sequence and pipeline parallelism on a world-1 NCCL
+    group with a mesh of {data 1, model 1, seq 1} (every collective runs
+    through its group), driving the full-width CausalLM(flash=True,
+    ring=True) at [train]'s batch (B 4 x T 1024, bf16, adamw) from one
+    snapshot of its seed-0 params: TP_STEPS steps each of Trainer.fit,
+    Trainer(mesh=, rules=TRANSFORMER_RULES) (at seq 1 the layer takes
+    flash, as the reference does), ParallelWrapper(rules=) in
+    shared_gradients and zero_sharded, held against Trainer's params
+    (TP_PARAM_TOL, bit-equality reported); MultiHostTrainer(rules=)'s
+    TP_MH_STEPS steps against Trainer's, then evaluate(global_mesh=True);
+    sharded_lm_step's one step, its loss against Trainer's first. K1, K2,
+    K3 12 launches each a step in every run. Then the ring's schedule over
+    RING_N blocks of RING_BLOCK at the full-width attention shape (B 4,
+    T 1024, H 32, D 64), f32 and bf16, causal and not, held against one
+    flash_attention call over the sequence and against the dense
+    reference, launches counted, timed beside that call; and
+    pipeline_apply over a pipe axis of 1 with PIPE_M microbatches of one
+    full-width TransformerEncoderBlock(flash=True), equal to the block on
+    each microbatch in turn. Peak allocated memory of each run. Returns
+    each kernel's launches on the phase's paths (the reference calls
+    excluded)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.models.transformer import sharded_lm_step
+    from deeplearning4j_torch.nn import layers as L
+    from deeplearning4j_torch.ops.flash_attention import flash_attention
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+    from deeplearning4j_torch.parallel import (
+        TRANSFORMER_RULES, MultiHostTrainer, ParallelWrapper,
+        ProcessShardIterator, distributed_init, from_microbatches, make_mesh,
+        pipeline_apply, reference_attention, ring_attention_blocks,
+        stack_stage_params, to_microbatches)
+    from deeplearning4j_torch.train import CollectScoresListener, Trainer
+    from deeplearning4j_torch.train.trainer import build_updater
+
+    where = card()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    check(distributed_init(f"file://{tmp}/store", 1, 0, device=device),
+          "[tp_sp] no process group made")
+    wrappers = _kernel_wrappers()
+    total = collections.Counter()
+
+    def launches():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def since(before):
+        now = launches()
+        return {k: now[k] - before[k] for k in now}
+
+    def add_since(before):  # launches on the phase's paths
+        got = since(before)
+        total.update(got)
+        return got
+
+    rules_steps = [0]  # steps of the rules paths, for the closing tally
+
+    try:
+        mesh = make_mesh({"data": 1, "model": 1, "seq": 1})
+        check(dist.get_backend() == ("nccl" if device == "cuda" else "gloo")
+              and mesh.size == 1, f"[tp_sp] group {dist.get_backend()} of "
+              f"{mesh.size}")
+        from deeplearning4j_torch.models import CausalLM
+
+        sh = TP_SHAPE
+        B, T, V, L_ = sh["B"], sh["T"], sh["V"], sh["L"]
+        model = CausalLM(seed=0, input_shape=(T,), num_layers=L_,
+                         d_model=sh["d"], num_heads=sh["H"], vocab=V,
+                         flash=True, ring=True, device=device).build()
+        model.config.compute_dtype = "bfloat16"
+        model.init(seed=0)
+        n_params = model.param_count()
+        snap = [p.detach().clone() for p in tree_leaves(model.params)]
+        rng = np.random.RandomState(0)
+        x = rng.randint(0, V, (B, T)).astype(np.int32)
+        y = rng.randint(0, V, (B, T)).astype(np.int32)
+
+        def restore():
+            with torch.no_grad():
+                for p, s in zip(tree_leaves(model.params), snap):
+                    p.copy_(s)
+
+        def run(name, make, fits=(1, TP_STEPS - 1), shards=False,
+                after=None, path=True):
+            """``path``: a run of the phase's paths (its launches count);
+            the plain Trainer's reference runs are not."""
+            restore()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = launches()
+            t = make()
+            scores = CollectScoresListener()
+            steps = sum(fits)
+            t0 = None
+            for i, n in enumerate(fits):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                xs, ys = np.tile(x, (n, 1)), np.tile(y, (n, 1))
+                it = (ProcessShardIterator(xs, ys, B, *t.data_shard())
+                      if shards else ArrayIterator(xs, ys, batch_size=B))
+                t.fit(it, listeners=[scores])
+                if after is not None:
+                    after(i, t)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0) / (steps - fits[0])
+            counts = add_since(before) if path else since(before)
+            rules_steps[0] += steps if path else 0
+            check(tuple(counts[k] for k in ("K1", "K2", "K3"))
+                  == (L_ * steps,) * 3,
+                  f"[tp_sp] {name}: launches K1, K2, K3 "
+                  f"{[counts[k] for k in ('K1', 'K2', 'K3')]}, want "
+                  f"{L_ * steps} each over {steps} steps")
+            losses = [l for _, l in scores.scores]
+            check(len(losses) == steps and all(np.isfinite(losses)),
+                  f"[tp_sp] {name}: losses {losses}")
+            return t, losses, ms, torch.cuda.max_memory_allocated()
+
+        rows, kept = {}, {}
+
+        def keep(i, t):
+            if i == 0:
+                kept["first"] = [p.detach().clone()
+                                 for p in tree_leaves(t.params)]
+            if i == 1:
+                kept["two"] = [p.detach().clone()
+                               for p in tree_leaves(t.params)]
+
+        # the first run of a process warms the allocator and the kernels'
+        # libraries: its 2 steps are MultiHostTrainer's and
+        # sharded_lm_step's references, the timed reference comes next
+        t, *_ = run("Trainer (2 steps)", lambda: Trainer(model), fits=(1, 1),
+                    after=keep, path=False)
+        del t
+        t, ref_losses, ref_ms, ref_peak = run(
+            "Trainer", lambda: Trainer(model), path=False)
+        ref = [p.detach().clone() for p in tree_leaves(t.params)]
+        del t
+        rows["Trainer"] = (ref_ms, ref_peak, None, None, ref_losses)
+        runs = (
+            ("Trainer(rules=)", lambda: Trainer(
+                model, mesh=mesh, rules=TRANSFORMER_RULES)),
+            ("ParallelWrapper shared_gradients", lambda: ParallelWrapper(
+                model, mesh=mesh, rules=TRANSFORMER_RULES)),
+            ("ParallelWrapper zero_sharded", lambda: ParallelWrapper(
+                model, mesh=mesh, mode="zero_sharded",
+                rules=TRANSFORMER_RULES)),
+        )
+        for name, make in runs:
+            t, losses, ms, peak = run(name, make)
+            gap, equal = _par_gap(tree_leaves(t.params), ref)
+            del t
+            rows[name] = (ms, peak, gap, equal, losses)
+            check(gap <= TP_PARAM_TOL, f"[tp_sp] {name}: params after "
+                  f"{TP_STEPS} steps {gap:.3g} off Trainer's (limit "
+                  f"{TP_PARAM_TOL})")
+        t, mh_losses, mh_ms, mh_peak = run(
+            "MultiHostTrainer(rules=)", lambda: MultiHostTrainer(
+                model, mesh=mesh, rules=TRANSFORMER_RULES),
+            fits=(1, TP_MH_STEPS - 1), shards=True)
+        gap, equal = _par_gap(tree_leaves(t.params), kept["two"])
+        rows["MultiHostTrainer(rules=)"] = (mh_ms, mh_peak, gap, equal,
+                                            mh_losses)
+        check(gap <= TP_PARAM_TOL, f"[tp_sp] MultiHostTrainer(rules=): "
+              f"params after {TP_MH_STEPS} steps {gap:.3g} off Trainer's")
+        before = launches()
+        ev = t.evaluate(ProcessShardIterator(x, y, B, *t.data_shard()),
+                        _TokenAccuracy(), global_mesh=True)
+        ev_counts = add_since(before)
+        check(ev.total == B * T and ev_counts["K1"] == L_
+              and ev_counts["K2"] == ev_counts["K3"] == 0,
+              f"[tp_sp] evaluate(global_mesh=True): {ev.total} tokens, "
+              f"launches {ev_counts}")
+        del t
+        # sharded_lm_step: one step from the snapshot
+        restore()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = launches()
+        step, p, opt, place = sharded_lm_step(model, mesh,
+                                              build_updater(model))
+        toks, tgts = place(x, y)
+        p, opt, loss = step(p, opt, toks, tgts)
+        lm_loss = float(loss)
+        lm_gap, lm_equal = _par_gap(tree_leaves(p), kept["first"])
+        add_since(before)
+        rules_steps[0] += 1
+        del step, p, opt
+        check(lm_loss == ref_losses[0] or abs(lm_loss - ref_losses[0])
+              <= 1e-6 * abs(ref_losses[0]),
+              f"[tp_sp] sharded_lm_step loss {lm_loss} against Trainer's "
+              f"first {ref_losses[0]}")
+        check(lm_gap <= TP_PARAM_TOL, f"[tp_sp] sharded_lm_step params "
+              f"{lm_gap:.3g} off Trainer's first step")
+        # where a rules step's time goes against a plain one's (the plain
+        # one's launches are not the phase's)
+        anatomy = {}
+        for name, make in (("Trainer", lambda: Trainer(model)),
+                           ("Trainer(rules=)", lambda: Trainer(
+                               model, mesh=mesh, rules=TRANSFORMER_RULES))):
+            restore()
+            gc.collect()
+            torch.cuda.empty_cache()
+            before = launches()
+            t = make()
+            fits = [0]
+
+            def fit_once():
+                fits[0] += 1
+                t.fit(ArrayIterator(x, y, batch_size=B))
+
+            anatomy[name] = _step_anatomy(fit_once)
+            if t.rules:
+                add_since(before)
+                rules_steps[0] += fits[0]
+            del t
+        del kept, ref, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, a in anatomy.items():
+            print(f"[tp_sp] ({where}) {name} step anatomy: {a['wall']:.2f} "
+                  f"ms on the host clock, the card busy {a['busy']:.2f} ms "
+                  f"({a['busy'] / a['wall']:.3f}); NCCL {a['nccl_n']} "
+                  f"kernels {a['nccl_ms']:.2f} ms; top device: {a['dev']}; "
+                  f"top host (self): {a['host']}")
+        print(f"[tp_sp] ({where}) world-1 NCCL group, mesh {{data 1, model "
+              f"1, seq 1}}, CausalLM(flash, ring) {n_params} params, B={B} "
+              f"T={T}, bf16 compute, adamw; {TP_STEPS} steps a run from one "
+              f"snapshot (a fit of one warm-up step, the rest timed), "
+              f"MultiHostTrainer {TP_MH_STEPS}")
+        for name, (ms, peak, gap, equal, losses) in rows.items():
+            vs = ("" if gap is None else
+                  f"; params vs Trainer's {gap:.3g} "
+                  f"({'bit-equal' if equal else 'not bit-equal'})")
+            print(f"[tp_sp] ({where}) {name}: step {ms:.2f} ms "
+                  f"({ms / ref_ms:.3f}x Trainer's {ref_ms:.2f}), peak "
+                  f"allocated {peak / 2**30:.2f} GiB{vs}; losses "
+                  + " ".join(f"{l:.6f}" for l in losses))
+        print(f"[tp_sp] ({where}) evaluate(global_mesh=True): token "
+              f"accuracy {ev.correct}/{ev.total}; sharded_lm_step loss "
+              f"{lm_loss:.6f} (Trainer's first {ref_losses[0]:.6f}), params "
+              f"{'bit-equal' if lm_equal else f'{lm_gap:.3g} off'}")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        ring_rows = tp_ring_kernels(where, flash_attention,
+                                    reference_attention,
+                                    ring_attention_blocks, launches,
+                                    add_since, device)
+        tp_pipeline(where, L, stack_stage_params, to_microbatches,
+                    from_microbatches, pipeline_apply, launches, add_since)
+        # the tally: 12 a step of every rules path, evaluate's forward, the
+        # ring's blocks, the pipeline's microbatches, and nothing else
+        ring = 2 * (RING_N * (RING_N + 1) // 2 + RING_N ** 2)
+        want = {k_: 0 for k_ in wrappers}
+        want["K1"] = L_ * rules_steps[0] + L_ + ring + 2 * PIPE_M
+        want["K2"] = want["K3"] = L_ * rules_steps[0] + ring + PIPE_M
+        check(all(total[k_] == n for k_, n in want.items()),
+              f"[tp_sp] launches on the phase's paths {dict(total)}, want "
+              f"{want} ({rules_steps[0]} rules steps)")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[tp_sp] ({where}) phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(total), ring_rows
+
+
+def _step_anatomy(fit_once, top: int = 6):
+    """One step (``fit_once()``) timed on the host around a synchronize,
+    and traced by torch.profiler (after a warm-up step): the device's busy
+    ms (the sum of its kernels' and copies' self time), the top device
+    operations by time, the top host operations by self time, and the
+    NCCL kernels' count and ms."""
+    from torch.profiler import ProfilerActivity
+
+    fit_once()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_once()
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    prof = _profiled(fit_once, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in _on_card(prof):  # kernels, copies and sets on the card
+        by_name[e.name[:40]][0] += (e.time_range.end
+                                    - e.time_range.start) / 1e3
+        by_name[e.name[:40]][1] += 1
+    busy = sum(ms for ms, _ in by_name.values())
+    nccl = [v for k, v in by_name.items() if "nccl" in k.lower()]
+    top_dev = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    top_host = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:top]
+    return dict(
+        wall=wall, busy=busy, nccl_n=sum(n for _, n in nccl),
+        nccl_ms=sum(ms for ms, _ in nccl),
+        dev=", ".join(f"{k} {ms:.2f} ms x{n}" for k, (ms, n) in top_dev),
+        host=", ".join(f"{e.key[:40]} {e.self_cpu_time_total / 1e3:.2f} ms"
+                       f" x{e.count}" for e in top_host))
+
+
+def _row_reading(got, want) -> float:
+    """max |got - want| / the largest |want| of the element's row (the last
+    dim), or the tensor's mean |want| where that is larger (a row of zeros,
+    as dq's first under causal, is held to the tensor's scale)."""
+    g, w = got.detach().float(), want.detach().float()
+    row = w.abs().amax(dim=-1, keepdim=True).clamp_min(float(w.abs().mean()))
+    return float(((g - w).abs() / row).max())
+
+
+@contextlib.contextmanager
+def _planted_ring_fault(delta):
+    """The ring with one fault planted in it (nothing on disk changes):
+    one block's lse off by ``delta`` in its first merge of two blocks and
+    in its first backward step off the diagonal."""
+    import importlib
+    from unittest import mock
+
+    # the package exports a function of the module's name
+    RA = importlib.import_module(
+        "deeplearning4j_torch.parallel.ring_attention")
+
+    merge, backward = RA.merge, RA.ring_step_backward
+    done = {"fwd": False, "bwd": False}
+
+    def bad_merge(state, o_i, lse_i):
+        if state[0] is not None and not done["fwd"]:
+            done["fwd"] = True
+            lse_i = lse_i + delta
+        return merge(state, o_i, lse_i)
+
+    def bad_backward(q, k, v, do, lse, delta_, q_block, k_block, **kw):
+        if q_block > k_block or (q_block < k_block and not kw["causal"]):
+            if not done["bwd"]:
+                done["bwd"] = True
+                lse = lse + delta
+        return backward(q, k, v, do, lse, delta_, q_block, k_block, **kw)
+
+    with mock.patch.object(RA, "merge", bad_merge), \
+            mock.patch.object(RA, "ring_step_backward", bad_backward):
+        yield done
+
+
+def tp_ring_kernels(where, flash_attention, reference_attention,
+                    ring_attention_blocks, launches, add_since,
+                    dev="cuda"):
+    """The ring's schedule over RING_N blocks in one process at the
+    full-width attention shape, f32 and bf16, causal and not: output and
+    dq, dk, dv against one flash_attention call over the sequence and the
+    dense reference, element by element against the row's scale
+    (``_row_reading``); the same readings of the ring with a planted fault
+    (``_planted_ring_fault``) must exceed the limits. K1,
+    K2, K3 launches counted (n(n+1)/2 causal, n^2 not); forward +
+    backward timed beside the call's."""
+    B, H = TP_SHAPE["B"], TP_SHAPE["H"]
+    D = TP_SHAPE["d"] // H
+    T = RING_N * RING_BLOCK
+    rows = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_f, tol_r = ((RING_F32_TOL, RING_F32_DENSE_TOL)
+                        if dtype == torch.float32
+                        else (RING_BF16_TOL, RING_BF16_DENSE_TOL))
+        g = torch.Generator(device=dev).manual_seed(0)
+        q, k, v, cot = (torch.randn((B, T, H, D), generator=g,
+                                    device=dev).to(dtype)
+                        for _ in range(4))
+        for causal in (True, False):
+            want = RING_N * (RING_N + 1) // 2 if causal else RING_N ** 2
+            what = f"{str(dtype)[6:]} {'causal' if causal else 'full'}"
+
+            def fwd_bwd(fn, ins):
+                o = fn(*ins)
+                (o.float() * cot.float()).sum().backward()
+                return o
+
+            def outs(fn, cast=torch.clone):
+                a = [cast(t).requires_grad_() for t in (q, k, v)]
+                o = fwd_bwd(fn, a)
+                return [o.detach()] + [t.grad for t in a]
+
+            ring = lambda *a: ring_attention_blocks(  # noqa: E731
+                *a, RING_N, causal=causal)
+            flash = lambda *a: flash_attention(*a, causal=causal)  # noqa: E731
+            before = launches()
+            got = outs(ring)
+            torch.cuda.synchronize()
+            n = add_since(before)
+            check(tuple(n[k_] for k_ in ("K1", "K2", "K3")) == (want,) * 3,
+                  f"[tp_sp] ring {what}: launches K1, K2, K3 "
+                  f"{[n[k_] for k_ in ('K1', 'K2', 'K3')]}, want {want}")
+            f = outs(flash)
+            r = outs(lambda *t: reference_attention(*t, causal=causal),
+                     cast=lambda t: t.to(torch.float32, copy=True))
+            names = ("o", "dq", "dk", "dv")
+            errs = {}
+            for name, x_, y_, z_ in zip(names, got, f, r):
+                errs[name] = (_row_reading(x_, y_), _row_reading(x_, z_),
+                              _row_reading(y_, z_))
+                check(errs[name][0] <= tol_f,
+                      f"[tp_sp] ring {what} {name}: {errs[name][0]:.3g} of "
+                      f"the row's largest off one flash call (limit "
+                      f"{tol_f:.3g})")
+                check(errs[name][1] <= tol_r,
+                      f"[tp_sp] ring {what} {name}: {errs[name][1]:.3g} of "
+                      f"the row's largest off the dense reference (limit "
+                      f"{tol_r:.3g})")
+            with _planted_ring_fault(RING_FAULT) as planted:
+                bad = outs(ring)
+            check(planted["fwd"] and planted["bwd"],
+                  f"[tp_sp] ring {what}: the planted fault did not fire")
+            fault = {name: (_row_reading(x_, y_), _row_reading(x_, z_))
+                     for name, x_, y_, z_ in zip(names, bad, f, r)}
+            for name, e in fault.items():
+                check(e[0] > tol_f and e[1] > tol_r,
+                      f"[tp_sp] ring {what} {name}: a planted fault reads "
+                      f"{e[0]:.3g} / {e[1]:.3g}, within the limits {tol_f:.3g}"
+                      f" / {tol_r:.3g}")
+            del bad
+            del got, f, r
+            ring_ms = time_ms(lambda: fwd_bwd(ring, [
+                t.clone().requires_grad_() for t in (q, k, v)]), reps=5)
+            flash_ms = time_ms(lambda: fwd_bwd(flash, [
+                t.clone().requires_grad_() for t in (q, k, v)]), reps=5)
+            rows[what] = (ring_ms, flash_ms, errs, fault)
+            print(f"[tp_sp] ({where}) ring {what}, {RING_N} blocks of "
+                  f"{RING_BLOCK} at B={B} T={T} H={H} D={D}: launches K1, K2, "
+                  f"K3 {want} each; forward + backward {ring_ms:.3f} ms "
+                  f"against one flash_attention call's {flash_ms:.3f} ms; "
+                  f"max |err| / row's largest, ring vs flash (limit "
+                  f"{tol_f:.3g}) / ring vs dense (limit {tol_r:.3g}) / flash "
+                  f"vs dense: " + ", ".join(
+                      f"{n_} {e[0]:.3g} / {e[1]:.3g} / {e[2]:.3g}"
+                      for n_, e in errs.items())
+                  + f"; planted fault (one block's lse + {RING_FAULT:.3g}) vs "
+                  "flash / vs dense: " + ", ".join(
+                      f"{n_} {e[0]:.3g} / {e[1]:.3g}"
+                      for n_, e in fault.items()))
+    return rows
+
+
+def tp_pipeline(where, L, stack_stage_params, to_microbatches,
+                from_microbatches, pipeline_apply, launches, add_since):
+    """pipeline_apply over a pipe axis of 1 (its own world-1 mesh) with
+    PIPE_M microbatches of one full-width TransformerEncoderBlock
+    (flash=True, f32): output bit-equal to the block on each microbatch in
+    turn, gradients within PIPE_TOL; K1 2 x PIPE_M (forward and the
+    backward's re-materialization), K2 and K3 PIPE_M."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+    from deeplearning4j_torch.parallel import make_mesh
+
+    mesh = make_mesh({"pipe": 1})
+    T, d = TP_SHAPE["T"], TP_SHAPE["d"]
+    blk = L.TransformerEncoderBlock(num_heads=TP_SHAPE["H"], causal=True,
+                                    flash=True)
+    g = torch.Generator(device=mesh.device).manual_seed(0)
+    p, _ = blk.init(g, (T, d), device=mesh.device)
+    x = torch.randn((PIPE_M, T, d), generator=g, device=mesh.device)
+
+    def stage(sp, h):
+        return blk.apply(sp, {}, h, training=False)[0]
+
+    stacked = stack_stage_params([p])
+    leaves = tree_leaves(stacked)
+    for t in leaves:
+        t.requires_grad_()
+    xp = x.clone().requires_grad_()
+    torch.cuda.reset_peak_memory_stats()
+    before = launches()
+    t0 = time.perf_counter()
+    out = from_microbatches(pipeline_apply(stage, stacked,
+                                           to_microbatches(xp, PIPE_M), mesh))
+    (out.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    pipe_s = time.perf_counter() - t0
+    got = add_since(before)
+    peak = torch.cuda.max_memory_allocated()
+    check((got["K1"], got["K2"], got["K3"]) == (2 * PIPE_M, PIPE_M, PIPE_M),
+          f"[tp_sp] pipeline: launches K1, K2, K3 "
+          f"{[got[k] for k in ('K1', 'K2', 'K3')]}, want {2 * PIPE_M}, "
+          f"{PIPE_M}, {PIPE_M}")
+    ref_p = tree_unflatten(p, [t.detach().clone().requires_grad_()
+                               for t in tree_leaves(p)])
+    xr = x.clone().requires_grad_()
+    ref = torch.cat([stage(ref_p, xr[i:i + 1]) for i in range(PIPE_M)])
+    (ref.float() ** 2).sum().backward()
+    check(torch.equal(out, ref), f"[tp_sp] pipeline output "
+          f"{float((out - ref).abs().max()):.3g} off the block in turn")
+    gaps = [float((a.grad[0] - b.grad).abs().max())
+            / max(float(b.grad.abs().max()), 1e-30)
+            for a, b in zip(leaves, tree_leaves(ref_p))]
+    gaps.append(float((xp.grad - xr.grad).abs().max())
+                / max(float(xr.grad.abs().max()), 1e-30))
+    check(max(gaps) <= PIPE_TOL, f"[tp_sp] pipeline gradients {max(gaps):.3g}"
+          f" off the block in turn (limit {PIPE_TOL})")
+    print(f"[tp_sp] ({where}) pipeline_apply over pipe 1, {PIPE_M} "
+          f"microbatches of (1, {T}, {d}) through one "
+          f"TransformerEncoderBlock(flash, {TP_SHAPE['H']} heads, f32): "
+          f"output bit-equal "
+          f"to the block in turn, gradients max {max(gaps):.3g} of each "
+          f"leaf's largest; K1 {got['K1']}, K2 {got['K2']}, K3 {got['K3']}; "
+          f"forward + backward {pipe_s:.3f} s (first call), peak allocated "
+          f"{peak / 2**30:.2f} GiB")
 
 
 def phase_grad_flash_vs_dense():
@@ -8832,8 +9438,9 @@ def main() -> int:
     finally:
         shutil.rmtree(aot_dir, ignore_errors=True)
     recovery_counts = phase_recovery()
-    # last: the only phase that makes a process group
+    # last: the two phases that make a process group, one after the other
     par_counts = phase_parallel()
+    tp_counts, _ = phase_tp_sp()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -8891,6 +9498,11 @@ def main() -> int:
         # data parallelism at world 1: Trainer and every wrapper mode's
         # fits, MultiHostTrainer's, ParallelInference's batches
         row["launches_by_path"]["parallel"] = par_counts[key]
+        # tensor, sequence and pipeline parallelism at world 1: the rules
+        # runs, MultiHostTrainer's evaluate, sharded_lm_step's step, the
+        # ring's schedule over 4 blocks and the pipeline (the reference
+        # calls they are held against excluded)
+        row["launches_by_path"]["tp_sp"] = tp_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

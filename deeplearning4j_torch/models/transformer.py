@@ -1,6 +1,7 @@
-"""Transformer models — counterpart of ``BertBase`` and ``CausalLM`` in
-``deeplearning4j_tpu/models/transformer.py``: the same layer stacks and
-updaters, so params, configs and zips cross between the packages."""
+"""Transformer models — counterpart of ``BertBase``, ``CausalLM`` and
+``sharded_lm_step`` in ``deeplearning4j_tpu/models/transformer.py``: the
+same layer stacks and updaters, so params, configs and zips cross between
+the packages."""
 
 from __future__ import annotations
 
@@ -109,3 +110,35 @@ class CausalLM(ZooModel):
         b.layer(L.RnnOutput(n_out=self.vocab, activation="softmax",
                             loss="mcxent"))
         return b.build()
+
+
+def sharded_lm_step(model: Sequential, mesh, tx):
+    """A dp x tp x sp train step for a language model over ``mesh``: params
+    sharded per ``TRANSFORMER_RULES`` over ``model``, batches over
+    ``data``, sequences over ``seq``. A thin wrapper over the one sharding
+    API (``Trainer(mesh=, rules=TRANSFORMER_RULES)``, whose machinery it
+    uses). Returns ``(step, params, opt_state, place_batch)``:
+    ``step(params, opt_state, tokens, targets, rng=None) -> (params,
+    opt_state, loss)`` updates this rank's shards in place (the loss is
+    the global batch's, a 0-d device tensor); ``place_batch(tokens,
+    targets)`` gives this rank's block of a global batch. ``step.trainer``
+    is the trainer underneath (``full_params()`` gathers the shards)."""
+    if model.params is None:
+        raise ValueError("init() the model first")
+    from ..parallel.sharding import TRANSFORMER_RULES
+    from ..train.trainer import Trainer
+
+    trainer = Trainer(model, updater=tx, mesh=mesh, rules=TRANSFORMER_RULES)
+
+    def step(params, opt_state, tokens, targets, rng=None):
+        params, opt_state, _, loss = trainer.step(
+            params, opt_state, {}, tokens, targets,
+            trainer._gen if rng is None else rng)
+        return params, opt_state, loss
+
+    def place_batch(tokens, targets):
+        x, y, _, _ = trainer._rank_batch((tokens, targets, None, None))
+        return x, y
+
+    step.trainer = trainer
+    return step, trainer.params, trainer.opt_state, place_batch

@@ -16,6 +16,7 @@ JSON: a layer config written by either package loads in the other.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple, Type
@@ -27,6 +28,15 @@ from ..ops.regularization import apply_dropout_config
 Params = Dict[str, Any]
 State = Dict[str, Any]
 Shape = Tuple[int, ...]
+
+# The mesh of the sharded step being run, for mesh-aware layers (ring
+# attention, tensor-parallel blocks, learned positions and rope at global
+# positions): ``parallel.sharding.MeshContext`` sets it while a sharded
+# step runs (the reference sets its Mesh for the duration of the trace).
+# A ContextVar, so concurrent steps over different meshes cannot
+# cross-apply.
+ACTIVE_MESH: "contextvars.ContextVar" = contextvars.ContextVar(
+    "dl4j_torch_active_mesh", default=None)
 
 LAYER_REGISTRY: Dict[str, Type["Layer"]] = {}
 

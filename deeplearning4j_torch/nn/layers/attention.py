@@ -10,8 +10,16 @@ the hand-written backward kernels). Attention dropout in training routes
 to the dense path, as in the reference, which drops attention weights
 there; the block's ``dropout_rate`` drops its MLP branch. The kernels
 never see dropout.
-``ring=True`` behaves as the reference does outside a sequence-parallel
-trace: flash or dense.
+``ring=True`` routes as the reference does: when the layer runs on a
+sequence block of a sharded step (``ACTIVE_MESH``'s scope, set by
+``parallel.sharding.MeshContext``) with no mask, no attention dropout and
+no window, attention is the ring over the ``seq`` group
+(``parallel/ring_attention.py``, on this rank's heads under tensor
+parallelism); otherwise flash or dense. Attention on a sequence block that
+cannot take the ring gathers q, k and v over ``seq`` and keeps its
+block's queries. Rope and learned positions take global positions there
+(block offset + local index). Under tensor parallelism (the scope's model
+group) the layer runs Megatron's layout: see ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ import torch.utils.checkpoint
 
 from ...ops import activations, initializers, regularization
 from ...ops.flash_attention import flash_attention
-from ..api import Layer, register_layer, rewinding
+from ..api import ACTIVE_MESH, Layer, register_layer, rewinding
 from .norm import layer_norm
 
 
@@ -67,6 +75,12 @@ def rope_rotate(x, positions, base: float = 10000.0):
     x2 = x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
                      dim=-1).to(x.dtype)
+
+
+def _scope():
+    """The sharded step's scope for the layer being run, or None."""
+    ctx = ACTIVE_MESH.get()
+    return None if ctx is None else ctx.scope
 
 
 def _validate_window(causal: bool, window: Optional[int]) -> None:
@@ -123,29 +137,82 @@ class MultiHeadAttention(Layer):
                 "b_o": torch.zeros((d,), dtype=dtype, device=device)}, {}
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        return self._forward(params, x, training, rng, mask, _scope()), \
+            state, mask
+
+    def _forward(self, params, x, training, rng, mask, scope):
+        """The layer on (B, T, D) ``x`` under ``scope`` (None outside a
+        sharded step; see the module docstring)."""
         _validate_window(self.causal, self.window)
         B, T, D = x.shape
         H, Hkv = self.num_heads, self.kv_heads
         hd = D // H
-        qkv = x @ params["w_qkv"] + params["b_qkv"]
+        tp = scope.tp_group if scope is not None else None
+        if tp is not None:  # column-parallel projection, gathered after it
+            from ...parallel.collectives import copy_to, gather_sum
+
+            qkv = copy_to(x, tp) @ params["w_qkv"] + params["b_qkv"]
+            qkv = gather_sum(qkv, tp, -1)
+        else:
+            qkv = x @ params["w_qkv"] + params["b_qkv"]
         q, k, v = torch.split(qkv, [D, Hkv * hd, Hkv * hd], dim=-1)
         q = q.reshape(B, T, H, hd)
         k = k.reshape(B, T, Hkv, hd)
         v = v.reshape(B, T, Hkv, hd)
         if self.rope:
             pos = torch.arange(T, device=x.device)
+            if scope is not None and scope.seq:
+                pos = pos + scope.offset  # global positions of the block
             q = rope_rotate(q, pos, self.rope_base)
             k = rope_rotate(k, pos, self.rope_base)
         if Hkv != H:
             # each KV head serves H // Hkv consecutive query heads
             k = k.repeat_interleave(H // Hkv, dim=2)
             v = v.repeat_interleave(H // Hkv, dim=2)
+        heads = None
+        if tp is not None and H % scope.tp_size == 0:  # this rank's heads
+            n = H // scope.tp_size
+            heads = slice(scope.tp_index * n, (scope.tp_index + 1) * n)
+            q, k, v = q[:, :, heads], k[:, :, heads], v[:, :, heads]
         drop = self.attn_dropout if (training and rng is not None) else 0.0
+        y = self._attend(q, k, v, mask, drop, rng, scope)
+        y = y.reshape(B, T, -1)
+        if tp is None:
+            return y @ params["w_o"] + params["b_o"]
+        from ...parallel.collectives import reduce_from
+
+        if heads is None:  # every head here: this rank's rows of w_o
+            rows = D // scope.tp_size
+            y = y[..., scope.tp_index * rows:(scope.tp_index + 1) * rows]
+        return reduce_from(y @ params["w_o"], tp) + params["b_o"]
+
+    def _attend(self, q, k, v, mask, drop, rng, scope):
+        """(B, T, h, hd) attention by the layer's route: the ring or a
+        gather over ``seq`` on a sequence block, else flash or dense."""
         if self.ring and self.window is not None:
             warnings.warn(
                 "ring=True is disabled because window= is set: ring "
                 "attention computes full causal attention, so the window "
-                "routes through flash/dense instead.", stacklevel=2)
+                "routes through flash/dense instead.", stacklevel=3)
+        if scope is None or not scope.seq:
+            return self._local(q, k, v, mask, drop, rng)
+        if self.ring and mask is None and drop == 0.0 and self.window is None:
+            from ...parallel.ring_attention import ring_attention_local
+
+            return ring_attention_local(q, k, v, group=scope.seq_group,
+                                        causal=self.causal)
+        from ...parallel.collectives import all_gather_dim, gather_sum
+
+        T = q.shape[1]
+        q, k, v = (gather_sum(t, scope.seq_group, 1) for t in (q, k, v))
+        if mask is not None:
+            mask = all_gather_dim(mask, scope.seq_group, 1)
+        y = self._local(q, k, v, mask, drop, rng)
+        return y[:, scope.offset:scope.offset + T]
+
+    def _local(self, q, k, v, mask, drop, rng):
+        """Flash or dense attention over the whole sequence held here."""
+        T = q.shape[1]
         if self.flash and drop == 0.0 and (mask is None or mask.ndim == 2):
             if mask is not None and self.ragged:
                 y = flash_attention(q, k, v, causal=self.causal,
@@ -157,7 +224,7 @@ class MultiHeadAttention(Layer):
         else:
             attn_mask = None
             if self.causal:
-                pos = torch.arange(T, device=x.device)
+                pos = torch.arange(T, device=q.device)
                 band = pos[:, None] >= pos[None, :]
                 if self.window is not None:
                     band = band & (pos[:, None] - pos[None, :] < self.window)
@@ -167,8 +234,7 @@ class MultiHeadAttention(Layer):
                 attn_mask = key_mask if attn_mask is None else attn_mask & key_mask
             y = dot_product_attention(q, k, v, mask=attn_mask,
                                       dropout_rate=drop, dropout_rng=rng)
-        y = y.reshape(B, T, D) @ params["w_o"] + params["b_o"]
-        return y, state, mask
+        return y
 
 
 @register_layer
@@ -222,25 +288,33 @@ class TransformerEncoderBlock(Layer):
         }, {}
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
+        scope = _scope()  # read once: a checkpoint recomputes after the step
         if self.remat and torch.is_grad_enabled():
-            body = lambda p, x_: self._body(p, x_, rng, mask, training)
+            body = lambda p, x_: self._body(p, x_, rng, mask, training, scope)
             if training and self.dropout_rate > 0:
                 body = rewinding(body, rng)
             y = torch.utils.checkpoint.checkpoint(body, params, x,
                                                   use_reentrant=False)
         else:
-            y = self._body(params, x, rng, mask, training)
+            y = self._body(params, x, rng, mask, training, scope)
         return y, state, mask
 
-    def _body(self, params, x, rng, mask, training):
+    def _body(self, params, x, rng, mask, training, scope=None):
         h = layer_norm(x, params["ln1_g"], params["ln1_b"])
-        a, _, _ = self._mha().apply(params["attn"], {}, h, training=training,
-                                    rng=rng, mask=mask)
+        a = self._mha()._forward(params["attn"], h, training, rng, mask, scope)
         x = x + a
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         act = activations.get(self.activation)
-        m = act(h @ params["w_up"] + params["b_up"]) @ params["w_down"] \
-            + params["b_down"]
+        tp = scope.tp_group if scope is not None else None
+        if tp is None:
+            m = act(h @ params["w_up"] + params["b_up"]) @ params["w_down"] \
+                + params["b_down"]
+        else:  # column-parallel w_up, row-parallel w_down, one all-reduce
+            from ...parallel.collectives import copy_to, reduce_from
+
+            m = act(copy_to(h, tp) @ params["w_up"] + params["b_up"]) \
+                @ params["w_down"]
+            m = reduce_from(m, tp) + params["b_down"]
         if training and self.dropout_rate > 0 and rng is not None:
             m = regularization.dropout(rng, m, self.dropout_rate)
         return x + m
@@ -259,4 +333,6 @@ class PositionalEmbedding(Layer):
                                           dtype=dtype, device=device)}, {}
 
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
-        return x + params["pos"][:x.shape[1]], state, mask
+        scope = _scope()
+        start = scope.offset if scope is not None and scope.seq else 0
+        return x + params["pos"][start:start + x.shape[1]], state, mask

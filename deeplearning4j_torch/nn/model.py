@@ -22,6 +22,7 @@ each loss to f32 before summing, as the reference's ``Graph.score`` does.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import json
 from dataclasses import dataclass, field
@@ -91,6 +92,37 @@ def _layer_key(i: int, layer: Layer) -> str:
 
 def _is_loss_layer(layer) -> bool:
     return hasattr(layer, "score")
+
+
+# The layer hook of a sharded step (``parallel.sharding.MeshContext``,
+# installed by ``activation_sharding``): called around every layer of a
+# Sequential or Graph as ``hook(run, layer, key, params, x, mask, index)``
+# with ``run(params, x, mask)`` the plain application, it picks the
+# layer's tensor- and sequence-parallel layout; the reference's hook pins
+# each layer output's sharding. None: no hook. A ContextVar, as in the
+# reference.
+ACTIVATION_CONSTRAINT: "contextvars.ContextVar" = contextvars.ContextVar(
+    "dl4j_torch_activation_constraint", default=None)
+
+
+def _run_layer(cfg: NetConfig, layer: Layer, key, p, s, x, *, training, rng,
+               mask, index):
+    """:func:`_apply_layer`, through the sharded step's hook when one is
+    installed."""
+    hook = ACTIVATION_CONSTRAINT.get()
+    if hook is None:
+        return _apply_layer(cfg, layer, p, s, x, training=training, rng=rng,
+                            mask=mask)
+    return hook(lambda p_, x_, m_: _apply_layer(
+        cfg, layer, p_, s, x_, training=training, rng=rng, mask=m_),
+        layer, key, p, x, mask, index)
+
+
+def _loss_params(key, p):
+    """An output layer's params for its score: gathered by the sharded
+    step's hook where the rules shard them."""
+    hook = ACTIVATION_CONSTRAINT.get()
+    return p if hook is None else hook.params_of(key, p)
 
 
 def _apply_layer(cfg: NetConfig, layer: Layer, p, s, x, *, training, rng,
@@ -313,10 +345,10 @@ class Sequential(TrainableModel):
             p = params.get(k, {})
             if cdt is not None:
                 p = _cast_floats(p, cdt)
-            x, s_out, mask = _apply_layer(self.config, layer, p,
-                                          state.get(k, {}), x,
-                                          training=training, rng=rng,
-                                          mask=mask)
+            x, s_out, mask = _run_layer(self.config, layer, k, p,
+                                        state.get(k, {}), x,
+                                        training=training, rng=rng,
+                                        mask=mask, index=i)
             if s_out:
                 new_state[k] = s_out
         if cdt is not None:
@@ -379,8 +411,8 @@ class Sequential(TrainableModel):
             up_to=len(self.layers) - 1, return_mask=True)
         k = _layer_key(len(self.layers) - 1, out_layer)
         eff_mask = label_mask if label_mask is not None else prop_mask
-        loss = out_layer.score(params.get(k, {}), state.get(k, {}), feats,
-                               labels, mask=eff_mask)
+        loss = out_layer.score(_loss_params(k, params.get(k, {})),
+                               state.get(k, {}), feats, labels, mask=eff_mask)
         aux = (_collect_aux_losses(new_state, loss.device)
                if _has_aux_losses(new_state) else None)
         return [loss], [(labels, eff_mask)], aux, new_state
@@ -697,10 +729,10 @@ class Graph(TrainableModel):
         p = params.get(name, {})
         if cdt is not None:
             p = _cast_floats(p, cdt)
-        y, s_out, m_out = _apply_layer(
-            self.config, node.spec, p, state.get(name, {}),
+        y, s_out, m_out = _run_layer(
+            self.config, node.spec, name, p, state.get(name, {}),
             acts[node.inputs[0]], training=training, rng=rng,
-            mask=act_masks.get(node.inputs[0]))
+            mask=act_masks.get(node.inputs[0]), index=None)
         acts[name], act_masks[name] = y, m_out
         if s_out:
             new_state[name] = s_out
@@ -784,7 +816,8 @@ class Graph(TrainableModel):
                 if cdt is not None:
                     p = _cast_floats(p, cdt)
                 losses.append(node.spec.score(
-                    p, state.get(name, {}), acts[node.inputs[0]],
+                    _loss_params(name, p), state.get(name, {}),
+                    acts[node.inputs[0]],
                     labels[li], mask=lm).float())
                 reductions.append((labels[li], lm))
                 if name not in consumed:  # nothing downstream needs it

@@ -78,7 +78,10 @@ def reduction_mass(labels, mask=None) -> torch.Tensor:
     if not pe_shape:
         pe_shape = (1,)
     if mask is None:
-        return torch.tensor(float(math.prod(pe_shape)), dtype=torch.float32)
+        # a fill on the labels' device: a tensor made on the host would be
+        # copied from pageable memory, which waits for the device's queue
+        return torch.full((), float(math.prod(pe_shape)),
+                          dtype=torch.float32, device=labels.device)
     return _broadcast_mask(mask, pe_shape).sum()
 
 

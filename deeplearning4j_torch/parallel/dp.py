@@ -97,13 +97,20 @@ def n_rows(t) -> int:
 
 
 class DataParallel:
-    """The collectives of data parallelism over ``mesh``'s group."""
+    """The collectives of data parallelism over ``mesh``'s group; with
+    ``reduce_axes`` (tensor and sequence parallelism: every axis but
+    ``model``) the loss masses, the gradients and the net state reduce
+    over that sub-group only, whose ranks hold distinct rows or sequence
+    blocks — the model axis's ranks hold shards of one computation."""
 
-    def __init__(self, mesh):
+    def __init__(self, mesh, reduce_axes: Optional[Sequence[str]] = None):
         self.mesh = mesh
-        self.group = mesh.group
-        self.world = mesh.size
         self.device = mesh.device
+        if reduce_axes is None:
+            self.group, self.world = mesh.group, mesh.size
+        else:
+            self.group = mesh.axis_group(reduce_axes)
+            self.world = dist.get_world_size(self.group)
 
     # --- collectives ---
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
@@ -141,14 +148,14 @@ class DataParallel:
         """Every data block's ``t`` (equal shapes), concatenated along dim
         0 in data order (one rank per block: the one at coordinate 0 of
         every other axis)."""
-        out = all_gather(t, self.group)
+        out = all_gather(t, self.mesh.group)
         return torch.cat([out[r] for r in self.block_ranks()], dim=0)
 
     def block_ranks(self) -> List[int]:
         """The rank that speaks for each data block, in data order."""
         m = self.mesh
         if len(m.shape) == 1:
-            return list(range(self.world))
+            return list(range(m.size))
         ax = m.axis_names.index(DATA_AXIS) if DATA_AXIS in m.shape else None
         sel = [slice(0, 1)] * len(m.shape)
         if ax is not None:
@@ -282,13 +289,17 @@ def zero_layout(shape, n: int) -> Optional[int]:
 class ZeroOne:
     """ZeRO-1 over ``dp``'s data axis for ``tx`` and the params
     ``leaves``: ``init`` the sharded updater state, ``updates`` the full
-    updates from full gradients (None where the updater gives None)."""
+    updates from full gradients (None where the updater gives None). A
+    leaf marked in ``whole`` (one the rules shard over ``model``) keeps
+    its updater state whole."""
 
-    def __init__(self, dp: DataParallel, tx, leaves):
+    def __init__(self, dp: DataParallel, tx, leaves, whole=None):
         self.dp, self.tx = dp, tx
         self.n = dp.mesh.data_size
         self.r = dp.mesh.data_index
-        self.dims = [zero_layout(tuple(p.shape), self.n) for p in leaves]
+        whole = whole or [False] * len(leaves)
+        self.dims = [None if w else zero_layout(tuple(p.shape), self.n)
+                     for p, w in zip(leaves, whole)]
 
     def shards(self, tensors):
         out = []

@@ -8,7 +8,10 @@ stands for device ``r`` of the JAX mesh: its coordinates are ``r``
 unravelled over the mesh's axis sizes in C order, as ``np.reshape`` lays
 the devices out there. A global batch splits into contiguous blocks of
 rows in data-axis order, block ``i`` to the ranks whose data coordinate
-is ``i``.
+is ``i``. ``Mesh.axis_group(axes)`` is the sub-group of the ranks that
+differ only on ``axes`` (the model group of tensor parallelism, the seq
+ring, the data x seq group that reduces gradients), made collectively on
+first use.
 
 :func:`distributed_init` joins the group (NCCL for a CUDA device, gloo for
 the CPU; a failed init raises, it never switches backend), :func:`make_mesh`
@@ -28,13 +31,14 @@ import tempfile
 import traceback
 import uuid
 from datetime import timedelta
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..device import DeviceLike, resolve_device
+from .collectives import global_rank
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -92,6 +96,7 @@ class Mesh:
         self.coords = {k: int(c) for k, c in zip(
             self.axis_names, np.unravel_index(self.rank, self.devices.shape))}
         self.device = torch.device(device)
+        self._groups: Dict[tuple, Any] = {}
 
     @property
     def data_size(self) -> int:
@@ -103,15 +108,45 @@ class Mesh:
         """This rank's block of every global batch."""
         return self.coords.get(DATA_AXIS, 0)
 
-    def rows(self, n: int) -> slice:
-        """This rank's contiguous block of ``n`` global rows, which must
-        divide over the data axis."""
-        k = self.data_size
+    def rows(self, n: int, axis: str = DATA_AXIS) -> slice:
+        """This rank's contiguous block of ``n`` global rows (or entries of
+        any dimension), which must divide over ``axis`` (the data axis by
+        default; one block without such an axis)."""
+        k = self.shape.get(axis, 1)
         if n % k:
-            raise ValueError(f"{n} rows do not divide over the {DATA_AXIS} "
+            raise ValueError(f"{n} rows do not divide over the {axis} "
                              f"axis of size {k}")
         b = n // k
-        return slice(self.data_index * b, (self.data_index + 1) * b)
+        i = self.index(axis)
+        return slice(i * b, (i + 1) * b)
+
+    def axis_group(self, axes: Sequence[str]):
+        """The process group of the ranks that differ from this one only on
+        ``axes`` (a name or names of this mesh's axes), made on first use
+        and kept. Collective: every rank of the mesh makes every such group
+        of the same axes in the same order, so all ranks call this with the
+        same ``axes`` together."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        key = tuple(a for a in self.axis_names if a in axes)
+        if key not in self._groups:
+            moving = [self.axis_names.index(a) for a in key]
+            fixed = [i for i in range(len(self.axis_names))
+                     if i not in moving]
+            order = fixed + moving
+            grid = np.transpose(self.devices, order)
+            n = int(np.prod([self.devices.shape[i] for i in moving] or [1]))
+            mine = None
+            for block in grid.reshape(-1, n):
+                ranks = [global_rank(self.group, int(r)) for r in block]
+                g = dist.new_group(ranks)
+                if self.rank in block:
+                    mine = g
+            self._groups[key] = (mine, n)
+        return self._groups[key][0]
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate on ``axis`` (0 off the mesh)."""
+        return self.coords.get(axis, 0)
 
     def drives(self, device) -> bool:
         """Whether ``device`` is this rank's (``"cuda"`` meaning the
@@ -153,11 +188,9 @@ def make_mesh(axes: Optional[Dict[str, int]] = None, group=None,
 
 def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS):
     """This rank's block of rows of every array in ``batch`` (an array,
-    or a dict, list or tuple of them), as tensors on the mesh's device."""
-    if axis != DATA_AXIS:
-        raise NotImplementedError(
-            f"batches shard over the {DATA_AXIS!r} axis only; sequence "
-            f"sharding is not ported yet (ROADMAP.md, Queue 1: item 19)")
+    or a dict, list or tuple of them), as tensors on the mesh's device:
+    dim 0 split over ``axis``, as the reference's ``PartitionSpec(axis)``
+    places it."""
     if batch is None:
         return None
     if isinstance(batch, dict):
@@ -166,7 +199,7 @@ def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS):
         return type(batch)(shard_batch(v, mesh, axis) for v in batch)
     t = torch.as_tensor(np.asarray(batch) if not torch.is_tensor(batch)
                         else batch)
-    return t[mesh.rows(t.shape[0])].to(mesh.device)
+    return t[mesh.rows(t.shape[0], axis)].to(mesh.device)
 
 
 def replicate(tree, mesh: Mesh):

@@ -20,9 +20,13 @@ stopping's guard, on every rank). ``score_iterator`` and ``evaluate`` are
 distributed too: the loss by loss mass over the shards, the evaluation
 accumulated on each rank's rows and merged on every rank.
 ``save`` is collective (rank 0 writes the model zip with its updater
-state; every rank waits at a barrier), ``restore`` reads it on every
-rank. The orbax checkpoint directory waits for ``train/orbax_io``
-(ROADMAP.md, Queue 1: item 16).
+state, whole params under rules; every rank waits at a barrier),
+``restore`` reads it on every rank (each takes its shards under rules).
+``rules=`` (shared_gradients) trains through ``Trainer(mesh=, rules=)``:
+tensor and sequence parallelism, ``parallel/sharding.py``; each process
+feeds its ``data_shard()``, so tp/sp peers feed the same rows. The orbax
+checkpoint directory waits for ``train/orbax_io`` (ROADMAP.md, Queue 1:
+item 16).
 """
 
 from __future__ import annotations
@@ -39,7 +43,6 @@ from ..train.listeners import (DeferredScoreReporter, PerformanceListener,
                                TrainingListener)
 from ..train.trainer import default_evaluation, unpack_batch
 from .mesh import distributed_init, make_mesh
-from .sharding import NOT_PORTED_RULES
 from .wrapper import ParallelWrapper
 
 
@@ -122,11 +125,9 @@ class MultiHostTrainer:
                              "only applies to mode='shared_gradients'")
         if mode not in ("shared_gradients", "encoded_gradients"):
             raise ValueError(f"Unknown mode '{mode}'")
-        if rules:
-            raise NotImplementedError(
-                f"MultiHostTrainer(rules=) is {NOT_PORTED_RULES}")
-        self.rules = ()
+        self.rules = tuple(rules) if rules else ()
         self._pw = ParallelWrapper(model, self.mesh, mode=mode, seed=seed,
+                                   rules=self.rules,
                                    threshold=threshold,
                                    capacity_frac=capacity_frac,
                                    quantize=quantize,
@@ -172,6 +173,8 @@ class MultiHostTrainer:
 
     def _fit_batch(self, ds):
         x, y, fm, lm = unpack_batch(self.model, ds)
+        if self.rules:  # the seq blocks of this rank's rows
+            x, y, fm, lm = self.trainer._rank_batch((x, y, fm, lm), rows=False)
         if self.mode == "encoded_gradients":
             pw = self._pw
             loss = pw._encoded_step(x, y, fm, lm)
@@ -212,12 +215,14 @@ class MultiHostTrainer:
         """Average loss over an iterator of this rank's shards: each global
         batch's loss reduced by loss mass over the group (lockstep)."""
         self._sync_model()
-        tr, dp = self.trainer, self._pw._dp
+        tr = self.trainer
+        dp = tr._dp if tr._dp is not None else self._pw._dp
         total, n = 0.0, 0
         for ds in iterator:
             x, y, fm, lm = (tr._stage(a) for a in unpack_batch(self.model, ds))
-            total += float(dp.score(self.model, tr.params, tr.state, x, y,
-                                    fm, lm, split=False))
+            with tr._sharded_step(seq_input=False):
+                total += float(dp.score(self.model, tr.params, tr.state, x,
+                                        y, fm, lm, split=False))
             n += 1
         if hasattr(iterator, "reset"):
             iterator.reset()
@@ -227,13 +232,20 @@ class MultiHostTrainer:
                  global_mesh: Optional[bool] = None):
         """Distributed evaluation for any mergeable evaluation: each rank
         forwards its own rows into a fresh instance, the instances' states
-        are all-gathered and merged into ``evaluation`` on every rank
-        (every rank feeds distinct rows)."""
+        are all-gathered and merged into ``evaluation`` on every rank.
+
+        ``global_mesh``: forward through the training step's layout (the
+        rules' shards and their collectives, whole sequences) — needed for
+        rules-sharded params; default: on when ``rules`` are set or a layer
+        is ``ring=True``. Then each process feeds its ``data_shard()`` rows
+        (tp/sp peers the same rows, as for ``fit``) and only one rank per
+        data block is merged. Otherwise (mesh-free: the synced whole
+        params on each rank) every rank feeds distinct rows and every rank
+        is merged."""
         from ..train.trainer import evaluate_model
 
-        if global_mesh:
-            raise NotImplementedError(
-                f"evaluate(global_mesh=True) is {NOT_PORTED_RULES}")
+        if global_mesh is None:
+            global_mesh = self._needs_global_mesh_eval()
         if evaluation is None:
             evaluation = default_evaluation(self.model)
         for attr in ("new_like", "state", "load_state", "merge", "eval"):
@@ -243,14 +255,34 @@ class MultiHostTrainer:
                     f"(new_like/state/load_state/merge); "
                     f"{type(evaluation).__name__} lacks .{attr}")
         self._sync_model()
-        local = evaluate_model(self.model, self.trainer.params,
-                               self.trainer.state, iterator,
-                               evaluation.new_like(), self.trainer._stage)
+        tr = self.trainer
+        if global_mesh:
+            with tr._sharded_step(seq_input=False):
+                local = evaluate_model(self.model, tr.params, tr.state,
+                                       iterator, evaluation.new_like(),
+                                       tr._stage)
+            merged = self._pw._dp.block_ranks()
+        else:
+            local = evaluate_model(self.model, tr.full_params(), tr.state,
+                                   iterator, evaluation.new_like(),
+                                   tr._stage)
+            merged = range(self.mesh.size)
         states = [None] * self.mesh.size
         dist.all_gather_object(states, local.state(), group=self.mesh.group)
-        for st in states:
-            evaluation.merge(evaluation.new_like().load_state(st))
+        for r in merged:
+            evaluation.merge(evaluation.new_like().load_state(states[r]))
         return evaluation
+
+    def _needs_global_mesh_eval(self) -> bool:
+        """Rules-sharded params, or a mesh-aware (``ring=True``) layer."""
+        if self.mode == "encoded_gradients":
+            return False
+        if self.rules:
+            return True
+        from ..train.trainer import _named_layers
+
+        return any(getattr(l, "ring", False)
+                   for _, l in _named_layers(self.model))
 
     def save(self, path: str, normalizer=None):
         """Model zip with the updater state, written by rank 0. Collective:
@@ -259,10 +291,11 @@ class MultiHostTrainer:
         from ..train.serialization import save_model
 
         self._sync_model()
+        params = self.trainer.full_params()
+        opt_state = self.trainer.full_opt_state()
         if self.is_main:
-            save_model(path, self.model, params=self.trainer.params,
-                       state=self.trainer.state,
-                       opt_state=self.trainer.opt_state,
+            save_model(path, self.model, params=params,
+                       state=self.trainer.state, opt_state=opt_state,
                        normalizer=normalizer)
         dist.barrier(group=self.mesh.group)
 
@@ -280,12 +313,21 @@ class MultiHostTrainer:
                 "restore the model zip")
         tr = self.trainer
         _, params, state = load_model(path, device=tr.device)
+        full = tree_leaves(params)
+        if tr._specs is not None:  # this rank's shards of the whole leaves
+            from .sharding import shard_leaf, shard_opt_state, spec_leaves
+
+            specs = spec_leaves(tr._specs)
+            full = [shard_leaf(p, sp, self.mesh) for p, sp in zip(full, specs)]
         with torch.no_grad():
-            for dst, src in zip(tree_leaves(tr.params), tree_leaves(params)):
+            for dst, src in zip(tree_leaves(tr.params), full):
                 dst.copy_(src)
         tr.state = state
-        opt = load_opt_state(path, tr.opt_state, device=tr.device)
+        opt = load_opt_state(path, tr.full_opt_state(), device=tr.device)
         if opt is not None:
+            if tr._specs is not None:
+                opt = shard_opt_state(opt, tree_leaves(params), specs,
+                                      self.mesh)
             tr.opt_state = opt
         if self.mode == "encoded_gradients":
             self._pw.residual.zero_()

@@ -31,8 +31,11 @@ the others at construction.
 
 The loss reported for a step is the global loss in the sync modes and
 the mean of the ranks' losses in the replica modes, on every rank.
-``rules=`` (tensor and sequence parallelism) is not ported yet
-(ROADMAP.md, Queue 1: item 19).
+``rules=`` (tensor and sequence parallelism, ``parallel/sharding.py``)
+applies to the sync modes: the trainer underneath is
+``Trainer(mesh=, rules=)``, and under ``zero_sharded`` the leaves the
+rules shard over ``model`` keep that layout while every other leaf's
+updater state shards over ``data``. The replica modes refuse rules.
 """
 
 from __future__ import annotations
@@ -51,7 +54,6 @@ from ..train.trainer import (Trainer, _score, dp_evaluate,
 from .compression import auto_capacity_frac, threshold_encode, topk_encode
 from .dp import DataParallel, ZeroOne, all_gather
 from .mesh import DATA_AXIS, make_mesh
-from .sharding import NOT_PORTED_RULES
 
 _SYNC_MODES = ("shared_gradients", "zero_sharded")
 
@@ -108,9 +110,6 @@ class ParallelWrapper:
         if self.staleness and mode != "encoded_gradients":
             raise ValueError("staleness applies to mode='encoded_gradients' "
                              "only (sync modes are exact by definition)")
-        if self.rules:
-            raise NotImplementedError(
-                f"ParallelWrapper(rules=) is {NOT_PORTED_RULES}")
         self._dp = DataParallel(self.mesh)
         if mode == "shared_gradients":
             self._init_sync()
@@ -147,7 +146,8 @@ class ParallelWrapper:
     # --- shared_gradients / zero_sharded ---
     def _init_sync(self, shard_opt_state: bool = False):
         self.trainer = Trainer(self.model, self._updater, seed=self.seed,
-                               mesh=self.mesh, grad_accum=self.grad_accum)
+                               mesh=self.mesh, rules=self.rules or None,
+                               grad_accum=self.grad_accum)
         if shard_opt_state:
             if self.model.config.gradient_normalization:
                 raise ValueError(
@@ -156,7 +156,11 @@ class ParallelWrapper:
                     "mode='shared_gradients'")
             tr = self.trainer
             leaves = tree_leaves(tr.params)
-            tr._zero = ZeroOne(self._dp, tr.tx, leaves)
+            # rules + ZeRO-1 compose: a leaf the rules shard over the model
+            # axis keeps that layout, every other leaf's updater state
+            # shards over the data axis
+            tr._zero = ZeroOne(tr._dp, tr.tx, leaves,
+                               whole=getattr(tr, "_sharded", None))
             tr.opt_state = tr._zero.init(leaves)
 
     def _require_pure_data_mesh(self):
@@ -359,6 +363,9 @@ class ParallelWrapper:
                                   for a in (x, y, mask, label_mask))
         tr = self.trainer
         if self.mode in _SYNC_MODES:
+            if self.rules:  # the seq blocks under rules
+                x, y, mask, label_mask = tr._rank_batch(
+                    (x, y, mask, label_mask), rows=False)
             return tr._dispatch_train_step(x, y, mask, label_mask)
         if self.mode == "encoded_gradients":
             loss = self._encoded_step(x, y, mask, label_mask)
@@ -370,7 +377,8 @@ class ParallelWrapper:
     def _sync_model(self):
         """Deliver any pending round, then point the model at this rank's
         params and state (every rank's are the same after a sync mode's
-        step, an averaging or a delivered round)."""
+        step, an averaging or a delivered round; under rules, this rank's
+        shards, as ``Trainer.fit`` leaves them)."""
         if self.mode == "encoded_gradients" and self.staleness:
             self._apply_pending()
             self.pending_idx = torch.zeros_like(self.pending_idx)
@@ -382,7 +390,7 @@ class ParallelWrapper:
         """Evaluation with each global batch's forward split over the
         ranks; every rank evaluates the whole batch."""
         self._sync_model()
-        return dp_evaluate(self._dp, self.model, self.model.params,
+        return dp_evaluate(self._dp, self.model, self.trainer.full_params(),
                            self.model.state, iterator, evaluation,
                            self.trainer._stage)
 
@@ -392,8 +400,9 @@ class ParallelWrapper:
         self._sync_model()
         from ..train.serialization import save_model
 
+        params = self.trainer.full_params()
         if self.mesh.rank == 0:
-            save_model(path, self.model, params=self.model.params,
+            save_model(path, self.model, params=params,
                        state=self.model.state, normalizer=normalizer)
         dist.barrier(group=self.mesh.group)
 
@@ -412,6 +421,7 @@ class ParallelWrapper:
         split over the ranks unpadded, reduced by loss mass, so a ragged
         or masked batch scores exactly as on one device."""
         self._sync_model()
-        return dp_score_iterator(self._dp, self.model, self.model.params,
+        return dp_score_iterator(self._dp, self.model,
+                                 self.trainer.full_params(),
                                  self.model.state, iterator,
                                  self.trainer._stage)

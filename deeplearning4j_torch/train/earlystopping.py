@@ -424,8 +424,13 @@ class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
             if hasattr(w, "_sync_model"):
                 w._sync_model()
 
+            # whole leaves (a collective under rules that shard one: every
+            # rank takes the same decisions, so every rank calls it)
+            whole = (w.trainer.full_params() if hasattr(w, "trainer")
+                     else w.model.params)
+
             class _View:
-                params = w.model.params
+                params = whole
                 state = w.model.state
                 model = w.model
                 device = getattr(w, "device", None)

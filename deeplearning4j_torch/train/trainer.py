@@ -62,9 +62,24 @@ the loss are reduced over the group by loss mass (``parallel.dp``), so
 each step is the global batch's step. ``score_iterator`` and
 ``evaluate`` split each global batch over the ranks the same way, and
 ``save`` writes from rank 0. Under a mesh ``steps_per_execution`` runs
-single steps, and tBPTT is refused. ``rules=`` (tensor and sequence
-parallelism) is not ported yet (ROADMAP.md, Queue 1: item 19) and raises
-``NotImplementedError``.
+single steps, and tBPTT is refused.
+
+``Trainer(model, mesh=, rules=)`` is the one sharding API: tensor and
+sequence parallelism by a rule table (``parallel/sharding.py``). Each
+rank holds its shard of every leaf (``params``; ``full_params()`` gathers
+them), its block of rows and, for a ``Sequential``, its seq block of each
+batch (``_rank_batch``); every step runs under the rules' layer hook
+(``MeshContext``), and the loss and gradients reduce by loss mass over
+every axis but ``model``. ``fit`` leaves the trainer's leaves in
+``model.params``, as the reference leaves its sharded arrays there: this
+rank's shards where the model axis splits a leaf, so no rank holds a
+whole copy beside them (a model axis of 1 shards nothing: they are the
+whole params). Whole leaves are gathered only where they are needed:
+``full_params()`` (a collective; call it on every rank) and ``save``,
+which writes whole params and updater state from rank 0. ``evaluate``
+and ``score_iterator`` split each batch's rows over the data axis and
+run whole sequences. Gradient normalization and
+``pretrain_layer`` are refused under rules that shard a leaf.
 """
 
 from __future__ import annotations
@@ -352,10 +367,6 @@ class Trainer:
     def __init__(self, model: Union[Sequential, Graph],
                  updater: Optional[Transform] = None,
                  seed: int = 0, mesh=None, rules=None, grad_accum: int = 1):
-        if rules is not None:
-            from ..parallel.sharding import NOT_PORTED_RULES
-
-            raise NotImplementedError(f"Trainer(rules=) is {NOT_PORTED_RULES}")
         self.model = model
         self.grad_accum = max(1, int(grad_accum))
         self.tx = updater if updater is not None else build_updater(model)
@@ -374,8 +385,14 @@ class Trainer:
             for p, frozen in zip(tree_leaves(model.params), self._frozen)])
         self.state = model.state if model.state is not None else {}
         self.mesh = mesh
+        self.rules = tuple(rules) if rules is not None else None
         self._dp = None
         self._zero = None  # parallel.dp.ZeroOne: ParallelWrapper's ZeRO-1
+        self._ctx = None   # parallel.sharding.MeshContext under rules=
+        self._specs = None
+        self._sharded = None  # per leaf: sharded over the model axis
+        if mesh is None and rules is not None:
+            raise ValueError("rules= shards params over a mesh: pass mesh=")
         if mesh is not None:
             from ..parallel.dp import DataParallel
             from ..parallel.mesh import replicate
@@ -383,10 +400,13 @@ class Trainer:
             if not mesh.drives(self.device):
                 raise ValueError(f"the model is on {self.device}, the "
                                  f"mesh's rank drives {mesh.device}")
-            self._dp = DataParallel(mesh)
             # one program: every rank starts from rank 0's params and state
             replicate(self.params, mesh)
             self.state = replicate(self.state, mesh)
+            if self.rules is None:
+                self._dp = DataParallel(mesh)
+            else:
+                self._init_rules()
         self.opt_state = self.tx.init(tree_leaves(self.params))
         self.iteration = 0
         self.epoch = 0
@@ -400,6 +420,99 @@ class Trainer:
         self._graphs: Dict[tuple, _Captured] = {}
         self._graph_stream = None
         self._static = None
+
+    def _init_rules(self) -> None:
+        """Tensor and sequence parallelism (``parallel/sharding.py``): each
+        leaf held as this rank's shard under the rules (a view where the
+        shard is the whole leaf), the layer hook of a ``MeshContext``, and
+        the gradients reduced over every axis but ``model``."""
+        from ..parallel.dp import DataParallel
+        from ..parallel.mesh import MODEL_AXIS
+        from ..parallel.sharding import (MeshContext, check_specs, shard_leaf,
+                                         sharded_dim, sharding_tree,
+                                         spec_leaves)
+
+        mesh = self.mesh
+        self._specs = sharding_tree(self.params, mesh, self.rules)
+        flat = spec_leaves(self._specs)
+        check_specs(self._specs)
+        self._sharded = [sharded_dim(sp) is not None for sp in flat]
+        if any(self._sharded) and self.model.config.gradient_normalization:
+            raise ValueError(
+                "gradient normalization needs whole leaves; rules= shards "
+                "some over the model axis: train without gradient "
+                "normalization or with rules that replicate every leaf")
+        self.params = upd.tree_unflatten(self.params, [
+            shard_leaf(p.detach(), sp, mesh).contiguous().requires_grad_(
+                p.requires_grad)
+            for p, sp in zip(tree_leaves(self.params), flat)])
+        self._dp = DataParallel(mesh, [a for a in mesh.axis_names
+                                       if a != MODEL_AXIS])
+        self._ctx = MeshContext(mesh, self._specs)
+
+    def _rank_batch(self, batch, rows: bool = True):
+        """This rank's part of one batch ``(x, y, mask, label_mask)``: its
+        block of rows (``rows``: the batch is global; otherwise it is this
+        rank's shard already) and, under rules for a ``Sequential``, its
+        seq block of every array that ``batch_sharding`` puts over ``seq``
+        — a mask with the features or labels it masks. Sets the step's
+        ``seq_input``."""
+        from ..parallel.dp import n_rows, take_rows
+
+        if rows:
+            sl = self.mesh.rows(n_rows(batch[0]))
+            batch = tuple(take_rows(a, sl) for a in batch)
+        if self._ctx is None:
+            return batch
+        x, y, fm, lm = batch
+        self._ctx.seq_input = False
+        if not isinstance(self.model, Sequential) or self._ctx.sp == 1:
+            return batch
+        from ..parallel.mesh import SEQ_AXIS
+        from ..parallel.sharding import batch_sharding
+
+        def cut(a, along=None):
+            if a is None:
+                return None, False
+            spec = batch_sharding(self.mesh, a, batch_axis=None)
+            if along is not None:  # a mask: with what it masks
+                seq = along[1] and _ndim(a) >= 2 \
+                    and a.shape[1] == along[0].shape[1]
+            else:
+                seq = len(spec) > 1 and spec[1] == SEQ_AXIS
+            if not seq:
+                return a, False
+            sl = self.mesh.rows(a.shape[1], SEQ_AXIS)
+            return a[:, sl], True
+
+        x2, x_seq = cut(x)
+        y2, y_seq = cut(y)
+        fm2, _ = cut(fm, (x, x_seq))
+        lm2, _ = cut(lm, (y, y_seq))
+        self._ctx.seq_input = x_seq
+        return x2, y2, fm2, lm2
+
+    def full_params(self):
+        """The whole params: this rank's own under data parallelism or on
+        one device; under rules the shards gathered (a collective over the
+        model axis; none where that axis is 1)."""
+        if self._ctx is None:
+            return self.params
+        from ..parallel.sharding import gather_params
+
+        return gather_params(self.params, self.mesh, self._specs)
+
+    def full_opt_state(self):
+        """The updater state with every leaf that mirrors a sharded param
+        gathered (collective under rules)."""
+        if self._ctx is None:
+            return self.opt_state
+        from ..parallel.sharding import gather_opt_state
+
+        from ..parallel.sharding import spec_leaves
+
+        return gather_opt_state(self.opt_state, tree_leaves(self.params),
+                                spec_leaves(self._specs), self.mesh)
 
     def replace_updater(self, tx: Transform, opt_state) -> None:
         """Train on with ``tx`` from ``opt_state`` (a rollback's
@@ -421,9 +534,10 @@ class Trainer:
         leaves = tree_leaves(params)
         trained = [p for p in leaves if p.requires_grad]
         if self._dp is not None:  # the global batch's loss and gradient
-            loss, new_state, grads = self._dp.loss_and_grads(
-                self.model, params, trained, net_state, x, y, gen, mask,
-                label_mask)
+            with self._sharded_step():
+                loss, new_state, grads = self._dp.loss_and_grads(
+                    self.model, params, trained, net_state, x, y, gen, mask,
+                    label_mask)
         else:
             with torch.enable_grad():
                 loss, new_state = _score(self.model, params, net_state, x,
@@ -534,9 +648,10 @@ class Trainer:
         leaves = tree_leaves(params)
         trained = [p for p in leaves if p.requires_grad]
         if self._dp is not None:  # strided microbatches, mass over the group
-            loss, net_state, grads = self._dp.accum_loss_and_grads(
-                self.model, params, trained, net_state, x, y, gen, mask,
-                label_mask, n)
+            with self._sharded_step():
+                loss, net_state, grads = self._dp.accum_loss_and_grads(
+                    self.model, params, trained, net_state, x, y, gen, mask,
+                    label_mask, n)
             opt_state = self._apply_update(leaves, grads, opt_state)
             return params, opt_state, net_state, loss
         zero = torch.zeros((), dtype=torch.float32, device=self.device)
@@ -572,6 +687,18 @@ class Trainer:
         opt_state = self._apply_update(leaves, [g / w_sum for g in g_sum],
                                        opt_state)
         return params, opt_state, net_state, loss_sum / w_sum
+
+    def _sharded_step(self, seq_input: Optional[bool] = None):
+        """The layer hook of rules= for one step (a no-op context without
+        rules); ``seq_input`` overrides the batch's (False: every rank
+        holds whole sequences, as evaluation does)."""
+        import contextlib
+
+        if self._ctx is None:
+            return contextlib.nullcontext()
+        if seq_input is not None:
+            self._ctx.seq_input = seq_input
+        return self._ctx
 
     def _dispatch_train_step(self, x, y, mask, label_mask):
         """One batch through :meth:`accum_step` when ``grad_accum`` > 1,
@@ -644,11 +771,8 @@ class Trainer:
                 it = tel.wrap_iterator(it)
             for ds in it:
                 batch = unpack_batch(self.model, ds)
-                if self._dp is not None:  # this rank's block of rows
-                    from ..parallel.dp import n_rows, take_rows
-
-                    rows = self.mesh.rows(n_rows(batch[0]))
-                    batch = tuple(take_rows(a, rows) for a in batch)
+                if self._dp is not None:  # this rank's block (and seq block)
+                    batch = self._rank_batch(batch)
                 if use_window and self.iteration > 0 \
                         and not isinstance(ds, MultiDataSet):
                     buf.append((tuple(self._stage(a) for a in batch),
@@ -840,8 +964,9 @@ class Trainer:
         """Average loss over an iterator (model.score(DataSetIterator));
         over a mesh each global batch is split over the ranks."""
         if self._dp is not None:
-            return dp_score_iterator(self._dp, self.model, self.params,
-                                     self.state, iterator, self._stage)
+            with self._sharded_step(seq_input=False):
+                return dp_score_iterator(self._dp, self.model, self.params,
+                                         self.state, iterator, self._stage)
         return score_model(self.model, self.params, self.state, iterator,
                            self._stage)
 
@@ -851,8 +976,10 @@ class Trainer:
         mesh each rank forwards its block and every rank evaluates the
         gathered predictions."""
         if self._dp is not None:
-            return dp_evaluate(self._dp, self.model, self.params, self.state,
-                               iterator, evaluation, self._stage)
+            with self._sharded_step(seq_input=False):
+                return dp_evaluate(self._dp, self.model, self.params,
+                                   self.state, iterator, evaluation,
+                                   self._stage)
         return evaluate_model(self.model, self.params, self.state, iterator,
                               evaluation, self._stage)
 
@@ -868,6 +995,9 @@ class Trainer:
         model = self.model
         if not isinstance(model, Sequential):
             raise TypeError("pretrain_layer needs a Sequential model")
+        if self._ctx is not None:
+            raise ValueError("pretrain_layer trains one layer on one "
+                             "device: call it on a Trainer without rules=")
         layer = model.layers[layer_index]
         if not hasattr(layer, "pretrain_loss"):
             raise TypeError(f"{type(layer).__name__} is not pretrainable")
@@ -904,10 +1034,10 @@ class Trainer:
         """The model zip with params, state and updater state, and the
         data normalizer when given (``normalizer.json``). Over a mesh rank
         0 writes and every rank waits for it (call it on every rank)."""
+        params, opt_state = self.full_params(), self.full_opt_state()
         if self._dp is None or self.mesh.rank == 0:
-            save_model(path, self.model, params=self.params,
-                       state=self.state, opt_state=self.opt_state,
-                       normalizer=normalizer)
+            save_model(path, self.model, params=params, state=self.state,
+                       opt_state=opt_state, normalizer=normalizer)
         if self._dp is not None:
             import torch.distributed as dist
 

@@ -259,5 +259,5 @@ def test_multihost_rejections(ranks):
     err = ranks(2).run(R.multihost_rejects, js, p0)
     assert err == [("ValueError", "grad_accum"),
                    ("ValueError", "Unknown mode"),
-                   ("NotImplementedError", "item 19"),
+                   ("ValueError", "rules"),
                    ("NotImplementedError", "item 16")]

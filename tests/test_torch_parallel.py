@@ -222,10 +222,15 @@ def test_constructor_rejections(ranks, mode, kw, match):
 
 
 def test_rules_name_item_19(ranks):
+    """rules= was refused, naming its queue item, until tensor and
+    sequence parallelism were ported: now the sync modes take a rule table
+    and the replica modes refuse one, as the reference's do."""
     js, p0 = carry(iris_net())
-    err = ranks(2).run(R.wrapper_rejects, js, p0, "shared_gradients",
+    assert ranks(2).run(R.wrapper_rejects, js, p0, "shared_gradients",
+                        {"rules": [(".*", ())]}) is None
+    err = ranks(2).run(R.wrapper_rejects, js, p0, "averaging",
                        {"rules": [(".*", ())]})
-    assert err[0] == "NotImplementedError" and "item 19" in err[1]
+    assert err[0] == "ValueError" and "rules" in err[1]
 
 
 def test_shared_gradients_on_a_data_model_mesh(ranks, iris):
@@ -567,12 +572,14 @@ def test_trainer_data_mesh_matches_reference(ranks, iris):
 
 
 def test_trainer_rules_name_item_19():
+    """Trainer(rules=) trains over a mesh now (tests/test_torch_sharding.py);
+    rules without a mesh have nothing to shard over and are refused."""
     from deeplearning4j_torch.models import CausalLM
     from deeplearning4j_torch.train import Trainer
 
     m = CausalLM(device="cpu", num_layers=1, d_model=16, num_heads=2,
                  vocab=11, input_shape=(8,)).build()
-    with pytest.raises(NotImplementedError, match="item 19"):
+    with pytest.raises(ValueError, match="mesh="):
         Trainer(m, rules=[(".*", ())])
 
 

@@ -334,10 +334,11 @@ def test_parallel_step_names_its_queue_item():
 
 
 def test_mesh_is_still_refused(ref_model):
-    """A data mesh trains now (``parallel/``, item 14's data-parallel
-    half); a mesh with sharding rules is refused, naming item 19."""
-    with pytest.raises(NotImplementedError, match="item 19"):
-        Trainer(_port_model(ref_model), mesh=object(), rules=[(".*", ())])
+    """A data mesh trains (``parallel/``), and so does a mesh with sharding
+    rules (tensor and sequence parallelism); what is still refused is a
+    rule table without a mesh to shard over."""
+    with pytest.raises(ValueError, match="mesh="):
+        Trainer(_port_model(ref_model), rules=[(".*", ())])
 
 
 # --------------------------------------------------------- ProfilerListener

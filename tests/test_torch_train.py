@@ -968,12 +968,13 @@ def test_graph_replays_draw_new_dropout_masks(cuda):
 
 
 # ------------------------------------------------------------ refusals
-@pytest.mark.parametrize("kw", [dict(mesh=object(), rules=[(".*", ())])],
+@pytest.mark.parametrize("kw", [dict(rules=[(".*", ())])],
                          ids=["mesh"])
 def test_trainer_refuses_unported_options(reference_params, kw):
-    """A data mesh trains (``parallel/``); a mesh with sharding rules
-    (tensor and sequence parallelism) is still refused."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A data mesh trains (``parallel/``) and a mesh with sharding rules
+    too (tensor and sequence parallelism); sharding rules without a mesh
+    are refused."""
+    with pytest.raises(ValueError, match="mesh="):
         Trainer(_port_lm(reference_params), **kw)
 
 
@@ -982,7 +983,7 @@ def test_trainer_refuses_unported_options(reference_params, kw):
 def test_fit_refuses_unported_options(reference_params, lm_batch, kw):
     """``fit`` refused ``telemetry=`` until the obs plane was ported; now
     it refuses none of its options: a ``StepTelemetry`` times every step
-    (``rules=`` is still refused, by the Trainer, above)."""
+    (``rules=`` without a mesh is refused, by the Trainer, above)."""
     kw = {k: make() for k, make in kw.items()}
     t = Trainer(_port_lm(reference_params))
     t.fit(ArrayIterator(*lm_batch, batch_size=4), **kw)

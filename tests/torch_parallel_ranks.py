@@ -188,14 +188,16 @@ def multihost_fit(js, params, x, y, gb, epochs, mode="shared_gradients",
 def multihost_rejects(js, params):
     """(error type, the expected phrase if the message has it) for each
     refused MultiHostTrainer: encoded with grad_accum, an unknown mode,
-    rules=, and restoring a directory (an orbax checkpoint)."""
+    rules= with the encoded mode (it replicates whole models), and
+    restoring a directory (an orbax checkpoint)."""
     from deeplearning4j_torch.parallel import MultiHostTrainer
 
     out = []
     for kw, phrase in (({"mode": "encoded_gradients", "grad_accum": 2},
                         "grad_accum"),
                        ({"mode": "averaging"}, "Unknown mode"),
-                       ({"rules": [(".*", ())]}, "item 19")):
+                       ({"rules": [(".*", ())],
+                         "mode": "encoded_gradients"}, "rules")):
         try:
             MultiHostTrainer(build(js, params), mesh=_mesh(), **kw)
             out.append(None)

@@ -412,6 +412,42 @@ last line):
    reference runs excluded) are tallied against the count they must come
    to (``launches_by_path["tp_sp"]``). Quick call: ``python3 -c "import
    chip_smoke as c; c.phase_build(); c.phase_tp_sp()"``.
+22. elastic (run after [recovery], before [parallel]; no process group)
+   — ``ElasticTrainer`` on one card, its replicas ``[cuda:0] * 4``: one
+   plain ``Trainer.fit`` step of the full-width CausalLM at EL_B x EL_T
+   (12 x 256: 12 rows divide by every width 2..4; T cut from 1024 so three
+   widths' graphs fit, reckoned before capture and gated under 90% of the
+   card) for comparison; then the kill drill at full width and depth: a
+   trainer at dp 4, ladder 2..4, warmed (one CUDA graph a width, 0
+   captures after), fit to 3, ``elastic.step:error:scope=w1,times=1``,
+   fit to 6: reaped, resized 4 -> 3 (``worker_death``, 0 < moved <
+   naive) through two atomic checkpoints of 8.8 GB, the pointer at the
+   post-resize triple; a second trainer ``resume``d from it at dp 3 and
+   fit to 6, its params, updater state and last loss bit-equal to the
+   first's; a third restored from the same checkpoint at dp 2 (the read
+   timed) and fit 2 steps. Then on the 2-layer cut: a death on the
+   ``elastic.resize`` seam (raised typed, the pointer at the pre-resize
+   checkpoint, resumed there at dp 4 to step 6), quorum loss at the
+   ladder's floor (``QuorumLostError``, no checkpoint), autoscale growth
+   2 -> 3 from a staged 4x step-time burn. Gated: the resize logs, the
+   pointers, bit-equality, 0 captures after ``warm()``, losses finite
+   (falling in the kill drill), each width's graph capturing 12 (2)
+   launches of K1-K3 a replica and the replays launching 12 (2) x the sum
+   of the widths of the steps run, no other kernel
+   (``launches_by_path["elastic"]``: warm-up steps plus captured x
+   replays). Printed with the card: disk free, step ms a width (the
+   replay, synchronized) beside the plain step, capture seconds and pool
+   bytes a width, peak allocated, resize seconds with moved and naive
+   bytes, checkpoint write and read seconds and GB/s.
+23. moe_ep (last) — the MoE LM of [train_api] (MOE_BLOCKS blocks, d
+   MOE_D, MOE_E experts) on a third world-1 NCCL group with a mesh
+   {expert 1}, its expert leaves placed by EXPERT_RULES: the forward's
+   output, the loss and every gradient bit-equal to the LM without a mesh
+   (every expert collective through the group), then MOE_EP_STEPS steps
+   of ``Trainer(mesh=, rules=EXPERT_RULES)`` bit-equal to ``Trainer``'s.
+   K1-K3 counted (``launches_by_path["moe_ep"]``). Quick call:
+   ``python3 -c "import chip_smoke as c; c.phase_build();
+   c.phase_elastic(); c.phase_moe_ep()"``.
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -426,6 +462,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -9386,6 +9423,563 @@ def phase_recovery():
     return counts
 
 
+# --- [elastic]: ElasticTrainer's drills on the full-width CausalLM ---
+EL_B, EL_T = 12, 256          # 12 rows divide by every width of 2..4; T cut
+                              # from 1024 so three widths' graphs fit
+EL_DP, EL_DP_MIN = 4, 2       # the ladder: start at 4, floor 2
+EL_KILL_AT, EL_STEPS = 3, 6   # fit to 3, kill w1, fit to 6
+EL_KILL = "elastic.step:error:scope=w1,times=1"
+EL_T3_STEPS = 2               # the dp-2 trainer's steps after its restore
+EL_SMALL_LAYERS = 2           # the other drills: [recovery]'s depth cut
+EL_ACT_BYTES = 21 * 2**30 / 4096   # activations a token, read off a
+                                   # Trainer step at 4 x 1024 (bf16, 12
+                                   # layers, d 2048): an upper bound
+
+
+def _el_lm(layers, seed=0):
+    """CausalLM(flash=True) at width 2048 (32 heads, vocab 32000, bf16
+    compute, adamw) at T EL_T with ``layers`` layers."""
+    from deeplearning4j_torch.models import CausalLM
+
+    m = CausalLM(seed=seed, input_shape=(EL_T,), num_layers=layers,
+                 d_model=2048, num_heads=32, vocab=32000, flash=True,
+                 device="cuda").build()
+    m.config.compute_dtype = "bfloat16"
+    m.init(seed=seed)
+    return m
+
+
+def _el_batch(step):
+    """Step ``step``'s global batch: random tokens and labels, one of two
+    batches by the step's parity (a pure function of the step, the replay
+    contract of ElasticTrainer.fit; two batches, so the loss falls)."""
+    rng = np.random.RandomState(7000 + step % 2)
+    x = rng.randint(0, 32000, (EL_B, EL_T)).astype(np.int32)
+    y = rng.randint(0, 32000, (EL_B, EL_T)).astype(np.int32)
+    return x, y
+
+
+def _el_devices(n):
+    return [torch.device("cuda", torch.cuda.current_device())] * n
+
+
+class _ElTally:
+    """What one ElasticTrainer launches, read around its own methods: each
+    width's kernels launched by its eager warm-up step and recorded in its
+    graph's capture (the wrappers count both calls: a capture records the
+    launches its replays make), and each replay with its width and its
+    synchronized time."""
+
+    def __init__(self, t, wrappers):
+        self.eager = collections.Counter()
+        self.captured = {}
+        self.replays = []        # (width, ms)
+        step, run = t._step, t._run
+
+        def counted_step(d, *args, **kw):
+            before = {k: w.launches for k, w in wrappers.items()}
+            out = step(d, *args, **kw)
+            delta = {k: w.launches - before[k] for k, w in wrappers.items()}
+            if torch.cuda.is_current_stream_capturing():
+                self.captured[d] = delta
+            else:
+                self.eager.update(delta)
+            return out
+
+        def timed_run(x, y):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(x, y)
+            torch.cuda.synchronize()
+            self.replays.append((t.dp, 1e3 * (time.perf_counter() - t0)))
+
+        t._step, t._run = counted_step, timed_run
+
+    def launches(self):
+        """Every kernel's launches: the warm-up steps' plus each graph's
+        captured launches times its replays."""
+        out = collections.Counter(self.eager)
+        for d, _ in self.replays:
+            out.update(self.captured[d])
+        return out
+
+    def check(self, layers, what):
+        """Gated: each width's graph records ``layers`` launches of K1-K3
+        for each of its replicas, and so does its warm-up step; the
+        replays' launches are ``layers`` x the widths of the steps run; no
+        other kernel runs."""
+        for d, got in self.captured.items():
+            check(all(got[k] == layers * d for k in ("K1", "K2", "K3")),
+                  f"[elastic] dp {d}'s graph captured {got}: want {layers} "
+                  f"x {d} of K1-K3")
+        widths = sum(d for d, _ in self.replays)
+        got = self.launches()
+        check(all(got[k] - self.eager[k] == layers * widths
+                  for k in ("K1", "K2", "K3")),
+              f"[elastic] {what}: replays launched {got} less the warm-ups' "
+              f"{dict(self.eager)}; want {layers} x {widths} (the widths of "
+              f"{len(self.replays)} steps) of K1-K3")
+        check(self.eager["K1"] == layers * sum(self.captured)
+              and all(v == 0 for k, v in got.items()
+                      if k not in ("K1", "K2", "K3")),
+              f"[elastic] {what}: warm-up launches {dict(self.eager)}, all "
+              f"{dict(got)}")
+
+    def summary(self):
+        """K1's launches as warm-up + captured x replays, for the log."""
+        eager = self.eager["K1"]
+        return f"K1 {eager} + {self.launches()['K1'] - eager} replayed"
+
+    def step_ms(self):
+        """Median replay ms by width."""
+        by = collections.defaultdict(list)
+        for d, ms in self.replays:
+            by[d].append(ms)
+        return {d: statistics.median(v) for d, v in sorted(by.items())}
+
+
+def _el_fit(t, steps, losses):
+    """``t.fit`` one step at a time up to ``steps``, each loss read."""
+    while t.iteration < steps:
+        t.fit(_el_batch, t.iteration + 1)
+        losses.append(t.final_loss())
+
+
+def _el_snapshot(t):
+    """The trainer's params and whole updater state, on the host."""
+    from deeplearning4j_torch.ops.updaters import tree_leaves
+
+    return ([p.detach().cpu() for p in tree_leaves(t.params)],
+            [o.cpu() for o in tree_leaves(t.opt_state)])
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def _el_reckon(n_params):
+    """Bytes each width's graph pool should take (one replica's
+    activations, its gradients, the bf16 copy of the params, the updater's
+    new state and updates for one replica's blocks) and the trainer's
+    static bytes (params, summed gradients, three widths' updater
+    buffers)."""
+    p4 = 4 * n_params
+    pools = {d: EL_ACT_BYTES * EL_B // d * EL_T + p4 + n_params * 2
+             + 3 * p4 // d for d in range(EL_DP_MIN, EL_DP + 1)}
+    static = 2 * p4 + 3 * 2 * p4
+    return pools, static
+
+
+def elastic_plain_step(where):
+    """One plain ``Trainer.fit`` step at EL_B x EL_T on the full-width
+    model (after two warm-up steps): the comparison for the elastic
+    widths' step times."""
+    from deeplearning4j_torch.data import ArrayIterator
+    from deeplearning4j_torch.train import Trainer
+
+    m = _el_lm(12)
+    tr = Trainer(m)
+    x, y = _el_batch(0)
+    tr.fit(ArrayIterator(np.repeat(x, 2, 0), np.repeat(y, 2, 0),
+                         batch_size=EL_B))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.fit(ArrayIterator(x, y, batch_size=EL_B))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[elastic] plain Trainer.fit, 12 x CausalLM at {EL_B} x {EL_T}: "
+          f"one step {ms:.1f} ms, peak {peak / 2**30:.2f} GiB; {where}")
+    del m, tr
+    _release()
+    return ms
+
+
+def elastic_kill_drill(tmp, where, wrappers):
+    """The full-width kill drill (see the module docstring). Returns the
+    launches of its three trainers."""
+    from deeplearning4j_torch.chaos import faults
+    from deeplearning4j_torch.elastic import ElasticTrainer, latest
+    from deeplearning4j_torch.obs.metrics import MetricsRegistry
+    from deeplearning4j_torch.train import orbax_io
+
+    wd = os.path.join(tmp, "kill")
+    print(f"[elastic] disk free under the workdir: "
+          f"{shutil.disk_usage(tmp).free} bytes")
+    m = _el_lm(12)
+    n_params = m.param_count()
+    pools, static = _el_reckon(n_params)
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"[elastic] reckoned before capture: static "
+          f"{static / 2**30:.2f} GiB, pools "
+          + ", ".join(f"dp {d} {b / 2**30:.2f} GiB" for d, b in pools.items())
+          + f"; {(static + sum(pools.values())) / 2**30:.2f} of "
+          f"{total / 2**30:.2f} GiB")
+    check(static + sum(pools.values()) < 0.9 * total,
+          "[elastic] three widths' pools do not fit the card")
+    reg = MetricsRegistry()
+    torch.cuda.reset_peak_memory_stats()
+    t = ElasticTrainer(m, workdir=wd, dp=EL_DP, dp_min=EL_DP_MIN,
+                       devices=_el_devices(EL_DP), seed=0, metrics=reg)
+    tally = _ElTally(t, wrappers)
+    for w in wrappers.values():
+        w.launches = 0
+    t.warm(*_el_batch(0))
+    check(t.trace_count() == 0, "[elastic] captures counted at warm()")
+    losses = []
+    _el_fit(t, EL_KILL_AT, losses)
+    faults.install(faults.FaultPlane(seed=0).inject_spec(EL_KILL))
+    try:
+        _el_fit(t, EL_STEPS, losses)
+    finally:
+        faults.uninstall()
+    peak = torch.cuda.max_memory_allocated()
+    info = latest(wd)
+    log = [{k: r[k] for k in ("step", "from", "to", "cause", "bytes_moved",
+                              "bytes_naive")} for r in t.resizes]
+    check(t.dp == 3 and len(t.resizes) == 1
+          and log[0]["from"] == 4 and log[0]["to"] == 3
+          and log[0]["cause"] == "worker_death"
+          and 0 < log[0]["bytes_moved"] < log[0]["bytes_naive"],
+          f"[elastic] resize log {log}")
+    check(info.dp == 3 and info.cause == "post_resize_worker_death"
+          and info.step == log[0]["step"], f"[elastic] pointer {info}")
+    check(t.trace_count() == 0, f"[elastic] {t.trace_count()} captures "
+          f"after warm()")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"[elastic] losses {losses}")
+    tally.check(12, "kill drill")
+    ckpt = reg.histogram("elastic_checkpoint_seconds", {})
+    ckpt_bytes = _dir_bytes(info.path)
+    resize = t.resizes[0]
+    final, want = t.final_loss(), _el_snapshot(t)
+    print(f"[elastic] 12 x CausalLM ({n_params} params) at {EL_B} x {EL_T}, "
+          f"ladder {EL_DP_MIN}..{EL_DP} on one card: losses "
+          + " ".join(f"{l:.4f}" for l in losses)
+          + f"; resize {log[0]} in {resize['seconds']:.2f} s (two "
+          f"checkpoints); checkpoint {ckpt_bytes} bytes, written "
+          f"{ckpt.count} times in {ckpt.sum:.2f} s "
+          f"({ckpt.count * ckpt_bytes / ckpt.sum / 1e9:.3f} GB/s); "
+          f"captures " + ", ".join(
+              f"dp {d} {c['seconds']:.2f} s pool "
+              f"{c['pool_bytes'] / 2**30:.2f} GiB"
+              for d, c in sorted(t.captures.items()))
+          + f"; step ms " + ", ".join(
+              f"dp {d} {ms:.1f}" for d, ms in tally.step_ms().items())
+          + f"; peak allocated {peak / 2**30:.2f} GiB; launches "
+          f"{tally.summary()}; {where}")
+    launches = tally.launches()
+    del t, m, tally     # the tally's wrappers hold the trainer
+    _release()
+
+    t0 = time.perf_counter()
+    t2 = ElasticTrainer.resume(wd, dp=3, seed=0, devices=_el_devices(EL_DP))
+    resume_s = time.perf_counter() - t0
+    check(t2.iteration == info.step and t2.dp == 3,
+          f"[elastic] resumed at {t2.iteration}, dp {t2.dp}")
+    tally2 = _ElTally(t2, wrappers)
+    losses2 = []
+    _el_fit(t2, EL_STEPS, losses2)
+    check(t2.trace_count() == 0, "[elastic] the resumed trainer captured "
+          "after warm()")
+    got = _el_snapshot(t2)
+    same = t2.final_loss() == final and all(
+        torch.equal(a, b) for a, b in zip(got[0] + got[1], want[0] + want[1]))
+    check(same, "[elastic] the resumed trainer's params and updater state "
+          "are not bit-equal to the uninterrupted run's")
+    tally2.check(12, "resumed trainer")
+    launches.update(tally2.launches())
+    print(f"[elastic] resumed from {os.path.basename(info.path)} at dp 3 in "
+          f"{resume_s:.2f} s (build, warm excluded, and read), "
+          f"{len(losses2)} steps: params, updater state and last loss "
+          f"{final:.6f} bit-equal to the uninterrupted run; step ms "
+          + ", ".join(f"dp {d} {ms:.1f}"
+                      for d, ms in tally2.step_ms().items())
+          + f"; launches {tally2.summary()}")
+    del t2, tally2, got, want
+    _release()
+
+    # a third trainer at dp 2: the read alone, timed, then dp 2's steps
+    m3 = orbax_io.load_model_json(info.path)
+    t3 = ElasticTrainer(m3, workdir=os.path.join(tmp, "dp2"), dp=2,
+                        dp_min=EL_DP_MIN, dp_max=EL_DP,
+                        devices=_el_devices(EL_DP), seed=0)
+    tally3 = _ElTally(t3, wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    orbax_io.restore_trainer(info.path, t3)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    losses3 = []
+    _el_fit(t3, t3.iteration + EL_T3_STEPS, losses3)
+    check(all(np.isfinite(losses3)), f"[elastic] dp 2 losses {losses3}")
+    tally3.check(12, "dp-2 trainer")
+    launches.update(tally3.launches())
+    print(f"[elastic] read {ckpt_bytes} bytes into a dp-2 trainer in "
+          f"{read_s:.2f} s ({ckpt_bytes / read_s / 1e9:.3f} GB/s, the "
+          f"file cache warm from the writes); step ms "
+          + ", ".join(f"dp {d} {ms:.1f}"
+                      for d, ms in tally3.step_ms().items())
+          + f"; launches {tally3.summary()}")
+    del t3, m3, tally3
+    _release()
+    shutil.rmtree(wd, ignore_errors=True)
+    shutil.rmtree(os.path.join(tmp, "dp2"), ignore_errors=True)
+    return launches
+
+
+def elastic_small_drills(tmp, where, wrappers):
+    """The other drills on the 2-layer cut: a death mid-resize resumed at
+    the pre-resize width, quorum loss raised typed, and autoscale growth
+    from a staged step time. Returns their launches."""
+    from deeplearning4j_torch.chaos import faults
+    from deeplearning4j_torch.elastic import (ElasticTrainer,
+                                              QuorumLostError, latest)
+
+    layers = EL_SMALL_LAYERS
+    launches = collections.Counter()
+    # a death on the elastic.resize seam
+    wd = os.path.join(tmp, "mid")
+    t = ElasticTrainer(_el_lm(layers), workdir=wd, dp=EL_DP,
+                       dp_min=EL_DP_MIN, devices=_el_devices(EL_DP), seed=0)
+    tally = _ElTally(t, wrappers)
+    losses = []
+    _el_fit(t, EL_KILL_AT, losses)
+    plane = faults.FaultPlane(seed=0)
+    plane.inject_spec("elastic.step:error:scope=w2,times=1")
+    plane.inject_spec("elastic.resize:error:times=1")
+    faults.install(plane)
+    try:
+        _el_fit(t, EL_STEPS, losses)
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    finally:
+        faults.uninstall()
+    info = latest(wd)
+    check(raised is not None and "elastic.resize" in raised
+          and info.cause == "pre_resize_worker_death" and info.dp == EL_DP
+          and info.step == t.iteration,
+          f"[elastic] mid-resize death: raised {raised}, pointer {info}")
+    tally.check(layers, "mid-resize death")
+    launches.update(tally.launches())
+    del t, tally
+    _release()
+    t = ElasticTrainer.resume(wd, seed=0, devices=_el_devices(EL_DP))
+    check(t.dp == EL_DP and t.iteration == info.step,
+          f"[elastic] resumed at dp {t.dp}, step {t.iteration}")
+    tally = _ElTally(t, wrappers)
+    _el_fit(t, EL_STEPS, losses)
+    check(all(np.isfinite(losses)), f"[elastic] losses {losses}")
+    tally.check(layers, "resumed after the mid-resize death")
+    launches.update(tally.launches())
+    print(f"[elastic] {layers} x CausalLM: death on elastic.resize at step "
+          f"{info.step} raised typed, pointer {info.cause} at dp {info.dp}, "
+          f"resumed there to step {EL_STEPS}: losses "
+          + " ".join(f"{l:.4f}" for l in losses))
+    del t, tally
+    _release()
+    shutil.rmtree(wd, ignore_errors=True)
+
+    # quorum loss: the ladder's floor is its only width
+    wd = os.path.join(tmp, "quorum")
+    t = ElasticTrainer(_el_lm(layers), workdir=wd, dp=EL_DP_MIN,
+                       dp_min=EL_DP_MIN, devices=_el_devices(EL_DP), seed=0)
+    tally = _ElTally(t, wrappers)
+    _el_fit(t, 1, [])
+    faults.install(faults.FaultPlane(seed=0).inject_spec(
+        "elastic.step:error:scope=w0,times=1"))
+    try:
+        _el_fit(t, EL_STEPS, [])
+        quorum = None
+    except QuorumLostError as e:
+        quorum = str(e)
+    finally:
+        faults.uninstall()
+    check(quorum is not None and latest(wd) is None,
+          f"[elastic] quorum loss raised {quorum}")
+    tally.check(layers, "quorum loss")
+    launches.update(tally.launches())
+    print(f"[elastic] quorum loss at step {t.iteration}: {quorum}")
+    del t, tally
+    _release()
+    shutil.rmtree(wd, ignore_errors=True)
+
+    # autoscale growth: every step staged at 4x a 50 ms budget
+    wd = os.path.join(tmp, "grow")
+    t = ElasticTrainer(_el_lm(layers), workdir=wd, dp=EL_DP_MIN,
+                       dp_min=EL_DP_MIN, dp_max=3, devices=_el_devices(EL_DP),
+                       seed=0, step_time_budget_s=0.05)
+    tally = _ElTally(t, wrappers)
+    t.fit(_el_batch, 8, step_time_fn=lambda i: 0.2)
+    log = [(r["step"], r["from"], r["to"], r["cause"]) for r in t.resizes]
+    check(t.dp == 3 and {r["cause"] for r in t.resizes} == {"autoscale"}
+          and t.trace_count() == 0 and np.isfinite(t.final_loss()),
+          f"[elastic] autoscale growth: dp {t.dp}, log {log}")
+    tally.check(layers, "autoscale growth")
+    launches.update(tally.launches())
+    print(f"[elastic] autoscale growth from a staged 4x step-time burn: "
+          f"resizes {log}; step ms " + ", ".join(
+              f"dp {d} {ms:.1f}" for d, ms in tally.step_ms().items())
+          + f" ({layers} layers); {where}")
+    del t, tally
+    _release()
+    shutil.rmtree(wd, ignore_errors=True)
+    return launches
+
+
+def phase_elastic():
+    """[elastic]: ElasticTrainer's kill, reshard and resume drill at full
+    width and depth, and the other drills on the 2-layer cut. Returns
+    every kernel's launches over the phase (K1-K3 only)."""
+    import tempfile
+
+    where = card()
+    t_phase = time.perf_counter()
+    plain_ms = elastic_plain_step(where)
+    wrappers = _kernel_wrappers()
+    tmp = tempfile.mkdtemp()
+    try:
+        launches = elastic_kill_drill(tmp, where, wrappers)
+        launches.update(elastic_small_drills(tmp, where, wrappers))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {k: launches.get(k, 0) for k in wrappers}
+    check(all(counts[k] > 0 for k in ("K1", "K2", "K3")),
+          f"[elastic] launches {counts}")
+    print(f"[elastic] launches {counts} (warm-up steps plus captured x "
+          f"replays); plain step {plain_ms:.1f} ms; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+# --- [moe_ep]: expert-parallel MoE on a world-1 NCCL expert mesh ---
+# the reference's expert placement: an MoE layer's expert leaves over the
+# expert axis on their leading dimension (tests/test_moe.py)
+EXPERT_RULES = ((r"(.*/)?(w_up|b_up|w_down|b_down)", ("expert",)),)
+MOE_EP_STEPS = 2
+
+
+def _moe_lm(device="cuda"):
+    """[train_api]'s MoE LM (MOE_BLOCKS MoETransformerBlocks, d MOE_D,
+    MOE_E experts, top-2, flash), from seed 0."""
+    from deeplearning4j_torch.nn import layers as L
+    from deeplearning4j_torch.nn.model import NetConfig, Sequential
+
+    blocks = [L.MoETransformerBlock(num_heads=MOE_H, num_experts=MOE_E,
+                                    top_k=2, causal=True, flash=True)
+              for _ in range(MOE_BLOCKS)]
+    m = Sequential(NetConfig(seed=0, compute_dtype="bfloat16",
+                             updater={"type": "adam", "learning_rate": 1e-3}),
+                   [L.EmbeddingSequence(n_in=MOE_VOCAB, n_out=MOE_D), *blocks,
+                    L.RnnOutput(n_out=MOE_VOCAB)], (MOE_T,), device=device)
+    m.init(seed=0)
+    return m
+
+
+def phase_moe_ep(device="cuda"):
+    """[moe_ep]: the MoE LM under a world-1 NCCL mesh {expert 1}, its
+    expert leaves placed by EXPERT_RULES: the forward's output, the loss
+    and every gradient bit-equal to the LM without a mesh; then
+    MOE_EP_STEPS steps of ``Trainer(mesh=, rules=EXPERT_RULES)``, params
+    bit-equal to ``Trainer``'s. K1-K3 counted on the mesh runs. Returns
+    them."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from deeplearning4j_torch.ops.updaters import tree_leaves, tree_unflatten
+    from deeplearning4j_torch.parallel import (activation_sharding,
+                                               distributed_init, make_mesh,
+                                               place_params)
+    from deeplearning4j_torch.train import Trainer
+
+    where = card()
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp()
+    check(distributed_init(f"file://{tmp}/store", 1, 0, device=device),
+          "[moe_ep] no process group made")
+    wrappers = _kernel_wrappers()
+    try:
+        mesh = make_mesh({"expert": 1})
+        m = _moe_lm(device)
+        rng = np.random.default_rng(3)
+        xb = torch.from_numpy(rng.integers(0, MOE_VOCAB, (MOE_B, MOE_T))
+                              .astype(np.int32)).to(device)
+        yb = torch.from_numpy(rng.integers(0, MOE_VOCAB, (MOE_B, MOE_T))
+                              .astype(np.int64)).to(device)
+
+        def run(params):
+            leaves = [p.detach().requires_grad_() for p in
+                      tree_leaves(params)]
+            p = tree_unflatten(params, leaves)
+            with torch.no_grad():
+                out, _ = m.forward(p, m.state, xb, training=False)
+            loss, _ = m.score(p, m.state, xb, yb, training=True)
+            return out, loss.detach(), torch.autograd.grad(loss, leaves)
+
+        out_a, loss_a, grads_a = run(m.params)
+        placed = place_params(m.params, mesh, EXPERT_RULES)
+        for w in wrappers.values():
+            w.launches = 0
+        with activation_sharding(mesh):
+            out_b, loss_b, grads_b = run(placed)
+        counts = {k: w.launches for k, w in wrappers.items()}
+        same = (torch.equal(out_a, out_b) and torch.equal(loss_a, loss_b)
+                and all(torch.equal(a, b) for a, b in zip(grads_a, grads_b)))
+        check(same, "[moe_ep] the expert mesh's output, loss or gradients "
+              "differ from the LM's without a mesh")
+        check(counts["K1"] == 2 * MOE_BLOCKS
+              and counts["K2"] == counts["K3"] == MOE_BLOCKS,
+              f"[moe_ep] launches {counts}: want K1 {2 * MOE_BLOCKS} (the "
+              f"forward and the loss's), K2 and K3 {MOE_BLOCKS}")
+        del grads_a, grads_b, placed
+        # Trainer(mesh=, rules=) against Trainer, from the same params
+        from deeplearning4j_torch.data import ArrayIterator
+
+        x_np, y_np = xb.cpu().numpy(), yb.cpu().numpy()
+
+        def batches():
+            return ArrayIterator(np.repeat(x_np, MOE_EP_STEPS, 0),
+                                 np.repeat(y_np, MOE_EP_STEPS, 0),
+                                 batch_size=MOE_B)
+
+        plain = Trainer(_moe_lm(device))
+        plain.fit(batches())
+        before = {k: w.launches for k, w in wrappers.items()}
+        ruled = Trainer(_moe_lm(device), mesh=mesh, rules=EXPERT_RULES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ruled.fit(batches())
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0) / MOE_EP_STEPS
+        fit_counts = {k: w.launches - before[k] for k, w in wrappers.items()}
+        check(all(torch.equal(a, b) for a, b in
+                  zip(tree_leaves(plain.params), tree_leaves(ruled.params))),
+              "[moe_ep] Trainer(mesh=, rules=)'s params differ from "
+              "Trainer's")
+        check(all(fit_counts[k] == MOE_BLOCKS * MOE_EP_STEPS
+                  for k in ("K1", "K2", "K3")),
+              f"[moe_ep] fit launches {fit_counts}")
+        for k, v in fit_counts.items():
+            counts[k] += v
+        print(f"[moe_ep] MoE LM ({MOE_BLOCKS} blocks, d {MOE_D}, {MOE_E} "
+              f"experts, T {MOE_T}, batch {MOE_B}, bf16) on a world-1 NCCL "
+              f"mesh {{expert 1}}: output, loss {float(loss_b):.6f} and "
+              f"every gradient bit-equal to the LM without a mesh; "
+              f"{MOE_EP_STEPS} steps of Trainer(mesh=, rules=) bit-equal to "
+              f"Trainer's, {step_ms:.1f} ms a step; launches {counts}; "
+              f"phase {time.perf_counter() - t_phase:.1f} s; {where}")
+        del m, plain, ruled
+        _release()
+        return counts
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -9438,9 +10032,11 @@ def main() -> int:
     finally:
         shutil.rmtree(aot_dir, ignore_errors=True)
     recovery_counts = phase_recovery()
-    # last: the two phases that make a process group, one after the other
+    elastic_counts = phase_elastic()
+    # last: the phases that make a process group, one after the other
     par_counts = phase_parallel()
     tp_counts, _ = phase_tp_sp()
+    moe_ep_counts = phase_moe_ep()
     k1["launches"] = serve_launches
     k1["launches_by_path"] = {"serve": serve_launches, "train": k1_train,
                               **gen_launches}
@@ -9503,6 +10099,11 @@ def main() -> int:
         # ring's schedule over 4 blocks and the pipeline (the reference
         # calls they are held against excluded)
         row["launches_by_path"]["tp_sp"] = tp_counts[key]
+        # elastic training: the kill drill's three full-width trainers and
+        # the 2-layer drills (warm-up steps plus captured x replays); the
+        # MoE LM on a world-1 expert mesh (its forward, gradient and fit)
+        row["launches_by_path"]["elastic"] = elastic_counts[key]
+        row["launches_by_path"]["moe_ep"] = moe_ep_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -14,6 +14,19 @@ dropped (its output 0; the block's residual carries it). Padding tokens
 take no slot. The GShard load-balancing loss is returned as the layer's
 state ``"aux_loss"`` in training (0 otherwise); ``Sequential.score`` and
 ``Graph.score`` add it to the loss.
+
+**Expert parallelism.** Under a sharded step whose mesh has an ``expert``
+axis (``ACTIVE_MESH``, ``parallel/sharding.py``), each rank holds E/ep
+experts (``w_up``, ``b_up``, ``w_down``, ``b_down`` placed over that axis
+on their leading dimension, as the reference places them) while the
+tokens and the router are replicated: every rank routes all tokens,
+computes its own experts' slots and their share of the combine, and the
+shares are summed over the expert group (``reduce_from``: all-reduce
+forward, identity backward). The tokens enter the experts, and the
+combine weights enter their share, through ``copy_to`` (identity
+forward, all-reduce backward), so the router's and the input's gradients
+are whole on every rank. The aux loss comes from the replicated routing,
+as on one device.
 """
 
 from __future__ import annotations
@@ -21,9 +34,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 
 from ...ops import activations, initializers
-from ..api import Layer, Shape, register_layer
+from ..api import ACTIVE_MESH, Layer, Shape, register_layer
 from .attention import MultiHeadAttention
 from .norm import layer_norm
 
@@ -100,6 +114,23 @@ class MoE(Layer):
             counts = counts + torch.sum(onehot_e, dim=0, dtype=torch.int32)
         return probs, gate_idx, dispatch, combine
 
+    def _expert_group(self, params):
+        """The expert group of the active mesh (None outside one, or when
+        its mesh has no expert axis); raises unless this rank holds its
+        E/ep experts."""
+        ctx = ACTIVE_MESH.get()
+        group = getattr(ctx, "expert_group", None)
+        if group is None:
+            return None
+        ep = dist.get_world_size(group)
+        held = params["w_up"].shape[0]
+        if self.num_experts % ep or held * ep != self.num_experts:
+            raise ValueError(
+                f"MoE under an expert axis of {ep}: this rank holds {held} of "
+                f"{self.num_experts} experts; place w_up, b_up, w_down and "
+                f"b_down over the expert axis (E/ep each)")
+        return group
+
     def apply(self, params, state, x, *, training=False, rng=None, mask=None):
         orig_shape = x.shape
         xf = x.reshape(-1, x.shape[-1])  # (N, D) token view
@@ -109,13 +140,28 @@ class MoE(Layer):
             valid_tok = mask.reshape(-1).to(torch.float32)
         probs, gate_idx, dispatch, combine = self.route(params, xf, valid_tok)
         cdt = x.dtype
-        x_e = torch.einsum("nec,nd->ecd", dispatch.to(cdt), xf)
+        group = self._expert_group(params)
+        xin = xf
+        if group is not None:  # this rank's experts: a slice of the routing
+            from ...parallel.collectives import copy_to
+
+            ep = dist.get_world_size(group)
+            n_local = e // ep
+            e0 = dist.get_rank(group) * n_local
+            combine = copy_to(combine, group)[:, e0:e0 + n_local]
+            dispatch = dispatch[:, e0:e0 + n_local]
+            xin = copy_to(xf, group)
+        x_e = torch.einsum("nec,nd->ecd", dispatch.to(cdt), xin)
         h = activations.get(self.activation)(
             torch.einsum("ecd,edh->ech", x_e, params["w_up"])
             + params["b_up"][:, None, :])
         y_e = (torch.einsum("ech,ehd->ecd", h, params["w_down"])
                + params["b_down"][:, None, :])
         y = torch.einsum("nec,ecd->nd", combine.to(cdt), y_e)
+        if group is not None:
+            from ...parallel.collectives import reduce_from
+
+            y = reduce_from(y, group)
         if training:
             # GShard: E * sum_e f_e * P_e over top-1 routing (over real
             # tokens only under a padding mask)

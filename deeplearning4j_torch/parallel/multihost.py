@@ -21,12 +21,12 @@ distributed too: the loss by loss mass over the shards, the evaluation
 accumulated on each rank's rows and merged on every rank.
 ``save`` is collective (rank 0 writes the model zip with its updater
 state, whole params under rules; every rank waits at a barrier),
-``restore`` reads it on every rank (each takes its shards under rules).
+``restore`` reads it on every rank (each takes its shards under rules),
+or a ``train/orbax_io`` checkpoint directory (``orbax_io.save_trainer``),
+which continues exactly: generator, iteration and residual included.
 ``rules=`` (shared_gradients) trains through ``Trainer(mesh=, rules=)``:
 tensor and sequence parallelism, ``parallel/sharding.py``; each process
-feeds its ``data_shard()``, so tp/sp peers feed the same rows. The orbax
-checkpoint directory waits for ``train/orbax_io`` (ROADMAP.md, Queue 1:
-item 16).
+feeds its ``data_shard()``, so tp/sp peers feed the same rows.
 """
 
 from __future__ import annotations
@@ -300,17 +300,19 @@ class MultiHostTrainer:
         dist.barrier(group=self.mesh.group)
 
     def restore(self, path: str):
-        """Resume from a ``save`` zip on every rank: params, net state and
-        updater state. The zip carries no generator stream, iteration or
-        residual (the encoded mode's residual restarts at 0): continuation
-        is exact for models without dropout."""
+        """Resume on every rank from a ``save`` zip (params, net state and
+        updater state; the zip carries no generator stream, iteration or
+        residual, so the encoded mode's residual restarts at 0 and
+        continuation is exact for models without dropout) or from an
+        ``orbax_io.save_trainer`` directory (each rank's own shards, the
+        generator, the iteration and the residual too: exact
+        continuation)."""
         from ..train.serialization import load_model, load_opt_state
 
         if os.path.isdir(path):
-            raise NotImplementedError(
-                "restoring an orbax checkpoint directory is not ported yet "
-                "(ROADMAP.md, Queue 1: item 16, train/orbax_io); save and "
-                "restore the model zip")
+            from ..train.orbax_io import restore_trainer
+
+            return restore_trainer(path, self)
         tr = self.trainer
         _, params, state = load_model(path, device=tr.device)
         full = tree_leaves(params)

@@ -67,7 +67,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .mesh import DATA_AXIS, MODEL_AXIS, SEQ_AXIS
+from .mesh import DATA_AXIS, EXPERT_AXIS, MODEL_AXIS, SEQ_AXIS
 
 Spec = Tuple[Optional[str], ...]
 Rules = Sequence[Tuple[str, Spec]]
@@ -182,27 +182,49 @@ def sharded_dim(spec: Spec, axis: str = MODEL_AXIS) -> Optional[int]:
     return None
 
 
+# an MoE layer's expert leaves, which the reference places over the expert
+# axis on their leading (expert) dimension
+EXPERT_LEAVES = ("w_up", "b_up", "w_down", "b_down")
+
+
 def _check_spec(path: str, spec: Spec) -> None:
-    for ax in spec:
-        if ax is not None and ax != MODEL_AXIS:
-            raise ValueError(f"param {path!r} ruled over {ax!r}: params shard "
-                             f"over the {MODEL_AXIS!r} axis only")
+    for i, ax in enumerate(spec):
+        if ax is None or ax == MODEL_AXIS:
+            continue
+        if ax == EXPERT_AXIS and i == 0 \
+                and path.rsplit("/", 1)[-1] in EXPERT_LEAVES:
+            continue
+        raise ValueError(f"param {path!r} ruled over {ax!r}: params shard "
+                         f"over the {MODEL_AXIS!r} axis, and an MoE layer's "
+                         f"{', '.join(EXPERT_LEAVES)} over {EXPERT_AXIS!r} "
+                         f"on their leading dimension")
 
 
 def check_specs(specs) -> None:
-    """Raises unless every spec of the tree names the model axis only."""
+    """Raises unless every spec of the tree names the model axis, or the
+    expert axis on an MoE expert leaf's leading dimension."""
     for path, spec in _tree_paths(specs):
         _check_spec(path, spec)
 
 
+def param_split(spec: Spec) -> Tuple[Optional[int], Optional[str]]:
+    """The dimension a param spec splits and the axis it splits over
+    (``model`` or ``expert``), or (None, None)."""
+    for axis in (MODEL_AXIS, EXPERT_AXIS):
+        d = sharded_dim(spec, axis)
+        if d is not None:
+            return d, axis
+    return None, None
+
+
 def shard_leaf(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """This rank's block of the whole leaf ``t`` under ``spec``."""
-    d = sharded_dim(spec)
+    d, axis = param_split(spec)
     if d is None:
         return t
-    k = mesh.shape[MODEL_AXIS]
+    k = mesh.shape[axis]
     size = t.shape[d] // k
-    return t.narrow(d, mesh.index(MODEL_AXIS) * size, size)
+    return t.narrow(d, mesh.index(axis) * size, size)
 
 
 def place_params(params, mesh, rules: Rules = TRANSFORMER_RULES):
@@ -233,26 +255,26 @@ def _get(tree, path: str):
 
 
 def gather_leaves(leaves, specs, mesh) -> List[torch.Tensor]:
-    """The whole leaves from every model rank's ``leaves`` (each its shard
-    under its spec in ``specs``); a replicated leaf as it is. One
-    all-gather over the model group a dtype, whatever the count of leaves;
-    none where the model axis is 1 (each shard is whole). Collective."""
+    """The whole leaves from every rank's ``leaves`` (each its shard under
+    its spec in ``specs``, over the model or the expert axis); a
+    replicated leaf as it is. One all-gather over the axis's group a
+    dtype, whatever the count of leaves; none where the axis is 1 (each
+    shard is whole). Collective."""
     from .collectives import all_gather_dim
 
     out = list(leaves)
-    n = mesh.shape.get(MODEL_AXIS, 1)
-    if n == 1:  # every shard is its whole leaf
-        return out
-    by_dtype: Dict[torch.dtype, List[int]] = {}
+    groups: Dict[Tuple[str, torch.dtype], List[int]] = {}
     for i, (t, spec) in enumerate(zip(leaves, specs)):
-        if sharded_dim(spec) is not None:
-            by_dtype.setdefault(t.dtype, []).append(i)
-    for idx in by_dtype.values():
+        d, axis = param_split(spec)
+        if d is not None and mesh.shape.get(axis, 1) > 1:
+            groups.setdefault((axis, t.dtype), []).append(i)
+    for (axis, _), idx in groups.items():
+        n = mesh.shape[axis]
         flat = torch.cat([leaves[i].detach().reshape(-1) for i in idx])
-        every = all_gather_dim(flat[None], mesh.axis_group(MODEL_AXIS), 0)
+        every = all_gather_dim(flat[None], mesh.axis_group(axis), 0)
         o = 0
         for i in idx:
-            t, d = leaves[i], sharded_dim(specs[i])
+            t, d = leaves[i], param_split(specs[i])[0]
             out[i] = torch.cat([every[r, o:o + t.numel()].view(t.shape)
                                 for r in range(n)], dim=d)
             o += t.numel()
@@ -470,6 +492,10 @@ class MeshContext:
         # every sub-group is made here, on every rank in the same order
         self.model_group = mesh.axis_group(MODEL_AXIS)
         self.seq_group = mesh.axis_group(self.seq_axis or ())
+        # an MoE layer under a mesh with an expert axis runs its own experts
+        # and sums the shares over this group (``nn/layers/moe.py``)
+        self.expert_group = (mesh.axis_group(EXPERT_AXIS)
+                             if EXPERT_AXIS in mesh.shape else None)
         self.seq_input = False
         self.scope = Scope()
         self._live = False

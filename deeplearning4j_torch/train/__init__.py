@@ -1,8 +1,9 @@
 """Training-side modules of the port: the trainer, its listeners, early
 stopping, the line-search solvers, divergence rollback and segmented
 checkpoint-resume (``faults``, from ``chaos/recovery``), the profiler
-window listener and phase timer, and model serialization (params, state,
-updater state and the data normalizer)."""
+window listener and phase timer, model serialization (params, state,
+updater state and the data normalizer) and the sharded trainer
+checkpoint (``orbax_io``)."""
 
 from .earlystopping import (EarlyStoppingConfiguration,
                             EarlyStoppingParallelTrainer, EarlyStoppingResult,
@@ -15,6 +16,8 @@ from .listeners import (CheckpointListener, CollectScoresListener,
                         SleepyTrainingListener, TimeIterationListener,
                         TrainingListener)
 from .profiler import PhaseTimer, ProfilerListener
+from .orbax_io import (load_model_json, restore_checkpoint, restore_trainer,
+                       save_checkpoint, save_trainer)
 from .serialization import (load_model, load_normalizer, load_opt_state,
                             model_from_json, opt_state_from_numpy,
                             params_from_numpy, save_model, state_from_numpy)
@@ -31,7 +34,8 @@ __all__ = ["CheckpointListener", "CollectScoresListener",
            "TimeIterationListener", "Trainer", "TrainingDivergedException",
            "TrainingListener",
            "build_updater", "evaluate_model", "load_model",
-           "load_normalizer", "load_opt_state", "model_from_json",
-           "model_output_width",
-           "opt_state_from_numpy", "params_from_numpy", "save_model",
+           "load_model_json", "load_normalizer", "load_opt_state",
+           "model_from_json", "model_output_width",
+           "opt_state_from_numpy", "params_from_numpy", "restore_checkpoint",
+           "restore_trainer", "save_checkpoint", "save_model", "save_trainer",
            "score_model", "state_from_numpy"]

@@ -390,7 +390,7 @@ class Trainer:
         self._zero = None  # parallel.dp.ZeroOne: ParallelWrapper's ZeRO-1
         self._ctx = None   # parallel.sharding.MeshContext under rules=
         self._specs = None
-        self._sharded = None  # per leaf: sharded over the model axis
+        self._sharded = None  # per leaf: sharded over the model or expert axis
         if mesh is None and rules is not None:
             raise ValueError("rules= shards params over a mesh: pass mesh=")
         if mesh is not None:
@@ -425,18 +425,20 @@ class Trainer:
         """Tensor and sequence parallelism (``parallel/sharding.py``): each
         leaf held as this rank's shard under the rules (a view where the
         shard is the whole leaf), the layer hook of a ``MeshContext``, and
-        the gradients reduced over every axis but ``model``."""
+        the gradients reduced over every axis but ``model`` and ``expert``
+        (an expert rank holds the same tokens as its peers: its experts'
+        gradients are its own, the router's whole on every rank)."""
         from ..parallel.dp import DataParallel
-        from ..parallel.mesh import MODEL_AXIS
-        from ..parallel.sharding import (MeshContext, check_specs, shard_leaf,
-                                         sharded_dim, sharding_tree,
-                                         spec_leaves)
+        from ..parallel.mesh import EXPERT_AXIS, MODEL_AXIS
+        from ..parallel.sharding import (MeshContext, check_specs,
+                                         param_split, shard_leaf,
+                                         sharding_tree, spec_leaves)
 
         mesh = self.mesh
         self._specs = sharding_tree(self.params, mesh, self.rules)
         flat = spec_leaves(self._specs)
         check_specs(self._specs)
-        self._sharded = [sharded_dim(sp) is not None for sp in flat]
+        self._sharded = [param_split(sp)[0] is not None for sp in flat]
         if any(self._sharded) and self.model.config.gradient_normalization:
             raise ValueError(
                 "gradient normalization needs whole leaves; rules= shards "
@@ -447,7 +449,7 @@ class Trainer:
                 p.requires_grad)
             for p, sp in zip(tree_leaves(self.params), flat)])
         self._dp = DataParallel(mesh, [a for a in mesh.axis_names
-                                       if a != MODEL_AXIS])
+                                       if a not in (MODEL_AXIS, EXPERT_AXIS)])
         self._ctx = MeshContext(mesh, self._specs)
 
     def _rank_batch(self, batch, rows: bool = True):

@@ -260,4 +260,4 @@ def test_multihost_rejections(ranks):
     assert err == [("ValueError", "grad_accum"),
                    ("ValueError", "Unknown mode"),
                    ("ValueError", "rules"),
-                   ("NotImplementedError", "item 16")]
+                   ("FileNotFoundError", "no checkpoint")]

@@ -189,7 +189,7 @@ def multihost_rejects(js, params):
     """(error type, the expected phrase if the message has it) for each
     refused MultiHostTrainer: encoded with grad_accum, an unknown mode,
     rules= with the encoded mode (it replicates whole models), and
-    restoring a directory (an orbax checkpoint)."""
+    restoring a directory that holds no checkpoint."""
     from deeplearning4j_torch.parallel import MultiHostTrainer
 
     out = []
@@ -208,9 +208,9 @@ def multihost_rejects(js, params):
     try:
         mh.restore(os.path.dirname(os.path.abspath(__file__)))
         out.append(None)
-    except NotImplementedError as e:
-        out.append(("NotImplementedError",
-                    "item 16" if "item 16" in str(e) else str(e)))
+    except FileNotFoundError as e:
+        out.append(("FileNotFoundError",
+                    "no checkpoint" if "no checkpoint" in str(e) else str(e)))
     return out
 
 

@@ -323,3 +323,47 @@ def forward_under_context(js, params, x, axes, rules):
             y, _ = m.forward(local, {}, xb)
     rows, cols = mesh.rows(x.shape[0]), mesh.rows(x.shape[1], "seq")
     return float((y - full[rows, cols]).abs().max())
+
+
+# the reference's expert placement (tests/test_moe.py, __graft_entry__.py):
+# an MoE layer's expert leaves over the expert axis on their leading dim
+EXPERT_RULES = ((r"(.*/)?(w_up|b_up|w_down|b_down)", ("expert",)),)
+
+
+def moe_expert(layer_kw, params, x, ep):
+    """``MoE.apply`` (training) under an expert mesh of ``ep`` ranks with
+    ``place_params`` under the expert rule: the output, the aux loss, the
+    gradient of ``sum(y^2) + aux`` for each leaf this rank holds and for
+    the input, and the shapes of the leaves it holds."""
+    from deeplearning4j_torch.nn import layers as TL
+    from deeplearning4j_torch.parallel import activation_sharding, place_params
+
+    mesh = _mesh({"expert": ep})
+    moe = TL.MoE(**layer_kw)
+    p = place_params(params, mesh, EXPERT_RULES)
+    names = sorted(p)
+    leaves = [p[k].requires_grad_() for k in names]
+    xt = torch.from_numpy(x).requires_grad_()
+    with activation_sharding(mesh):
+        y, s, _ = moe.apply(p, {}, xt, training=True)
+        loss = (y * y).sum() + s["aux_loss"]
+        grads = torch.autograd.grad(loss, leaves + [xt])
+    return dict(y=y.detach().numpy(), aux=float(s["aux_loss"]),
+                grads={k: g.numpy() for k, g in zip(names, grads)},
+                gx=grads[-1].numpy(),
+                shapes={k: tuple(p[k].shape) for k in names})
+
+
+def moe_lm_fit(js, params, batches, ep):
+    """Trainer(mesh={"expert": ep}, rules=EXPERT_RULES) over ``batches``:
+    the whole params (``full_params``), the losses and the shapes of this
+    rank's leaves."""
+    from deeplearning4j_torch.train import Trainer
+
+    tr = Trainer(build(js, params), mesh=_mesh({"expert": ep}),
+                 rules=EXPERT_RULES)
+    col = CollectScoresListener()
+    tr.fit(Batches(batches), listeners=[col], prefetch=False)
+    return dict(params=np_tree(tr.full_params()),
+                losses=np.asarray([s for _, s in col.scores]),
+                local=_shapes(tr.params))

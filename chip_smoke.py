@@ -251,9 +251,12 @@ last line):
    ``bench.py:_bench_fleet`` registers them: gold (500/s, SLO gold)
    predicting on alpha and beta, standard (500/s) greedy-generating 8
    tokens on gamma with the generate phase's batcher options, free (2/s,
-   burst 2, class batch) predicting on alpha; closed loop, one thread a
+   burst 2, class batch) predicting on alpha, knn (200/s, standard)
+   querying a ``BruteForceKNN`` of 512 x 16 points on the card through
+   the same admission; closed loop, one thread a
    tenant, for FLEET_SECONDS, with request traces and a flight recorder
-   installed. Gated: every predict bit-equal to its model's direct
+   installed. Gated: every knn answer the 5 nearest of a numpy scan;
+   every predict bit-equal to its model's direct
    forward at the bucket it ran in, every generation equal to the
    batcher's tokens computed before the fleet (and ``generate()``'s under
    the gap rule); at least 3 page-ins and 2 evictions; generations that
@@ -271,8 +274,9 @@ last line):
    stages and the ``fleet.page_in`` span), generate, ``/v1/fleet``
    residency, 404, 429 with Retry-After; K1 12 launches a predict batch,
    no other kernel. Printed with the card: page-in and page-out ms and
-   GB/s beside the pinned-copy bound, the pinned allocation time, gold
-   p50/p99 in the window, at rest, while other models page and while
+   GB/s beside the pinned-copy bound, the pinned allocation time, the knn
+   tenant's p50/p99 in the window, gold p50/p99 in the window, at rest,
+   while other models page and while
    their page-outs copy back (each request's stage medians, and a
    torch.profiler summary of each: the card's streams, copies and the
    host's waiting calls), gamma's
@@ -448,6 +452,48 @@ last line):
    K1-K3 counted (``launches_by_path["moe_ep"]``). Quick call:
    ``python3 -c "import chip_smoke as c; c.phase_build();
    c.phase_elastic(); c.phase_moe_ep()"``.
+
+24. embeddings (after [elastic], before [parallel]; no process group) —
+   word, document and graph embeddings at published widths on a synthetic
+   corpus made from EMB_SEED: EMB_VOCAB words (text8's vocabulary at min
+   count 5) each EMB_MIN_COUNT times in sentences of its topic, then
+   EMB_FURTHER tokens in EMB_SENT-token sentences, each of one of
+   EMB_TOPICS planted topics, its tokens Zipf(1) within the topic and
+   EMB_GLOBAL of them Zipf(1) over all words. ``Word2Vec`` skip-gram with
+   negative sampling at W2V_KW (Mikolov et al.'s 300 d, window 5, 5
+   negatives, sample 1e-3, lr 0.025 -> 1e-4, batch 2048; one epoch), its
+   topic precision@10 of ``words_nearest`` over EMB_PREC_WORDS of the
+   EMB_PREC_POOL most frequent words gated at EMB_PREC_GATE (5x chance);
+   hierarchical softmax and CBOW at the same width on an EMB_HEAD-token
+   prefix; the same small fit twice with the sorted scatter-add (gated
+   bit-equal) and twice with ``index_add_`` (reported); ParagraphVectors
+   PV-DBOW on PV_DOCS labelled documents of PV_LEN tokens, then
+   ``infer_vector`` on PV_UNSEEN unseen ones (gated: the nearest label's
+   document shares the topic for most) and PV-DM on PV_DM_DOCS; GloVe at
+   GLOVE_KW (300 d, window 10, x_max 100, alpha 0.75, lr 0.05, batch
+   4096, 2 epochs) on an EMB_GLOVE_HEAD-token prefix; ``DeepWalk`` (HS
+   over the degree Huffman tree) and ``Node2Vec`` (p = q = 0.25) at d 128,
+   window 10, walks of 40, one walk a vertex, on a preferential-attachment
+   graph of BlogCatalog's GRAPH_V vertices and GRAPH_E edges. Every run's
+   per-step losses finite and falling (first tenth against last); one
+   skip-gram NS, HS, CBOW and GloVe step on the card against the CPU from
+   the trained tables and the last batch (EMB_STEP_ATOL, EMB_STEP_RTOL).
+   Printed with the card: steps, host ms a step, device ms a step (CUDA
+   events), set-up seconds, the Huffman depths, the phase's seconds. The
+   path reaches no kernel (``launches_by_path["embeddings"]``, all 0).
+25. knn — the 71,290 x 300 Word2Vec vectors written by
+   ``write_word2vec_binary`` and read back, served by
+   ``NearestNeighborsServer(distance="cosinesimilarity")`` on the card:
+   KNN_ROWS /knn and KNN_NEW /knnnew requests of KNN_NEW_ROWS vectors
+   through ``NearestNeighborsClient`` over 127.0.0.1, each answer held
+   against a float64 numpy brute force (indices equal except scores
+   within KNN_TIE, distances within KNN_DIST_TOL) and each /knn against
+   ``Word2Vec.words_nearest`` of its word; ``/metrics`` through promcheck;
+   one /knnnew batch under each other distance; ``BruteForceKNN`` on the
+   card against the CPU. Printed: p50/p99 latency of each endpoint with
+   the card; no kernel launched (``launches_by_path["knn"]``). Quick call
+   for both: ``python3 -c "import chip_smoke as c; counts, emb =
+   c.phase_embeddings(); c.phase_knn(emb)"``.
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -6425,6 +6471,19 @@ def _fleet_gen_refs(model, prompt):
     return [int(t) for t in want], cast, met
 
 
+def _fleet_knn(rng):
+    """The knn tenant's ``BruteForceKNN`` on the card over 512 x 16 uniform
+    points, its query and the 5 nearest by a numpy scan
+    (``bench.py:738-742``)."""
+    from deeplearning4j_torch.knn import BruteForceKNN
+
+    points = rng.rand(512, 16).astype(np.float32)
+    query = rng.rand(16).astype(np.float32)
+    want = np.argsort(np.linalg.norm(points - query, axis=1))[:5].tolist()
+    return {"index": BruteForceKNN(points, device=FLEET_DEVICE),
+            "query": query, "want": want}
+
+
 def fleet_build(where):
     """The three models, their references, and the fleet (budget 2.2 x one
     model's weight bytes) holding pinned host copies; each model's device
@@ -6439,6 +6498,7 @@ def fleet_build(where):
         np.int32)
     gen_prompt = rng.randint(0, FLEET_VOCAB, FLEET_GEN_PROMPT).astype(
         np.int32)
+    knn = _fleet_knn(rng)
     fleet, refs, same_rows = None, {}, True
     gen_want = cast_bytes = gen_met = None
     t_alloc = t_fill = 0.0
@@ -6483,7 +6543,7 @@ def fleet_build(where):
           f"{GEN_GAP_TOL_BF16})")
     return {"fleet": fleet, "prompts": prompts, "http_prompt": http_prompt,
             "gen_prompt": gen_prompt, "gen_want": gen_want, "refs": refs,
-            "cast_bytes": cast_bytes}
+            "cast_bytes": cast_bytes, "knn": knn}
 
 
 def _fleet_bucket(ctx):
@@ -6516,7 +6576,8 @@ def fleet_predict(st, name, j, tenant, rt, stages=None):
 def fleet_window(st, where):
     """FLEET_SECONDS of closed-loop traffic, one thread a tenant: gold
     predicts on alpha and beta, standard greedy generates on gamma, free
-    predicts on alpha at 20/s offered against its 2/s quota."""
+    predicts on alpha at 20/s offered against its 2/s quota, knn queries
+    the tenant's BruteForceKNN through admission at 200/s."""
     from deeplearning4j_torch.fleet import QuotaError
     from deeplearning4j_torch.obs import reqtrace
     from deeplearning4j_torch.serve import ServeError
@@ -6525,9 +6586,11 @@ def fleet_window(st, where):
     fleet.tenants.register("gold", rate_per_s=500, slo="gold")
     fleet.tenants.register("standard", rate_per_s=500, slo="standard")
     fleet.tenants.register("free", rate_per_s=2.0, burst=2.0, slo="batch")
+    fleet.tenants.register("knn", rate_per_s=200, slo="standard")
     lock = threading.Lock()
     rec = {"gold": [], "free": [], "gen": [], "wrong": [], "errors": [],
-           "quota": [], "gens": {n: set() for n in FLEET_NAMES}}
+           "quota": [], "knn": [], "knn_quota": [],
+           "gens": {n: set() for n in FLEET_NAMES}}
     stop_at = [0.0]
 
     def note(key, item):
@@ -6572,11 +6635,29 @@ def fleet_window(st, where):
             if toks != st["gen_want"]:
                 note("wrong", f"gamma tokens {toks}, want {st['gen_want']}")
 
+    def knn_client():
+        # the tenant's queries go through the same admission as the models'
+        # (bench.py:811-827): shed at its quota, else answered by the index
+        knn = st["knn"]
+        while time.perf_counter() < stop_at[0]:
+            try:
+                fleet.tenants.admit("knn", model="knn")
+            except QuotaError as e:
+                note("knn_quota", e.retry_after_s)
+                time.sleep(0.01)
+                continue
+            t0 = time.perf_counter()
+            idx, _ = knn["index"].search(knn["query"], 5)
+            note("knn", time.perf_counter() - t0)
+            if idx.tolist() != knn["want"]:
+                note("wrong", f"knn {idx.tolist()}, want {knn['want']}")
+
     workers = [threading.Thread(target=predictor, args=(
                    "gold", lambda r: ("alpha", "beta")[r.randint(2)], 0.0)),
                threading.Thread(target=predictor, args=(
                    "free", lambda r: "alpha", 0.05)),
-               threading.Thread(target=generator)]
+               threading.Thread(target=generator),
+               threading.Thread(target=knn_client)]
     pager0 = dict(fleet.pager.stats())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -6598,8 +6679,10 @@ def fleet_window(st, where):
     check(page_ins >= 3 and page_outs >= 2, f"[fleet] {page_ins} page-ins "
           f"and {page_outs} evictions in the window")
     check(rec["quota"], "[fleet] the free tenant was never shed")
-    check(rec["gold"] and rec["gen"], "[fleet] a tenant got no answer")
+    check(rec["gold"] and rec["gen"] and rec["knn"],
+          "[fleet] a tenant got no answer")
     gold_ms = [1e3 * d for d, _, _ in rec["gold"]]
+    knn_ms = [1e3 * d for d in rec["knn"]]
     ttft = [1e3 * t for t, _ in rec["gen"]]
     tps = [(len(s) - 1) / (s[-1] - s[0]) for _, s in rec["gen"]
            if len(s) > 1 and s[-1] > s[0]]
@@ -6611,8 +6694,10 @@ def fleet_window(st, where):
           f"free {len(rec['free'])} admitted and {len(rec['quota'])} shed "
           f"(QuotaError, retry_after_s {min(rec['quota']):.3f}-"
           f"{max(rec['quota']):.3f}), standard {len(rec['gen'])} generations "
-          f"of {FLEET_GEN_TOKENS} tokens; wrong_responses 0; page-ins "
-          f"{page_ins}, page-outs {page_outs}")
+          f"of {FLEET_GEN_TOKENS} tokens, knn {len(knn_ms)} queries (p50 "
+          f"{_pct(knn_ms, 50):.3f} ms, p99 {_pct(knn_ms, 99):.3f} ms, "
+          f"{len(rec['knn_quota'])} shed at 200/s); wrong_responses 0; "
+          f"page-ins {page_ins}, page-outs {page_outs}")
     print(f"[fleet] gamma on {where}: time to first token p50 "
           f"{_pct(ttft, 50):.2f} ms p99 {_pct(ttft, 99):.2f} ms (page-in "
           f"waits included); decode tokens/s median "
@@ -6622,7 +6707,8 @@ def fleet_window(st, where):
           f"budget {budget} B (weights only; KV pools, activations and casts "
           f"outside it)")
     return {"page_ins": page_ins, "page_outs": page_outs, "gens": rec["gens"],
-            "gold_ms": gold_ms, "ttft_ms": ttft, "tps": tps, "mem": mem}
+            "gold_ms": gold_ms, "ttft_ms": ttft, "tps": tps, "mem": mem,
+            "knn_ms": knn_ms}
 
 
 def fleet_generations(st, seen):
@@ -7175,6 +7261,7 @@ def phase_fleet():
         fleet.shutdown()
         reqtrace.uninstall()
         flight.uninstall()
+        st.pop("knn")
     left = _fleet_mem()["allocated"] - base
     check(counts["K1"] == 12 * batches, f"[fleet] K1 launched "
           f"{counts['K1']} times for {batches} predict batches")
@@ -9980,6 +10067,622 @@ def phase_moe_ep(device="cuda"):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --- [embeddings] and [knn]: word, document and graph embeddings, and the
+# nearest-neighbour server over the trained vectors ---
+EMB_DEVICE = "cuda"
+EMB_SEED = 0
+EMB_VOCAB = 71_290          # text8's vocabulary at min_count 5
+EMB_TOPICS = 100            # planted topics, word w's topic w % 100
+EMB_MIN_COUNT = 5           # every word's floor in the corpus
+EMB_SENT = 20               # tokens a sentence, one topic each
+EMB_FURTHER = 1_000_000     # tokens beyond each word's 5 (cut from text8's 17M)
+EMB_GLOBAL = 0.3            # share of a sentence's tokens from the global Zipf
+EMB_HEAD = 200_000          # the HS and CBOW runs' prefix
+EMB_GLOVE_HEAD = 300_000    # GloVe's prefix (host co-occurrence counting)
+EMB_BITS_HEAD = 100_000     # the prefix of the twice-run determinism fit
+EMB_PREC_WORDS = 200        # precision@10 queries ...
+EMB_PREC_POOL = 2_000       # ... drawn from the most frequent words
+EMB_PREC_GATE = 5.0 / EMB_TOPICS   # 5x chance
+EMB_STEP_ATOL, EMB_STEP_RTOL = 1e-6, 1e-5   # a step, card vs CPU
+# Mikolov et al. 2013 (the GoogleNews vectors; word2vec.c's sample 1e-3),
+# the JAX package's batch
+W2V_KW = dict(min_word_frequency=EMB_MIN_COUNT, layer_size=300,
+              window_size=5, negative_sample=5, sampling=1e-3,
+              learning_rate=0.025, min_learning_rate=1e-4, batch_size=2048,
+              epochs=1, seed=EMB_SEED)
+PV_DOCS, PV_LEN, PV_UNSEEN, PV_DM_DOCS = 10_000, 100, 100, 1_000
+# 3 epochs: DL4J's and the JAX package's default of 1 left 33 of 100 unseen
+# documents nearest a label of their topic in a CPU rehearsal, 3 left 100
+PV_KW = dict(layer_size=300, window_size=5, negative_sample=5,
+             learning_rate=0.025, batch_size=2048, epochs=3, seed=EMB_SEED)
+# Pennington et al. 2014's 300d settings
+GLOVE_KW = dict(min_word_frequency=EMB_MIN_COUNT, layer_size=300,
+                window_size=10, x_max=100.0, alpha=0.75, learning_rate=0.05,
+                batch_size=4096, epochs=2, seed=EMB_SEED)
+GRAPH_V, GRAPH_E = 10_312, 333_983   # BlogCatalog's vertices and edges
+# Perozzi et al. 2014 (DeepWalk) and Grover & Leskovec 2016 (node2vec on
+# BlogCatalog): d 128, window 10, walks of 40; 1 walk a vertex, cut from 80
+# and 10; word2vec's learning rate 0.025
+DW_KW = dict(vector_size=128, window_size=10, learning_rate=0.025,
+             batch_size=2048, seed=EMB_SEED)
+DW_WALK = 40
+N2V_KW = dict(vector_size=128, window_size=10, walk_length=40,
+              walks_per_vertex=1, p=0.25, q=0.25, negative=5,
+              learning_rate=0.025, batch_size=2048, seed=EMB_SEED)
+KNN_K = 10
+KNN_ROWS = EMB_PREC_WORDS   # /knn requests: the precision gate's words
+KNN_NEW, KNN_NEW_ROWS = 50, 16   # /knnnew requests and vectors each
+KNN_TIE = 1e-6              # scores this close (of max(1, |score|)) may swap
+KNN_DIST_TOL = 1e-5         # distances against float64, of max(1, |d|)
+
+
+def _emb_words(n):
+    return np.array([f"w{r}" for r in range(n)], dtype=object)
+
+
+def _emb_draws(rng, topics, n):
+    """(len(topics), n) word ranks: each row's tokens drawn Zipf(1) within
+    its topic's words, EMB_GLOBAL of them Zipf(1) over all words."""
+    V, T = EMB_VOCAB, EMB_TOPICS
+    pg = 1.0 / np.arange(1, V + 1)
+    per = -(-V // T)
+    pt = 1.0 / np.arange(1, per + 1)
+    glob = rng.choice(V, size=(len(topics), n), p=pg / pg.sum())
+    word = topics[:, None] + T * rng.choice(per, size=(len(topics), n),
+                                            p=pt / pt.sum())
+    word = np.where(word >= V, word - T, word)   # the short topics' last rank
+    return np.where(rng.random((len(topics), n)) < EMB_GLOBAL, glob, word)
+
+
+def emb_corpus(seed=EMB_SEED):
+    """The synthetic corpus: every one of EMB_VOCAB words EMB_MIN_COUNT times
+    in sentences of its own topic, then EMB_FURTHER tokens in EMB_SENT-token
+    sentences of a random topic (``_emb_draws``); sentences shuffled. A
+    word's topic is its rank modulo EMB_TOPICS (``_emb_topic``)."""
+    rng = np.random.default_rng(seed)
+    names = _emb_words(EMB_VOCAB)
+    rows = []
+    for t in range(EMB_TOPICS):
+        toks = np.repeat(np.arange(t, EMB_VOCAB, EMB_TOPICS), EMB_MIN_COUNT)
+        rng.shuffle(toks)
+        rows += np.array_split(toks, -(-len(toks) // EMB_SENT))
+    n = EMB_FURTHER // EMB_SENT
+    rows += list(_emb_draws(rng, rng.integers(EMB_TOPICS, size=n), EMB_SENT))
+    sents = [" ".join(names[r]) for r in rows]
+    order = rng.permutation(len(sents))
+    return [sents[i] for i in order]
+
+
+def _emb_topic(word):
+    return int(word[1:]) % EMB_TOPICS
+
+
+def _emb_prefix(sents, tokens):
+    """The corpus's first sentences holding ``tokens`` tokens."""
+    return sents[:-(-tokens // EMB_SENT)]
+
+
+class _StepRecorder:
+    """Stands in for an update step: calls it, keeps each call's loss tensor
+    and, on the card, its device time between two CUDA events; the last
+    call's arguments (the live tables among them) stay for the card-vs-CPU
+    check. Host times of the first call's start and the last call's end."""
+
+    def __init__(self, fn, cuda):
+        self.fn, self.cuda = fn, cuda
+        self.losses, self.events, self.last = [], [], None
+        self.t_first = self.t_last = None
+
+    def __call__(self, *args):
+        if self.t_first is None:
+            self.t_first = time.perf_counter()
+        if self.cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        self.last = args
+        out = self.fn(*args)
+        if self.cuda:
+            b.record()
+            self.events.append((a, b))
+        self.losses.append(out[-1])
+        self.t_last = time.perf_counter()
+        return out
+
+    def read(self):
+        """(losses, device ms a step or None, host ms a step of the loop)."""
+        if self.cuda:
+            torch.cuda.synchronize()
+        losses = [float(x) for x in self.losses]
+        dev = statistics.median(a.elapsed_time(b) for a, b in self.events) \
+            if self.events else None
+        n = max(len(losses), 1)
+        return losses, dev, 1e3 * (self.t_last - self.t_first) / n
+
+
+def _emb_run(tag, where, module, name, fit):
+    """``fit()`` with ``module.name`` (an update step) recorded. Gates the
+    per-step losses finite and falling (the mean of the last tenth below
+    the first tenth's); prints steps, host ms a step of the loop, device ms
+    a step and the set-up seconds before the first step. Returns the
+    recorder, the losses and fit's result."""
+    from unittest import mock
+
+    rec = _StepRecorder(getattr(module, name), torch.device(EMB_DEVICE).type
+                        == "cuda")
+    t0 = time.perf_counter()
+    with mock.patch.object(module, name, rec):
+        result = fit()
+    wall = time.perf_counter() - t0
+    losses, dev, host = rec.read()
+    tenth = max(len(losses) // 10, 1)
+    first, last = np.mean(losses[:tenth]), np.mean(losses[-tenth:])
+    check(len(losses) > 0 and np.all(np.isfinite(losses)),
+          f"[embeddings] {tag}: losses {losses[:3]}...")
+    check(last < first, f"[embeddings] {tag}: loss did not fall "
+          f"({first:.5f} -> {last:.5f} over the first and last tenth)")
+    dev_s = "not measured" if dev is None else f"{dev:.4f}"
+    print(f"[embeddings] {tag} on {where}: {len(losses)} steps, host ms a "
+          f"step {host:.4f} (the loop, its float(loss) reads included), "
+          f"device ms a step {dev_s} (median, CUDA events); set-up "
+          f"{rec.t_first - t0:.2f} s of {wall:.2f} s; loss first tenth "
+          f"{first:.5f} -> last tenth {last:.5f}")
+    return rec, losses, result
+
+
+def _emb_step_vs_cpu(tag, fn, rec, n_tables):
+    """One update from the trained tables (the live ones, copied first) and
+    the fit's last batch, on the card and on the CPU; every output within
+    EMB_STEP_ATOL + EMB_STEP_RTOL x |CPU|. Returns the max abs error."""
+    args = rec.last
+    tables = args[:n_tables]
+    card = fn(*[t.clone() for t in tables], *args[n_tables:])
+    cpu = fn(*[t.cpu() for t in tables],
+             *[a.cpu() if isinstance(a, torch.Tensor) else a
+               for a in args[n_tables:]])
+    err = 0.0
+    for got, want in zip(card, cpu):
+        got = got.cpu()
+        err = max(err, float((got - want).abs().max()))
+        check(torch.allclose(got, want, atol=EMB_STEP_ATOL,
+                             rtol=EMB_STEP_RTOL),
+              f"[embeddings] {tag} step: card against CPU max abs err {err}")
+    print(f"[embeddings] {tag} step, card against CPU from the trained "
+          f"tables and the last batch: max abs err {err:.3e} (atol "
+          f"{EMB_STEP_ATOL}, rtol {EMB_STEP_RTOL})")
+    return err
+
+
+def emb_word2vec(sents, where):
+    """Skip-gram NS at the published settings over the whole corpus;
+    precision@10 of ``words_nearest``; the HS and CBOW heads on a prefix;
+    each head's step card against CPU."""
+    from deeplearning4j_torch.nlp import Word2Vec
+    from deeplearning4j_torch.nlp import sequencevectors as sv
+
+    w2v = Word2Vec(device=EMB_DEVICE, **W2V_KW)
+    rec, losses, ep = _emb_run("word2vec skip-gram NS", where, sv,
+                               "_skipgram_ns_step", lambda: w2v.fit(sents))
+    n_tok = sum(s.count(" ") + 1 for s in sents)
+    check(len(w2v.vocab) == EMB_VOCAB, f"[embeddings] vocabulary "
+          f"{len(w2v.vocab)}, want {EMB_VOCAB}")
+    print(f"[embeddings] word2vec corpus {n_tok} tokens in {len(sents)} "
+          f"sentences (cut from text8's 17M), vocabulary {len(w2v.vocab)} "
+          f"at min count {EMB_MIN_COUNT}, D {W2V_KW['layer_size']}; "
+          f"{len(losses)} steps of {W2V_KW['batch_size']} pairs (about "
+          f"{len(losses) * W2V_KW['batch_size']} pairs); epoch loss "
+          f"first {ep[0]:.5f}, last {ep[-1]:.5f}")
+    errs = {"skipgram_ns": _emb_step_vs_cpu("skip-gram NS",
+                                            sv._skipgram_ns_math, rec, 2)}
+    rng = np.random.default_rng(EMB_SEED + 1)
+    words = [w2v.vocab.word_for(int(i)) for i in
+             rng.choice(EMB_PREC_POOL, EMB_PREC_WORDS, replace=False)]
+    t0 = time.perf_counter()
+    nearest = {w: w2v.words_nearest(w, KNN_K) for w in words}
+    hits = [np.mean([_emb_topic(n) == _emb_topic(w) for n, _ in nearest[w]])
+            for w in words]
+    prec = float(np.mean(hits))
+    check(prec >= EMB_PREC_GATE, f"[embeddings] topic precision@10 {prec} "
+          f"below {EMB_PREC_GATE}")
+    print(f"[embeddings] topic precision@{KNN_K} of words_nearest over "
+          f"{EMB_PREC_WORDS} of the {EMB_PREC_POOL} most frequent words: "
+          f"{prec:.4f} (chance {1 / EMB_TOPICS}, gate {EMB_PREC_GATE}); "
+          f"{(time.perf_counter() - t0) / EMB_PREC_WORDS * 1e3:.1f} ms a "
+          f"query on the host")
+    head = _emb_prefix(sents, EMB_HEAD)
+    for tag, kw, name, fn, n in (
+            ("skipgram_hs", dict(negative_sample=0), "_skipgram_hs_step",
+             sv._skipgram_hs_math, 2),
+            ("cbow", dict(use_cbow=True), "_cbow_ns_step", sv._cbow_ns_math,
+             2)):
+        m = Word2Vec(device=EMB_DEVICE, **{**W2V_KW, **kw})
+        rec, _, _ = _emb_run(f"word2vec {tag} ({EMB_HEAD}-token prefix)",
+                             where, sv, name, lambda: m.fit(head))
+        if tag == "skipgram_hs":
+            depth = max(len(w.codes) for w in m.vocab.words)
+            print(f"[embeddings] word2vec HS: vocabulary {len(m.vocab)}, "
+                  f"Huffman depth {depth}")
+        errs[tag] = _emb_step_vs_cpu(tag, fn, rec, n)
+        del m
+    return w2v, words, nearest, prec, errs
+
+
+def emb_determinism(sents, where):
+    """The same small skip-gram fit twice with the sort-based scatter-add
+    and twice with ``index_add_`` (atomics on the card): whether each pair
+    of runs is bit-equal, and each variant's device ms a step."""
+    from unittest import mock
+
+    from deeplearning4j_torch.nlp import Word2Vec
+    from deeplearning4j_torch.nlp import sequencevectors as sv
+
+    def atomics(table, idx, rows):
+        table.index_add_(0, idx, rows)
+
+    head = _emb_prefix(sents, EMB_BITS_HEAD)
+    out = {}
+    for tag, scatter in (("the sorted scatter-add", sv._scatter_add),
+                         ("index_add_ (atomics on the card)", atomics)):
+        runs, devs = [], []
+        with mock.patch.object(sv, "_scatter_add", scatter):
+            for _ in range(2):
+                m = Word2Vec(device=EMB_DEVICE, **W2V_KW)
+                rec = _StepRecorder(sv._skipgram_ns_step,
+                                    m.device.type == "cuda")
+                with mock.patch.object(sv, "_skipgram_ns_step", rec):
+                    m.fit(head)
+                runs.append((m.sv.syn0.cpu(), m.sv.syn1.cpu()))
+                devs.append(rec.read()[1])
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        out[tag] = same
+        print(f"[embeddings] two runs of one {EMB_BITS_HEAD}-token skip-gram "
+              f"fit with {tag} on {where}: bit-equal {same}; device ms a "
+              f"step {devs}")
+    check(out["the sorted scatter-add"],
+          "[embeddings] the sorted scatter-add is not deterministic")
+    return out
+
+
+def emb_paragraph_vectors(where):
+    """PV-DBOW on PV_DOCS labelled documents, ``infer_vector`` on PV_UNSEEN
+    unseen ones (the nearest label's document shares the topic for most),
+    and PV-DM on PV_DM_DOCS."""
+    from deeplearning4j_torch.nlp import LabelledDocument, ParagraphVectors
+    from deeplearning4j_torch.nlp import sequencevectors as sv
+
+    rng = np.random.default_rng(EMB_SEED + 2)
+    names = _emb_words(EMB_VOCAB)
+    topics = rng.integers(EMB_TOPICS, size=PV_DOCS + PV_UNSEEN)
+    toks = _emb_draws(rng, topics, PV_LEN)
+    docs = [LabelledDocument(" ".join(names[r]), [f"d{i}"])
+            for i, r in enumerate(toks[:PV_DOCS])]
+    pv = ParagraphVectors(device=EMB_DEVICE, **PV_KW)
+    _emb_run(f"PV-DBOW ({PV_DOCS} documents of {PV_LEN})", where, sv,
+             "_skipgram_ns_step", lambda: pv.fit(docs))
+    rows = [pv.vocab.index_of(f"__label__d{i}") for i in range(PV_DOCS)]
+    lab = pv.sv.vectors[rows]
+    lab /= np.linalg.norm(lab, axis=1, keepdims=True) + 1e-12
+    t0 = time.perf_counter()
+    hits = 0
+    for i in range(PV_DOCS, PV_DOCS + PV_UNSEEN):
+        v = pv.infer_vector(" ".join(names[toks[i]]))
+        best = int(np.argmax(lab @ (v / (np.linalg.norm(v) + 1e-12))))
+        hits += int(topics[best] == topics[i])
+    infer_ms = (time.perf_counter() - t0) / PV_UNSEEN * 1e3
+    check(hits > PV_UNSEEN // 2, f"[embeddings] PV-DBOW: the nearest label "
+          f"shares the topic of {hits} of {PV_UNSEEN} unseen documents")
+    text = " ".join(names[toks[PV_DOCS]])
+    got = pv.nearest_labels(text, 1)[0][0]
+    v = pv.infer_vector(text)
+    want = int(np.argmax(lab @ (v / (np.linalg.norm(v) + 1e-12))))
+    check(got == f"d{want}", f"[embeddings] nearest_labels {got}, d{want} "
+          f"by the label matrix")
+    print(f"[embeddings] PV-DBOW infer_vector on {PV_UNSEEN} unseen "
+          f"documents: the nearest of {PV_DOCS} labels shares the topic for "
+          f"{hits} (chance {PV_UNSEEN / EMB_TOPICS:.0f}); {infer_ms:.1f} ms an "
+          f"inference (20 steps) on {where}")
+    dm = ParagraphVectors(device=EMB_DEVICE, dm=True, **PV_KW)
+    _emb_run(f"PV-DM ({PV_DM_DOCS} documents)", where, sv, "_cbow_ns_step",
+             lambda: dm.fit(docs[:PV_DM_DOCS]))
+    return hits
+
+
+def emb_glove(sents, where):
+    """GloVe at the paper's 300d settings on a prefix; its step card
+    against CPU."""
+    from deeplearning4j_torch.nlp import Glove
+    from deeplearning4j_torch.nlp import glove as gl
+
+    head = _emb_prefix(sents, EMB_GLOVE_HEAD)
+    g = Glove(device=EMB_DEVICE, **GLOVE_KW)
+    rec, _, ep = _emb_run(f"GloVe ({EMB_GLOVE_HEAD}-token prefix)", where,
+                          gl, "_glove_step", lambda: g.fit(head))
+    check(ep[-1] < ep[0], f"[embeddings] GloVe epoch losses {ep}")
+    nnz = len(rec.losses) // GLOVE_KW["epochs"] * GLOVE_KW["batch_size"]
+    print(f"[embeddings] GloVe: vocabulary {len(g.vocab)}, about {nnz} "
+          f"non-zeros (full batches), epoch losses {ep}")
+    return _emb_step_vs_cpu("GloVe", gl._glove_step, rec, 8)
+
+
+def emb_graph(seed=EMB_SEED):
+    """A graph of BlogCatalog's size: GRAPH_V vertices, GRAPH_E undirected
+    edges by preferential attachment (each new vertex joins 32 or 33
+    distinct earlier ones, drawn in proportion to their degree)."""
+    from deeplearning4j_torch.graph import Edge, Graph
+
+    rng = np.random.default_rng(seed)
+    n0 = 34
+    m = GRAPH_E - n0 * (n0 - 1) // 2          # edges the later vertices add
+    later = GRAPH_V - n0
+    per = np.full(later, m // later)
+    per[rng.permutation(later)[:m % later]] += 1
+    ends = np.empty(2 * GRAPH_E, np.int64)    # every edge's two ends
+    edges, k = [], 0
+    for a in range(n0):
+        for b in range(a + 1, n0):
+            edges.append((a, b))
+            ends[k:k + 2] = a, b
+            k += 2
+    for v, c in zip(range(n0, GRAPH_V), per):
+        nbrs = set()
+        while len(nbrs) < c:
+            nbrs.update(ends[rng.integers(k, size=c - len(nbrs))].tolist())
+        for u in sorted(nbrs):
+            edges.append((u, v))
+            ends[k:k + 2] = u, v
+            k += 2
+    return Graph(GRAPH_V, [Edge(a, b) for a, b in edges])
+
+
+def emb_graphs(where):
+    """DeepWalk (HS over the degree Huffman tree) and Node2Vec (p = q =
+    0.25) on the BlogCatalog-sized graph."""
+    from deeplearning4j_torch.graph import DeepWalk, Node2Vec
+    from deeplearning4j_torch.nlp import sequencevectors as sv
+
+    t0 = time.perf_counter()
+    g = emb_graph()
+    deg = g.degrees()
+    check(g.num_vertices() == GRAPH_V and g.num_edges() == 2 * GRAPH_E,
+          f"[embeddings] graph {g.num_vertices()} vertices, "
+          f"{g.num_edges()} directed edges")
+    print(f"[embeddings] graph: {GRAPH_V} vertices, {GRAPH_E} undirected "
+          f"edges, degree min {deg.min()} median {int(np.median(deg))} max "
+          f"{deg.max()}, built in {time.perf_counter() - t0:.2f} s")
+    dw = DeepWalk(device=EMB_DEVICE, **DW_KW)
+    rec, losses, _ = _emb_run(f"DeepWalk (1 walk of {DW_WALK} a vertex)",
+                              where, sv, "_skipgram_hs_step",
+                              lambda: dw.fit(g, DW_WALK))
+    depth = max(len(w.codes) for w in dw.sv.vocab.words)
+    print(f"[embeddings] DeepWalk: Huffman depth {depth}, about "
+          f"{len(losses) * DW_KW['batch_size']} pairs")
+    nv = Node2Vec(device=EMB_DEVICE, **N2V_KW)
+    rec, losses, _ = _emb_run("Node2Vec (1 walk of 40 a vertex, p = q = "
+                              "0.25)", where, sv, "_skipgram_ns_step",
+                              lambda: nv.fit(g))
+    print(f"[embeddings] Node2Vec: about {len(losses) * N2V_KW['batch_size']}"
+          f" pairs")
+
+
+def phase_embeddings():
+    """[embeddings]: Word2Vec (skip-gram NS at full width over the corpus,
+    HS and CBOW on a prefix), ParagraphVectors, GloVe, DeepWalk and Node2Vec
+    on the card. Launch counts are zeroed before and read after: the path
+    reaches no kernel. Returns the counts and what [knn] serves."""
+    where = card()
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    sents = emb_corpus()
+    print(f"[embeddings] corpus of {len(sents)} sentences made in "
+          f"{time.perf_counter() - t0:.2f} s (seed {EMB_SEED})")
+    w2v, words, nearest, prec, errs = emb_word2vec(sents, where)
+    bits = emb_determinism(sents, where)
+    pv_hits = emb_paragraph_vectors(where)
+    errs["glove"] = emb_glove(sents, where)
+    emb_graphs(where)
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(all(v == 0 for v in counts.values()),
+          f"[embeddings] kernels launched: {counts}")
+    print(f"[embeddings] kernel launches over the phase: {counts}")
+    print(f"[embeddings] summary on {where}: precision@{KNN_K} {prec:.4f}, "
+          f"PV-DBOW topic hits {pv_hits}/{PV_UNSEEN}, card-vs-CPU step max "
+          f"abs err {errs}, two runs bit-equal {bits}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts, {"w2v": w2v, "words": words, "nearest": nearest}
+
+
+def _unit_rows(M):
+    return M / np.maximum(np.linalg.norm(M, axis=1, keepdims=True), 1e-12)
+
+
+def _knn_ref(M, Q, distance, Mn=None):
+    """float64 scores (Q, N) of every point for each query, larger better,
+    and the distance each score reports (``Mn``: M's unit rows, when the
+    caller has them)."""
+    if distance == "cosinesimilarity":
+        Mn = _unit_rows(M) if Mn is None else Mn
+        Qn = _unit_rows(Q)
+        s = Qn @ Mn.T
+        return s, s
+    if distance == "dot":
+        s = Q @ M.T
+        return s, s
+    if distance == "euclidean":
+        d = np.sqrt(np.maximum((Q * Q).sum(1)[:, None] - 2 * Q @ M.T
+                               + (M * M).sum(1)[None], 0.0))
+        return -d, d
+    d = np.stack([np.abs(q[None] - M).sum(1) for q in Q])
+    return -d, d
+
+
+def _knn_agree(got_idx, got_d, score, dist, what, exclude=None):
+    """One answer against the float64 brute force: at each position the
+    index's score within KNN_TIE (of max(1, |score|)) of that position's
+    best score, the indices distinct, the distance within KNN_DIST_TOL of
+    the reference's (of max(1, |d|)). Returns (ties met, max distance
+    error)."""
+    s = score.copy()
+    if exclude is not None:
+        s[exclude] = -np.inf
+    k = len(got_idx)
+    part = np.argpartition(-s, k)[:k]
+    order = part[np.argsort(-s[part], kind="stable")]
+    check(len(set(got_idx)) == k and (exclude is None or exclude not in
+                                      got_idx), f"{what}: indices {got_idx}")
+    tie = KNN_TIE * np.maximum(1.0, np.abs(s[order]))
+    ok = np.abs(s[got_idx] - s[order]) <= tie
+    check(bool(ok.all()), f"{what}: indices {list(got_idx)} against "
+          f"{list(order)}")
+    err = np.abs(np.asarray(got_d) - dist[order])
+    check(bool(np.all(err <= KNN_DIST_TOL * np.maximum(1.0, np.abs(
+        dist[order])))), f"{what}: distances off by {err.max()}")
+    return int((np.asarray(got_idx) != order).sum()), float(err.max())
+
+
+def phase_knn(emb):
+    """[knn]: the trained Word2Vec vectors written with
+    ``write_word2vec_binary``, read back and served by
+    ``NearestNeighborsServer`` on the card; KNN_ROWS /knn and KNN_NEW
+    /knnnew requests through ``NearestNeighborsClient`` held against a
+    float64 brute force and /knn against ``words_nearest``; one /knnnew
+    batch under each other distance; ``BruteForceKNN`` card against CPU.
+    Launch counts are zeroed before and read after. Returns the counts."""
+    import tempfile
+
+    from deeplearning4j_torch.knn import (BruteForceKNN,
+                                          NearestNeighborsClient,
+                                          NearestNeighborsServer)
+    from deeplearning4j_torch.nlp import (read_word2vec_binary,
+                                          write_word2vec_binary)
+
+    where = card()
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    w2v = emb["w2v"]
+    words, vecs = w2v.vocab_words(), w2v.vectors
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "vectors.bin")
+        t1 = time.perf_counter()
+        write_word2vec_binary(path, words, vecs)
+        t2 = time.perf_counter()
+        words2, pts = read_word2vec_binary(path)
+        t3 = time.perf_counter()
+        size = os.path.getsize(path)
+    check(words2 == words and np.array_equal(pts, vecs),
+          "[knn] the vectors file did not read back")
+    print(f"[knn] {len(words)} x {vecs.shape[1]} vectors: "
+          f"write_word2vec_binary {t2 - t1:.2f} s, read {t3 - t2:.2f} s, "
+          f"{size} bytes")
+    M = pts.astype(np.float64)
+    Mn = _unit_rows(M)
+    rng = np.random.default_rng(EMB_SEED + 3)
+    news = [(pts[rng.integers(len(pts), size=KNN_NEW_ROWS)]
+             + 0.1 * pts.std() * rng.standard_normal(
+                 (KNN_NEW_ROWS, pts.shape[1]))).astype(np.float32)
+            for _ in range(KNN_NEW)]
+    srv = NearestNeighborsServer(pts, distance="cosinesimilarity", port=0,
+                                 default_k=KNN_K,
+                                 device=EMB_DEVICE).start()
+    swaps, err = 0, 0.0
+    try:
+        client = NearestNeighborsClient(port=srv.port, timeout=60)
+        check(client.health() == {"status": "ok", "points": len(words)},
+              "[knn] /health")
+        knn_ms, knn_res = [], []
+        for w in emb["words"]:
+            r0 = time.perf_counter()
+            knn_res.append(client.knn(w2v.vocab.index_of(w), KNN_K))
+            knn_ms.append(1e3 * (time.perf_counter() - r0))
+        new_ms, new_res = [], []
+        for q in news:
+            r0 = time.perf_counter()
+            new_res.append(client._post("/knnnew", {"ndarray": q.tolist(),
+                                                    "k": KNN_K})["results"])
+            new_ms.append(1e3 * (time.perf_counter() - r0))
+        time.sleep(0.05)   # the handler counts a request after replying
+        _, body = _plain_get(srv.port, "/metrics")
+        _promcheck(body, "[knn] /metrics")
+    finally:
+        srv.stop()
+    rows = [w2v.vocab.index_of(w) for w in emb["words"]]
+    score, dist = _knn_ref(M, M[rows], "cosinesimilarity", Mn)
+    for i, (w, res) in enumerate(zip(emb["words"], knn_res)):
+        idx = [r["index"] for r in res]
+        d = [r["distance"] for r in res]
+        sw, e = _knn_agree(idx, d, score[i], dist[i], f"[knn] /knn {w}",
+                           exclude=rows[i])
+        swaps, err = swaps + sw, max(err, e)
+        near = emb["nearest"][w]
+        ws = [n for n, _ in near]
+        same = [a == words[b] or abs(s - r["distance"]) <= KNN_TIE
+                for a, (_, s), b, r in zip(ws, near, idx, res)]
+        check(all(same) and np.allclose([s for _, s in near], d, rtol=0,
+                                        atol=KNN_DIST_TOL),
+              f"[knn] /knn {w} against words_nearest: {ws} vs "
+              f"{[words[b] for b in idx]}")
+    s_all, d_all = _knn_ref(M, np.concatenate(news).astype(np.float64),
+                            "cosinesimilarity", Mn)
+    for j, row in enumerate(r for res in new_res for r in res):
+        sw, e = _knn_agree([r["index"] for r in row],
+                           [r["distance"] for r in row], s_all[j], d_all[j],
+                           "[knn] /knnnew")
+        swaps, err = swaps + sw, max(err, e)
+    print(f"[knn] cosine server on {where}: {KNN_ROWS} /knn (p50 "
+          f"{_pct(knn_ms, 50):.2f} ms, p99 {_pct(knn_ms, 99):.2f} ms) and "
+          f"{KNN_NEW} /knnnew of {KNN_NEW_ROWS} vectors (p50 "
+          f"{_pct(new_ms, 50):.2f} ms, p99 {_pct(new_ms, 99):.2f} ms) at k "
+          f"{KNN_K} over 127.0.0.1 through NearestNeighborsClient; every "
+          f"answer equal to a float64 brute force ({swaps} positions "
+          f"swapped within {KNN_TIE}, max distance error {err:.2e}); /knn "
+          f"equal to words_nearest for all {KNN_ROWS}; /metrics passes "
+          f"promcheck")
+    for distance in ("euclidean", "dot", "manhattan"):
+        srv = NearestNeighborsServer(pts, distance=distance, port=0,
+                                     device=EMB_DEVICE).start()
+        try:
+            r0 = time.perf_counter()
+            res = NearestNeighborsClient(port=srv.port, timeout=120)._post(
+                "/knnnew", {"ndarray": news[0].tolist(), "k": KNN_K}
+            )["results"]
+            ms = 1e3 * (time.perf_counter() - r0)
+        finally:
+            srv.stop()
+        s_all, d_all = _knn_ref(M, news[0].astype(np.float64), distance)
+        e = 0.0
+        for j, row in enumerate(res):
+            e = max(e, _knn_agree([r["index"] for r in row],
+                                  [r["distance"] for r in row], s_all[j],
+                                  d_all[j], f"[knn] /knnnew {distance}")[1])
+        print(f"[knn] {distance} server: one /knnnew of {KNN_NEW_ROWS} in "
+              f"{ms:.2f} ms, equal to a float64 brute force (max distance "
+              f"error {e:.2e})")
+    card_ix = BruteForceKNN(pts, distance="cosinesimilarity",
+                            device=EMB_DEVICE)
+    cpu_ix = BruteForceKNN(pts, distance="cosinesimilarity", device="cpu")
+    q = np.concatenate(news[:4])
+    (ci, cd), (pi, pd) = card_ix.search(q, KNN_K), cpu_ix.search(q, KNN_K)
+    s_all, _ = _knn_ref(M, q.astype(np.float64), "cosinesimilarity", Mn)
+    tie = np.abs(np.take_along_axis(s_all, ci, 1)
+                 - np.take_along_axis(s_all, pi, 1)) <= KNN_TIE
+    check(bool(np.all((ci == pi) | tie)) and np.allclose(cd, pd, rtol=0,
+                                                         atol=KNN_DIST_TOL),
+          "[knn] BruteForceKNN card against CPU")
+    print(f"[knn] BruteForceKNN card against CPU on {len(q)} queries: "
+          f"indices equal at {int((ci == pi).sum())} of {ci.size} positions "
+          f"(the rest within {KNN_TIE}), distances within "
+          f"{np.abs(cd - pd).max():.2e}")
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(all(v == 0 for v in counts.values()),
+          f"[knn] kernels launched: {counts}")
+    print(f"[knn] kernel launches over the phase: {counts}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -10033,6 +10736,9 @@ def main() -> int:
         shutil.rmtree(aot_dir, ignore_errors=True)
     recovery_counts = phase_recovery()
     elastic_counts = phase_elastic()
+    emb_counts, emb = phase_embeddings()
+    knn_counts = phase_knn(emb)
+    del emb
     # last: the phases that make a process group, one after the other
     par_counts = phase_parallel()
     tp_counts, _ = phase_tp_sp()
@@ -10104,6 +10810,9 @@ def main() -> int:
         # MoE LM on a world-1 expert mesh (its forward, gradient and fit)
         row["launches_by_path"]["elastic"] = elastic_counts[key]
         row["launches_by_path"]["moe_ep"] = moe_ep_counts[key]
+        # the embedding trainers and the kNN server reach no kernel
+        row["launches_by_path"]["embeddings"] = emb_counts[key]
+        row["launches_by_path"]["knn"] = knn_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -494,6 +494,37 @@ last line):
    the card; no kernel launched (``launches_by_path["knn"]``). Quick call
    for both: ``python3 -c "import chip_smoke as c; counts, emb =
    c.phase_embeddings(); c.phase_knn(emb)"``.
+26. analysis (after [knn]) — the same 71,290 x 300 vectors, rows by
+   descending frequency, each word's planted topic ``_emb_topic``.
+   ``KMeans(k=100)`` with kmeans++: every Lloyd step's cost, gated not to
+   rise (ANA_COST_SLACK); one step on the card against the CPU from the
+   same centroids (assignments equal except at near-ties, ANA_TIE_ULPS;
+   centroids within ANA_CENTER_RTOL); purity against the topics.
+   ``KMeansClustering.setup(100, max_iterations=20)`` twice, bit for bit
+   (centres, assignments, distances, every ClusterInfo); one
+   ``_cluster_pass`` on the card twice bit-equal and against the CPU; an
+   ``OptimisationStrategy`` run from 20 clusters whose splits fire (owners
+   found on the card in row blocks). ``BarnesHutTsne(mode="blocked")``
+   over all 71,290 at the reference's defaults (perplexity 30, lr 200,
+   ANA_BH_ITERS iterations, 12x exaggeration for 250, momentum 0.5 ->
+   0.8): KL finite and below the KL after exaggeration; one attraction,
+   repulsion (ANA_STEP_BLOCKS row blocks) and update from the last step's
+   state against the CPU; two ANA_DET_ITERS-iteration fits bit-equal;
+   ms an iteration with the repulsion's share, the layout's topic
+   precision@10. Exact ``Tsne`` on the ANA_EXACT_N most frequent words
+   (its (N, N) f32 matrices keep it from all 71,290 on one card) with the
+   same gates and a whole step against the CPU. Tree mode against blocked
+   mode on ANA_TREE_N words: the host tree's repulsion at theta 0.5 within
+   theta-dependent bounds of the blocked one. ``VPTree`` and ``KDTree``
+   over ANA_VPKD_N vectors, each built and queried ANA_QUERIES times in a
+   process of its own while the rest of the phase runs (host work only),
+   the answers held against ``BruteForceKNN`` on the card (indices equal
+   except at near-ties).
+   ``RandomProjectionLSH(hash_length=12)``: signatures card against CPU
+   (a bit differs only within rounding of 0), recall@10 of ``search``.
+   No kernel launched (``launches_by_path["analysis"]``). Quick call:
+   ``python3 -c "import chip_smoke as c; counts, emb =
+   c.phase_embeddings(); c.phase_analysis(emb)"``.
 
 Prints a JSON line with every kernel's numbers, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``. Needs one CUDA card.
@@ -10683,6 +10714,804 @@ def phase_knn(emb):
     return counts
 
 
+# [analysis]: embedding analysis over [embeddings]' 71,290 x 300 Word2Vec
+# vectors. Host syncs are the reference's: k-means reads its cost once a
+# step, apply_to its statistics once a pass, t-SNE its KL once at the end.
+ANA_K = EMB_TOPICS          # k-means and the clustering runs: the topics
+ANA_CLUSTER_ITERS = 20      # KMeansClustering.setup(100, max_iterations=20)
+ANA_OPT_K0 = 20             # the OptimisationStrategy run starts at 20,
+ANA_OPT_ITERS = 8           # splits every cluster above the mean size from
+ANA_OPT_PASSES = 12         # the second pass on, ends after 8 passes once
+                            # none is split, and stops at 12 passes at most
+                            # (its MAX_TOTAL_ITERATIONS: a split takes the
+                            # farthest member, which can leave a big cluster
+                            # big, and the reference's loop then goes on)
+# t-SNE's iterations, cut from the default 1000 to keep the phase near its
+# budget (a blocked iteration at 71,290 is 170 ms on the H100): the 250 of
+# early exaggeration, then 50
+ANA_BH_ITERS = 300
+ANA_EXACT_N = 20_000        # exact Tsne's words: (N, N) f32 is 1.6 GB here
+ANA_EXACT_ITERS = 300
+ANA_DET_ITERS = 3           # the twice-run determinism fits
+ANA_TREE_N = 2_000          # tree mode against blocked mode
+ANA_THETA = 0.5             # BarnesHutTsne's default theta
+ANA_VPKD_N = EMB_VOCAB      # the VP and KD trees' points
+ANA_QUERIES = 50            # tree queries held against BruteForceKNN
+ANA_TREE_TIMEOUT_S = 600    # a tree process's build and queries, at most
+ANA_LSH_BITS = 12
+ANA_LSH_QUERIES = 200       # LSH recall@10 queries
+ANA_STEP_BLOCKS = 3         # repulsion row blocks recomputed on the CPU
+EPS32 = float(np.finfo(np.float32).eps)
+# f32 |x|² - 2x·c + |c|² rounds within a few ulps of S (the larger squared
+# norm): assignments may differ where two centres' squared distances are
+# within ANA_TIE_ULPS eps·S of each other
+ANA_TIE_ULPS = 16
+ANA_CENTER_RTOL = 1e-5      # centroids, card against CPU, of the largest
+ANA_COST_SLACK = 1e-5       # a Lloyd cost may rise by this (f32 sums)
+ANA_STEP_RTOL = 1e-5        # a t-SNE step's outputs, of each one's largest
+# an exact step's gradient sums 20,000 terms a coordinate in another order
+# on each device: the card and the CPU may part by this much of the terms'
+# summed magnitudes (about 6 sqrt(N) eps at N 20,000; N eps is 2.4e-3)
+ANA_GRAD_RTOL = 1e-4
+ANA_REP_RTOL = 1e-5         # repulsion rows, of the two sums they differ by
+ANA_Z_RTOL = 1e-6           # a repulsion block's Z, relative
+# tree against blocked repulsion at theta: Z within theta²/5 relative, the
+# rep field within 0.4·theta² of its norm (relative L2): at theta 0.5 the
+# bounds of the reference's own test_bh_force_approximates_exact (0.05, 0.1)
+
+
+class _CallLog:
+    """Stands in for ``fn``: calls it, keeps what ``keep(i, args, out)``
+    returns for call i and the last call's arguments, and on the card each
+    call's device time between two CUDA events."""
+
+    def __init__(self, fn, keep=None):
+        self.fn, self.keep = fn, keep
+        self.kept, self.events, self.last = [], [], None
+        self.calls = 0
+        self.cuda = torch.device(EMB_DEVICE).type == "cuda"
+
+    def __call__(self, *args, **kw):
+        if self.cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+        out = self.fn(*args, **kw)
+        if self.cuda:
+            b.record()
+            self.events.append((a, b))
+        if self.keep is not None:
+            self.kept.append(self.keep(self.calls, args, out))
+        self.last = args
+        self.calls += 1
+        return out
+
+    def device_ms(self):
+        """Each call's device ms (None off the card)."""
+        if not self.cuda:
+            return None
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def _ana_sync():
+    if torch.device(EMB_DEVICE).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _purity(assign, topics):
+    """Share of points in their cluster's most common planted topic."""
+    table = np.zeros((int(assign.max()) + 1, int(topics.max()) + 1),
+                     np.int64)
+    np.add.at(table, (assign, topics), 1)
+    return float(table.max(1).sum() / len(assign))
+
+
+def _flips_at_ties(got, want, x, centers, what):
+    """Assignments ``got`` (card) against ``want`` (CPU) of points ``x`` to
+    ``centers``: where they differ, the two centres' squared distances
+    (float64) must lie within ANA_TIE_ULPS eps·S. Returns the flips."""
+    diff = np.nonzero(got != want)[0]
+    if len(diff):
+        xd = x[diff].astype(np.float64)
+        c = centers.astype(np.float64)
+        dg = ((xd - c[got[diff]]) ** 2).sum(1)
+        dw = ((xd - c[want[diff]]) ** 2).sum(1)
+        S = np.maximum((xd * xd).sum(1), np.maximum(
+            (c[got[diff]] ** 2).sum(1), (c[want[diff]] ** 2).sum(1)))
+        gap = np.abs(dg - dw)
+        check(bool(np.all(gap <= ANA_TIE_ULPS * EPS32 * S)),
+              f"{what}: {len(diff)} assignments differ, the largest gap "
+              f"{(gap / S).max():.2e} of S")
+    return len(diff)
+
+
+def _close_of_max(got, want, rtol, what):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    check(err <= rtol * scale, f"{what}: {err:.3e} of scale {scale:.3e}")
+    return err
+
+
+def _gains_close(got, want, v_old, momentum, lr, what):
+    """A step's new gains: equal, except where the gradient that set them
+    was within rounding of 0 (its sign then decides +0.2 against x0.8).
+    The gradient comes back from the CPU's outputs: v_new = momentum·v -
+    lr·gains·grad."""
+    vel, gains = want[1].astype(np.float64), want[2].astype(np.float64)
+    grad = (momentum * v_old.astype(np.float64) - vel) / (lr * gains)
+    bad = got[2] != want[2]
+    check(bool(np.all(np.abs(grad[bad]) <= 1e-5 * np.abs(grad).max())),
+          f"{what}: gains differ where the gradient is "
+          f"{np.abs(grad[bad]).max() if bad.any() else 0:.3e}")
+    return int(bad.sum())
+
+
+def ana_kmeans(vecs, topics, where):
+    """``KMeans(k=100)`` with kmeans++ over every vector: the cost of every
+    Lloyd step (gated not to rise), one step on the card against the CPU
+    from the same centroids, purity against the planted topics."""
+    from unittest import mock
+
+    from deeplearning4j_torch.knn import KMeans
+    from deeplearning4j_torch.knn import kmeans as km_mod
+
+    log = _CallLog(km_mod._lloyd_step,
+                   keep=lambda i, a, out: (a[1], out[2]))
+    t0 = time.perf_counter()
+    with mock.patch.object(km_mod, "_lloyd_step", log):
+        km = KMeans(k=ANA_K, device=EMB_DEVICE).fit(vecs)
+    fit_s = time.perf_counter() - t0
+    costs = [float(c) for _, c in log.kept]
+    rises = [b / a - 1 for a, b in zip(costs, costs[1:]) if b > a]
+    check(all(np.isfinite(costs)) and all(r <= ANA_COST_SLACK
+                                          for r in rises),
+          f"[analysis] k-means cost rose: {costs}")
+    step_ms = log.device_ms()
+    labels = km.predict(vecs)
+    pur = _purity(labels, topics)
+    head = _purity(labels[:EMB_PREC_POOL], topics[:EMB_PREC_POOL])
+    # the most frequent words alone, clustered on their own
+    own = _purity(KMeans(k=ANA_K, device=EMB_DEVICE)
+                  .fit(vecs[:EMB_PREC_POOL]).predict(vecs[:EMB_PREC_POOL]),
+                  topics[:EMB_PREC_POOL])
+    # one Lloyd step from the second-to-last centroids, card against CPU
+    c_in = log.kept[-1][0]
+    card = km_mod._lloyd_step(torch.as_tensor(vecs, device=EMB_DEVICE),
+                              c_in, ANA_K)
+    cpu = km_mod._lloyd_step(torch.as_tensor(vecs), c_in.cpu(), ANA_K)
+    a_card, a_cpu = card[1].cpu().numpy(), cpu[1].numpy()
+    flips = _flips_at_ties(a_card, a_cpu, vecs, c_in.cpu().numpy(),
+                           "[analysis] Lloyd step card against CPU")
+    touched = np.zeros(ANA_K, bool)
+    touched[a_card[a_card != a_cpu]] = touched[a_cpu[a_card != a_cpu]] = True
+    err = _close_of_max(card[0].cpu().numpy()[~touched],
+                        cpu[0].numpy()[~touched], ANA_CENTER_RTOL,
+                        "[analysis] Lloyd centroids card against CPU")
+    step_s = "not measured" if step_ms is None else \
+        f"{statistics.median(step_ms):.3f}"
+    print(f"[analysis] KMeans(k={ANA_K}, kmeans++) over {len(vecs)} x "
+          f"{vecs.shape[1]} on {where}: {len(costs)} Lloyd steps, cost "
+          f"{costs[0]:.6g} -> {costs[-1]:.6g} (never rising by more than "
+          f"{ANA_COST_SLACK}: largest rise {max(rises, default=0):.2e}), "
+          f"purity against the {EMB_TOPICS} planted topics {pur:.4f}, "
+          f"{head:.4f} over the {EMB_PREC_POOL} most frequent words "
+          f"({own:.4f} when they are clustered alone); fit "
+          f"{fit_s:.2f} s with its kmeans++ seeding on the host; a Lloyd "
+          f"step {step_s} device ms (median, CUDA events); one step card "
+          f"against CPU: {flips} assignments differ (all at near-ties), "
+          f"centroids of the untouched clusters within {err:.2e}")
+    return {"steps": len(costs), "purity": pur,
+            "lloyd_ms": None if step_ms is None else
+            statistics.median(step_ms)}
+
+
+def _cluster_info_key(cs):
+    return [(c.point_count, c.average_point_distance_from_center,
+             c.point_distance_from_center_variance,
+             c.max_point_distance_from_center) for c in cs.info.clusters]
+
+
+def ana_clustering(vecs, topics, where):
+    """``KMeansClustering.setup(100, max_iterations=20)`` twice (gated bit
+    for bit); one ``_cluster_pass`` on the card against the CPU."""
+    from unittest import mock
+
+    from deeplearning4j_torch.knn import KMeansClustering
+    from deeplearning4j_torch.knn import clustering as cl
+
+    runs, times, logs = [], [], []
+    for _ in range(2):
+        log = _CallLog(cl._cluster_pass,
+                       keep=lambda i, a, out: i)
+        algo = KMeansClustering.setup(ANA_K, max_iterations=ANA_CLUSTER_ITERS,
+                                      device=EMB_DEVICE)
+        t0 = time.perf_counter()
+        with mock.patch.object(cl, "_cluster_pass", log):
+            runs.append(algo.apply_to(vecs))
+        times.append(time.perf_counter() - t0)
+        logs.append(log)
+    a, b = runs
+    same = (np.array_equal(a.centers, b.centers)
+            and np.array_equal(a.assignments, b.assignments)
+            and np.array_equal(a.distances, b.distances)
+            and _cluster_info_key(a) == _cluster_info_key(b))
+    check(same, "[analysis] KMeansClustering: two runs differ")
+    check(a.cluster_count == ANA_K and len(algo.history.iterations)
+          >= ANA_CLUSTER_ITERS, f"[analysis] KMeansClustering: "
+          f"{a.cluster_count} clusters after {len(algo.history.iterations)} "
+          f"passes")
+    applied = sum(i.strategy_applied for i in
+                  algo.history.iterations.values())
+    pass_ms = logs[0].device_ms()
+    # one pass on the card against the CPU, from the final centres
+    x_card = torch.as_tensor(vecs, device=EMB_DEVICE)
+    prev = torch.as_tensor(a.assignments.astype(np.int64))
+    centers = torch.as_tensor(a.centers)
+    card = cl._cluster_pass(x_card, centers.to(EMB_DEVICE),
+                            prev.to(EMB_DEVICE), ANA_K)
+    again = cl._cluster_pass(x_card, centers.to(EMB_DEVICE),
+                             prev.to(EMB_DEVICE), ANA_K)
+    check(all(torch.equal(u, v) for u, v in zip(card, again)),
+          "[analysis] _cluster_pass: two passes differ")
+    cpu = cl._cluster_pass(torch.as_tensor(vecs), centers, prev, ANA_K)
+    a_card, a_cpu = card[0].cpu().numpy(), cpu[0].numpy()
+    flips = _flips_at_ties(a_card, a_cpu, vecs, a.centers,
+                           "[analysis] _cluster_pass card against CPU")
+    touched = np.zeros(ANA_K, bool)
+    touched[a_card[a_card != a_cpu]] = touched[a_cpu[a_card != a_cpu]] = True
+    ok = ~touched
+    S = float(max((vecs.astype(np.float64) ** 2).sum(1).max(),
+                  (a.centers.astype(np.float64) ** 2).sum(1).max()))
+    d_tol = math.sqrt(8 * EPS32 * S)
+    errs = {"centers": _close_of_max(card[1].cpu().numpy()[ok],
+                                     cpu[1].numpy()[ok], ANA_CENTER_RTOL,
+                                     "[analysis] pass centres")}
+    check(torch.equal(card[2].cpu()[torch.as_tensor(ok)],
+                      cpu[2][torch.as_tensor(ok)]),
+          "[analysis] pass counts")
+    for name, i in (("avg", 3), ("max", 5)):
+        e = float((card[i].cpu() - cpu[i]).abs()[torch.as_tensor(ok)].max())
+        check(e <= d_tol, f"[analysis] pass {name}: {e} against {d_tol}")
+        errs[name] = e
+    same_pt = torch.as_tensor(a_card == a_cpu)
+    e = float((card[6].cpu() ** 2 - cpu[6] ** 2).abs()[same_pt].max())
+    check(e <= 8 * EPS32 * S, f"[analysis] pass squared distances: {e}")
+    errs["dist2"] = e
+    pass_s = "not measured" if pass_ms is None else \
+        f"{statistics.median(pass_ms):.3f}"
+    print(f"[analysis] KMeansClustering.setup({ANA_K}, max_iterations="
+          f"{ANA_CLUSTER_ITERS}) on {where}: {len(algo.history.iterations)} "
+          f"passes, strategy acted on {applied}, {a.cluster_count} clusters, "
+          f"purity {_purity(a.assignments, topics):.4f}, average distance "
+          f"to centre {a.info.average_point_distance_from_center:.5f}; "
+          f"{times[0]:.2f} s and {times[1]:.2f} s (the d²-weighted seeding "
+          f"on the host in each), a pass {pass_s} device ms (median); two "
+          f"runs bit-equal (centres, assignments, distances, every "
+          f"ClusterInfo); one pass card against CPU: {flips} assignments "
+          f"differ (all at near-ties), errors {errs}")
+
+    return {"pass_ms": None if pass_ms is None else
+            statistics.median(pass_ms), "flips": flips}
+
+
+def ana_optimisation(vecs, topics, where):
+    """One ``OptimisationStrategy`` run (MINIMIZE_PER_CLUSTER_POINT_COUNT
+    at the mean cluster size of ANA_OPT_K0 clusters) whose splits fire,
+    each finding owners on the card in row blocks."""
+    from unittest import mock
+
+    from deeplearning4j_torch.knn import (BaseClusteringAlgorithm,
+                                          ClusteringOptimizationType,
+                                          OptimisationStrategy)
+
+    limit = len(vecs) // ANA_OPT_K0
+    strat = (OptimisationStrategy.setup(ANA_OPT_K0)
+             .optimize(ClusteringOptimizationType
+                       .MINIMIZE_PER_CLUSTER_POINT_COUNT, limit)
+             .optimize_when_iteration_count_multiple_of(2)
+             .end_when_iteration_count_equals(ANA_OPT_ITERS))
+    opt = BaseClusteringAlgorithm.setup(strat, device=EMB_DEVICE)
+    opt.MAX_TOTAL_ITERATIONS = ANA_OPT_PASSES
+    split_log = _CallLog(opt._split)
+    t0 = time.perf_counter()
+    with mock.patch.object(opt, "_split", split_log):
+        cs = opt.apply_to(vecs)
+    opt_s = time.perf_counter() - t0
+    counts = [c.point_count for c in cs.info.clusters]
+    check(split_log.calls > 0 and cs.cluster_count > ANA_OPT_K0
+          and len(counts) == cs.cluster_count
+          and sum(counts) == len(vecs)
+          and int(cs.assignments.max()) < cs.cluster_count,
+          f"[analysis] OptimisationStrategy: {split_log.calls} splits, "
+          f"{cs.cluster_count} clusters, {sum(counts)} points counted")
+    split_ms = split_log.device_ms()
+    split_s = "not measured" if split_ms is None else \
+        f"{statistics.median(split_ms):.2f}"
+    print(f"[analysis] OptimisationStrategy (from {ANA_OPT_K0} clusters, "
+          f"split any above {limit} points from the second pass on, end "
+          f"after {ANA_OPT_ITERS} passes once none is, at most "
+          f"{ANA_OPT_PASSES} passes) on {where}: "
+          f"{len(opt.history.iterations)} passes, {split_log.calls} splits "
+          f"({split_s} device ms each, median: owners found on the card in "
+          f"row blocks), {cs.cluster_count} clusters, largest {max(counts)} "
+          f"points, purity {_purity(cs.assignments, topics):.4f}; "
+          f"{opt_s:.2f} s")
+    return {"splits": split_log.calls}
+
+
+def _rep_scale(yb, y):
+    """The larger of the two sums whose difference is a repulsion row, for
+    the rows ``yb`` against every point ``y``, in float64 on y's device."""
+    yb, y = yb.double(), y.double()
+    d2 = ((yb[:, None] - y[None]) ** 2).sum(-1)
+    num2 = torch.where(d2 <= 1e-12, 0.0, 1.0 / (1.0 + d2)) ** 2
+    return max(float((num2.sum(1, keepdim=True) * yb).abs().max()),
+               float((num2 @ y).abs().max()))
+
+
+def ana_bh_step_vs_cpu(args, rows, cols, vals, ex, block):
+    """One attraction, repulsion and update from the state the fit's last
+    step started from (``args``: that call's), on the card and on the CPU:
+    the attraction whole, the repulsion on ANA_STEP_BLOCKS row blocks (a
+    whole CPU repulsion at this N takes minutes), the update from the
+    card's repulsion and Z."""
+    from deeplearning4j_torch.plot import tsne
+    from deeplearning4j_torch.plot.tsne import BarnesHutTsne
+
+    y, vel, gains, momentum, lr = args[0], args[1], args[2], args[6], args[7]
+    attr = tsne._attraction(y, rows, cols, vals, ex)
+    attr_cpu = tsne._attraction(y.cpu(), rows.cpu(), cols.cpu(), vals.cpu(),
+                                ex)
+    errs = {"attraction": _close_of_max(attr.cpu().numpy(), attr_cpu.numpy(),
+                                        ANA_STEP_RTOL, "[analysis] BH "
+                                        "attraction card against CPU")}
+    rep, z = BarnesHutTsne._repulsion_blocked(y, block)
+    sq = tsne._dot_columns(y, y)
+    y_cpu, sq_cpu = y.cpu(), tsne._dot_columns(y.cpu(), y.cpu())
+    n = y.shape[0]
+    e_rep = e_z = 0.0
+    for s in np.linspace(0, max(n - block, 0), ANA_STEP_BLOCKS).astype(int):
+        s = int(s) // block * block        # a block of the fit's own tiling
+        r_card, z_card = tsne._repulsion_rows(y[s: s + block],
+                                              sq[s: s + block], y, sq)
+        check(torch.equal(r_card, rep[s: s + block]),
+              "[analysis] BH repulsion: a block alone against in the sweep")
+        r_cpu, z_cpu = tsne._repulsion_rows(y_cpu[s: s + block],
+                                            sq_cpu[s: s + block], y_cpu,
+                                            sq_cpu)
+        scale = _rep_scale(y[s: s + block], y)
+        e = float((r_card.cpu() - r_cpu).abs().max())
+        check(e <= ANA_REP_RTOL * scale, f"[analysis] BH repulsion rows "
+              f"{s}..: card against CPU {e} of {scale}")
+        ez = abs(float(z_card) - float(z_cpu)) / float(z_cpu)
+        check(ez <= ANA_Z_RTOL, f"[analysis] BH block Z card against CPU "
+              f"{ez}")
+        e_rep, e_z = max(e_rep, e / scale), max(e_z, ez)
+    errs["repulsion_of_terms"], errs["z_rel"] = e_rep, e_z
+    card = BarnesHutTsne._step_blocked_update(y, vel, gains, attr, rep, z,
+                                              momentum, lr)
+    cpu = BarnesHutTsne._step_blocked_update(
+        y_cpu, vel.cpu(), gains.cpu(), attr.cpu(), rep.cpu(), z.cpu(),
+        momentum, lr)
+    got = [t.cpu().numpy() for t in card]
+    want = [t.numpy() for t in cpu]
+    for name, i in (("y", 0), ("velocity", 1)):
+        errs[name] = _close_of_max(got[i], want[i], ANA_STEP_RTOL,
+                                   f"[analysis] BH update {name}")
+    errs["gains_flips"] = _gains_close(got, want, vel.cpu().numpy(), momentum,
+                                       lr, "[analysis] BH update gains")
+    return errs
+
+
+def ana_bh_tsne(vecs, topics, where):
+    """``BarnesHutTsne(mode="blocked")`` over every vector at the
+    reference's defaults; gates and timings as the module docstring says."""
+    from unittest import mock
+
+    from deeplearning4j_torch.knn import BruteForceKNN
+    from deeplearning4j_torch.plot import BarnesHutTsne, tsne
+
+    ts = BarnesHutTsne(max_iter=ANA_BH_ITERS, device=EMB_DEVICE)
+    ex_iters = ts.exaggeration_iters
+    sparse, real_knn_p = {}, tsne._knn_sparse_p
+
+    def knn_p(*a, **kw):
+        _ana_sync()
+        t = time.perf_counter()
+        sparse["coo"] = real_knn_p(*a, **kw)
+        _ana_sync()
+        sparse["s"] = time.perf_counter() - t
+        return sparse["coo"]
+
+    step_log = _CallLog(BarnesHutTsne._step_blocked_update,
+                        keep=lambda i, a, out: out[0].clone()
+                        if i == ex_iters - 1 else None)
+    rep_log = _CallLog(BarnesHutTsne._repulsion_blocked)
+    t0 = time.perf_counter()
+    with mock.patch.object(tsne, "_knn_sparse_p", knn_p), \
+            mock.patch.object(BarnesHutTsne, "_step_blocked_update",
+                              staticmethod(step_log)), \
+            mock.patch.object(BarnesHutTsne, "_repulsion_blocked",
+                              staticmethod(rep_log)):
+        y = ts.fit_transform(vecs)
+    fit_s = time.perf_counter() - t0
+    rows, cols, vals = sparse["coo"]
+    blk = min(ts.block, max(64, len(vecs)))
+    kl_ex = float(tsne._sparse_kl(step_log.kept[ex_iters - 1], rows, cols,
+                                  vals, blk))
+    check(np.isfinite(y).all() and y.shape == (len(vecs), 2),
+          "[analysis] BarnesHutTsne layout")
+    check(np.isfinite(ts.kl_) and np.isfinite(kl_ex) and ts.kl_ < kl_ex,
+          f"[analysis] BarnesHutTsne KL {kl_ex} after exaggeration -> "
+          f"{ts.kl_} at the end")
+    rep_ms = rep_log.device_ms()
+    loop_s = fit_s - sparse["s"]
+    iters = step_log.calls
+    # layout quality: the share of each point's 10 nearest in the layout
+    # that share its planted topic
+    index = BruteForceKNN(y, device=EMB_DEVICE)
+    idx = np.concatenate([index.search(part, KNN_K + 1)[0]
+                          for part in np.array_split(y, -(-len(y) // 4096))])
+    prec = float(np.mean(topics[idx[:, 1:]] == topics[:, None]))
+    # among the most frequent words alone, in the same layout
+    hy = y[:EMB_PREC_POOL]
+    hidx, _ = BruteForceKNN(hy, device=EMB_DEVICE).search(hy, KNN_K + 1)
+    hprec = float(np.mean(topics[hidx[:, 1:]] == topics[:EMB_PREC_POOL,
+                                                         None]))
+    ex = 1.0 if iters > ex_iters else ts.early_exaggeration
+    errs = ana_bh_step_vs_cpu(step_log.last, rows, cols, vals, ex, blk)
+    # two short fits at full N, bit for bit
+    runs = [BarnesHutTsne(max_iter=ANA_DET_ITERS, device=EMB_DEVICE)
+            .fit_transform(vecs) for _ in range(2)]
+    check(np.array_equal(runs[0], runs[1]),
+          "[analysis] BarnesHutTsne: two runs differ")
+    rep_s = "not measured" if rep_ms is None else (
+        f"{statistics.median(rep_ms):.2f} device ms a repulsion (median, "
+        f"CUDA events), {sum(rep_ms[:iters]) / 1e3 / loop_s:.1%} of the loop")
+    print(f"[analysis] BarnesHutTsne(mode='blocked') over {len(vecs)} x "
+          f"{vecs.shape[1]} on {where}: perplexity {ts.perplexity}, lr "
+          f"{ts.learning_rate}, {iters} iterations ({ex_iters} at "
+          f"exaggeration {ts.early_exaggeration}), momentum 0.5 -> 0.8; "
+          f"sparse P {len(vals)} entries in {sparse['s']:.2f} s; the loop "
+          f"{loop_s:.2f} s, {loop_s / iters * 1e3:.2f} ms an iteration, "
+          f"{rep_s}; KL {kl_ex:.5f} after exaggeration -> {ts.kl_:.5f} at "
+          f"the end; topic precision@{KNN_K} in the layout {prec:.4f}, "
+          f"{hprec:.4f} among the {EMB_PREC_POOL} most frequent words "
+          f"(chance {1 / EMB_TOPICS}); one step card against CPU {errs}; "
+          f"two {ANA_DET_ITERS}-iteration fits bit-equal")
+    return {"ms_per_iter": loop_s / iters * 1e3, "rep_ms": None if rep_ms is
+            None else statistics.median(rep_ms), "kl": ts.kl_,
+            "kl_ex": kl_ex}
+
+
+def _tsne_grad_terms(y, p, ex):
+    """(N, d) float64: 4·sum_j (ex·p_ij + q_ij)·num_ij·(|y_i| + |y_j|), the
+    summed magnitudes of the terms of an exact step's gradient, on y's
+    device."""
+    from deeplearning4j_torch.utils.distances import pairwise_sq_dists
+
+    y = y.double()
+    num = pairwise_sq_dists(y).add_(1.0).reciprocal_()
+    num.fill_diagonal_(0.0)
+    a = (p.double() * ex).add_(num / num.sum()).mul_(num)
+    del num
+    ya = y.abs()
+    return 4.0 * (a.sum(1, keepdim=True) * ya + a @ ya)
+
+
+def ana_exact_tsne(vecs, where):
+    """Exact ``Tsne`` on the ANA_EXACT_N most frequent words."""
+    from unittest import mock
+
+    from deeplearning4j_torch.plot import Tsne, tsne
+
+    x = vecs[:ANA_EXACT_N]
+    ts = Tsne(max_iter=ANA_EXACT_ITERS, device=EMB_DEVICE)
+    ex_iters = ts.exaggeration_iters
+    real = tsne._tsne_step
+    seen = {"calls": 0}
+
+    def step(*args, with_kl=True):
+        i = seen["calls"]
+        seen["calls"] += 1
+        if i == ex_iters:      # the KL of the layout after exaggeration
+            out = real(*args, with_kl=True)
+            seen["kl_ex"] = out[3]
+        else:
+            out = real(*args, with_kl=with_kl)
+        seen["last"] = args
+        return out
+
+    log = _CallLog(step)
+    if torch.device(EMB_DEVICE).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(tsne, "_tsne_step", log):
+        y = ts.fit_transform(x)
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if torch.device(EMB_DEVICE).type == "cuda" else float("nan")
+    kl_ex = float(seen["kl_ex"])
+    check(np.isfinite(y).all() and np.isfinite(ts.kl_) and ts.kl_ < kl_ex,
+          f"[analysis] Tsne KL {kl_ex} after exaggeration -> {ts.kl_}")
+    step_ms = log.device_ms()
+    y0, v0, g0, p, momentum, lr, ex = seen["last"]
+    card = real(y0, v0, g0, p, momentum, lr, ex)
+    cpu = real(y0.cpu(), v0.cpu(), g0.cpu(), p.cpu(), momentum, lr, ex)
+    got = [t.cpu().numpy() for t in card[:3]]
+    want = [t.numpy() for t in cpu[:3]]
+    # a coordinate's update is lr·gains·grad; its rounding is bounded by
+    # the summed magnitudes of grad's terms, in float64 on the card
+    terms = _tsne_grad_terms(y0, p, ex).cpu().numpy()
+    bound = ANA_GRAD_RTOL * lr * want[2].astype(np.float64) * terms
+    errs = {}
+    for name, i in (("y", 0), ("velocity", 1)):
+        e = np.abs(got[i].astype(np.float64) - want[i])
+        check(bool(np.all(e <= bound)), f"[analysis] Tsne step {name}: "
+              f"{(e / bound).max():.3f} of its bound")
+        errs[name] = float(e.max())
+    errs["of_bound"] = float((np.abs(got[1].astype(np.float64) - want[1])
+                              / bound).max())
+    grad = (momentum * v0.cpu().numpy().astype(np.float64)
+            - want[1].astype(np.float64)) / (lr * want[2])
+    flips = got[2] != want[2]
+    check(bool(np.all(np.abs(grad[flips]) <= ANA_GRAD_RTOL * terms[flips])),
+          "[analysis] Tsne step gains differ away from a zero gradient")
+    errs["gains_flips"] = int(flips.sum())
+    errs["kl_rel"] = abs(float(card[3]) - float(cpu[3])) / abs(float(cpu[3]))
+    check(errs["kl_rel"] <= ANA_STEP_RTOL, f"[analysis] Tsne step KL {errs}")
+    del p, card, cpu
+    runs = [Tsne(max_iter=ANA_DET_ITERS, device=EMB_DEVICE).fit_transform(x)
+            for _ in range(2)]
+    check(np.array_equal(runs[0], runs[1]), "[analysis] Tsne: two runs "
+          "differ")
+    step_s = "not measured" if step_ms is None else \
+        f"{statistics.median(step_ms):.2f}"
+    print(f"[analysis] exact Tsne over the {len(x)} most frequent words on "
+          f"{where}: {log.calls} steps, {fit_s:.2f} s with the (N, N) "
+          f"calibration, a step {step_s} device ms (median, CUDA events), "
+          f"peak {peak:.2f} GB allocated; KL {kl_ex:.5f} after exaggeration "
+          f"-> {ts.kl_:.5f}; one step card against CPU {errs}; two "
+          f"{ANA_DET_ITERS}-step fits bit-equal")
+    return {"step_ms": None if step_ms is None else
+            statistics.median(step_ms), "kl": ts.kl_}
+
+
+def ana_tree_vs_blocked(vecs, where):
+    """Tree mode beside blocked mode on the ANA_TREE_N most frequent words:
+    from one P and one start, a blocked fit at the defaults (1000
+    iterations) relaxes the layout; there the host tree's repulsion at
+    ANA_THETA is held against the blocked repulsion. (Just after
+    exaggeration, clusters sit within the 1e-12 squared distance that
+    blocked mode leaves out and the tree counts at q = 1: the two modes'
+    sums differ there by that rule, not by theta. At theta 0 the tree walks
+    every leaf for every point, N² steps of Python; the CPU tests hold it
+    exact.) Then ``fit_transform`` in each mode for 2 iterations from the
+    same start."""
+    from deeplearning4j_torch.plot import BarnesHutTsne
+
+    x = vecs[:ANA_TREE_N]
+    y = BarnesHutTsne(device=EMB_DEVICE).fit_transform(x)
+    rep_b, z_b = BarnesHutTsne._repulsion_blocked(
+        torch.as_tensor(y, device=EMB_DEVICE), 2048)
+    rep_b, z_b = rep_b.cpu().numpy().astype(np.float64), float(z_b)
+    t0 = time.perf_counter()
+    rep_t, z_t = BarnesHutTsne(theta=ANA_THETA,
+                               device=EMB_DEVICE)._repulsion_tree(y)
+    tree_s = time.perf_counter() - t0
+    ez = abs(float(z_t) - z_b) / z_b
+    er = float(np.linalg.norm(rep_t - rep_b) / np.linalg.norm(rep_b))
+    bound_z, bound_r = ANA_THETA ** 2 / 5, 0.4 * ANA_THETA ** 2
+    check(ez <= bound_z and er <= bound_r, f"[analysis] tree at theta "
+          f"{ANA_THETA}: Z {ez:.3e} (bound {bound_z}), rep {er:.3e} (bound "
+          f"{bound_r})")
+    fits = {}
+    for mode in ("blocked", "tree"):
+        t1 = time.perf_counter()
+        fits[mode] = BarnesHutTsne(max_iter=2, mode=mode, theta=ANA_THETA,
+                                   device=EMB_DEVICE).fit_transform(x)
+        fits[mode + "_s"] = time.perf_counter() - t1
+    apart = float(np.abs(fits["tree"] - fits["blocked"]).max())
+    check(np.isfinite(fits["tree"]).all(), "[analysis] tree-mode fit")
+    print(f"[analysis] tree against blocked repulsion over the {ANA_TREE_N} "
+          f"most frequent words on {where}, after 1000 blocked iterations, "
+          f"theta {ANA_THETA}: Z {ez:.2e} relative (bound {bound_z:.3g}), rep "
+          f"field {er:.2e} relative L2 (bound {bound_r:.3g}); the tree's "
+          f"repulsion {tree_s:.2f} s on the host; fit_transform 2 "
+          f"iterations from one start, tree mode {fits['tree_s']:.2f} s "
+          f"against blocked {fits['blocked_s']:.2f} s, layouts {apart:.2e} "
+          f"apart")
+    return {"z": ez, "rep": er}
+
+
+def _tree_agree(idx, dist, bf_idx, bf_d, pts, q, what):
+    """A tree's k nearest (float64 distances) against BruteForceKNN's on
+    the card (f32 through |a|² - 2a·b + |b|²): at each position equal
+    indices, or two whose float64 squared distances are within 8 eps·S
+    (S = (|q| + the larger norm)²); the squared distances within 8 eps·S.
+    Returns the positions that differ."""
+    qd = q.astype(np.float64)
+    nq = np.linalg.norm(qd)
+    d_bf = np.linalg.norm(pts[bf_idx].astype(np.float64) - qd, axis=1)
+    S = (nq + np.linalg.norm(pts[np.concatenate([idx, bf_idx])]
+                             .astype(np.float64), axis=1).max()) ** 2
+    tol = 8 * EPS32 * S
+    swaps = np.asarray(idx) != bf_idx
+    check(bool(np.all(np.abs(np.asarray(dist)[swaps] ** 2 - d_bf[swaps] ** 2)
+                      <= tol)), f"{what}: indices {list(idx)} against "
+          f"{list(bf_idx)}")
+    check(bool(np.all(np.abs(np.asarray(dist) ** 2
+                             - bf_d.astype(np.float64) ** 2) <= tol)),
+          f"{what}: distances")
+    return int(swaps.sum())
+
+
+def _ana_tree_job(name, pts, q):
+    """In a process of its own: build ``name`` (VPTree or KDTree) over
+    ``pts`` and answer the queries ``q`` one after another. Returns (the
+    answers, build seconds, each query's seconds)."""
+    from deeplearning4j_torch.knn import KDTree, VPTree
+
+    cls, search = {"VPTree": (VPTree, "search"),
+                   "KDTree": (KDTree, "knn")}[name]
+    t0 = time.perf_counter()
+    tree = cls(pts)
+    build = time.perf_counter() - t0
+    answers, secs = [], []
+    for qi in q:
+        t1 = time.perf_counter()
+        answers.append(getattr(tree, search)(qi, KNN_K))
+        secs.append(time.perf_counter() - t1)
+    return answers, build, secs
+
+
+def ana_trees_start(vecs):
+    """Starts one process for each host tree (``VPTree``, ``KDTree``) over
+    ANA_VPKD_N vectors, to build it and answer ANA_QUERIES queries
+    (perturbed words). A query is a walk in Python (0.2-0.4 s at 71,290 x
+    300, where little is pruned), so the two run beside the rest of the
+    phase, which waits on the card; neither touches the card. Returns what
+    ``ana_trees_finish`` takes."""
+    import multiprocessing
+
+    pts = vecs[:ANA_VPKD_N]
+    rng = np.random.default_rng(EMB_SEED + 5)
+    q = (pts[rng.integers(len(pts), size=ANA_QUERIES)]
+         + 0.05 * pts.std() * rng.standard_normal(
+             (ANA_QUERIES, pts.shape[1]))).astype(np.float32)
+    pool = multiprocessing.get_context("spawn").Pool(2)
+    jobs = {name: pool.apply_async(_ana_tree_job, (name, pts, q))
+            for name in ("VPTree", "KDTree")}
+    pool.close()
+    return pool, jobs, pts, q
+
+
+def ana_trees_finish(started, where):
+    """Waits for ``ana_trees_start``'s processes and holds each tree's
+    answers against ``BruteForceKNN`` on the card."""
+    from deeplearning4j_torch.knn import BruteForceKNN
+
+    pool, jobs, pts, q = started
+    got = {name: job.get(timeout=ANA_TREE_TIMEOUT_S)
+           for name, job in jobs.items()}
+    pool.join()
+    bf_idx, bf_d = BruteForceKNN(pts, device=EMB_DEVICE).search(q, KNN_K)
+    out = {}
+    for name, (answers, build, secs) in got.items():
+        swaps = sum(_tree_agree(np.asarray(i), d, bi, bd, pts, qi,
+                                f"[analysis] {name}")
+                    for (i, d), bi, bd, qi in zip(answers, bf_idx, bf_d, q))
+        per_q = statistics.median(secs) * 1e3
+        print(f"[analysis] {name} over {len(pts)} x {pts.shape[1]} on the "
+              f"host, in a process of its own beside the phase: built in "
+              f"{build:.2f} s, {per_q:.1f} ms a query (median of "
+              f"{ANA_QUERIES} one after another, {sum(secs):.2f} s in all); "
+              f"{ANA_QUERIES} queries at "
+              f"k {KNN_K} equal to BruteForceKNN on {where} ({swaps} "
+              f"positions swapped at near-ties)")
+        out[name] = (build, per_q)
+    return out
+
+
+def ana_lsh(vecs, where):
+    """``RandomProjectionLSH(hash_length=12)`` over every vector: the
+    signatures on the card against the CPU (a bit may differ only where
+    the point's product with the plane is within rounding of 0); recall@10
+    of ``search`` against the brute force."""
+    from deeplearning4j_torch.knn import BruteForceKNN, RandomProjectionLSH
+    from deeplearning4j_torch.knn import lsh as lsh_mod
+
+    t0 = time.perf_counter()
+    lsh = RandomProjectionLSH(vecs, hash_length=ANA_LSH_BITS,
+                              device=EMB_DEVICE)
+    build = time.perf_counter() - t0
+    cpu = lsh_mod._signatures(torch.as_tensor(vecs), lsh.planes.cpu()) \
+        .numpy().astype(np.uint32)
+    flips = lsh.signatures != cpu
+    dots = vecs.astype(np.float64) @ lsh.planes.cpu().numpy().T.astype(
+        np.float64)
+    scale = np.linalg.norm(vecs.astype(np.float64), axis=1)[:, None] * \
+        np.linalg.norm(lsh.planes.cpu().numpy().astype(np.float64), axis=1)
+    near = np.abs(dots) <= 8 * EPS32 * scale
+    bits_diff = ((lsh.signatures ^ cpu)[:, None] >> np.arange(
+        ANA_LSH_BITS, dtype=np.uint32)) & 1
+    check(bool(np.all(near[bits_diff.astype(bool)])),
+          "[analysis] LSH: a bit differs away from 0")
+    rng = np.random.default_rng(EMB_SEED + 6)
+    rows = rng.choice(len(vecs), ANA_LSH_QUERIES, replace=False)
+    q = vecs[rows]
+    bf_idx, _ = BruteForceKNN(vecs, device=EMB_DEVICE).search(q, KNN_K)
+    t1 = time.perf_counter()
+    found = [lsh.search(qi, KNN_K)[0] for qi in q]
+    per_q = (time.perf_counter() - t1) / ANA_LSH_QUERIES * 1e3
+    recall = float(np.mean([len(set(f) & set(b)) / KNN_K
+                            for f, b in zip(found, bf_idx)]))
+    sizes = np.array([len(v) for v in lsh._buckets.values()])
+    print(f"[analysis] RandomProjectionLSH(hash_length={ANA_LSH_BITS}) over "
+          f"{len(vecs)} on {where}: built in {build:.2f} s, "
+          f"{len(sizes)} buckets (median {int(np.median(sizes))}, largest "
+          f"{sizes.max()} points); signatures card against CPU: "
+          f"{int(flips.sum())} differ, every differing bit within 8 eps of "
+          f"0 ({int(near.sum())} products there); recall@{KNN_K} of search "
+          f"against the brute force {recall:.4f} over {ANA_LSH_QUERIES} "
+          f"words, {per_q:.2f} ms a query")
+    return {"recall": recall}
+
+
+def phase_analysis(emb):
+    """[analysis]: k-means, the clustering framework, Barnes-Hut and exact
+    t-SNE, the VP and KD trees and LSH over [embeddings]' vectors on the
+    card. Launch counts are zeroed before and read after: the path reaches
+    no kernel. Returns the counts."""
+    where = card()
+    t0 = time.perf_counter()
+    wrappers = _kernel_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    w2v = emb["w2v"]
+    raw = np.asarray(w2v.vectors, np.float32)
+    # the unit rows, which words_nearest and the cosine server rank by: on
+    # the raw rows euclidean distance follows a row's norm, which follows
+    # its word's frequency (0.02 to 4.7 here), more than its topic
+    vecs = np.ascontiguousarray(_unit_rows(raw), np.float32)
+    topics = np.array([_emb_topic(w) for w in w2v.vocab_words()])
+    norms = np.linalg.norm(raw, axis=1)
+    print(f"[analysis] {len(vecs)} x {vecs.shape[1]} Word2Vec vectors, "
+          f"rows by descending frequency, {EMB_TOPICS} planted topics; their "
+          f"norms {norms.min():.4f}-{norms.max():.4f} (median "
+          f"{np.median(norms):.4f}); the analysis runs on the unit rows")
+    secs = {}
+    trees = ana_trees_start(vecs)
+    try:
+        for name, fn in (
+                ("kmeans", lambda: ana_kmeans(vecs, topics, where)),
+                ("clustering", lambda: ana_clustering(vecs, topics, where)),
+                ("optimisation",
+                 lambda: ana_optimisation(vecs, topics, where)),
+                ("bh_tsne", lambda: ana_bh_tsne(vecs, topics, where)),
+                ("exact_tsne", lambda: ana_exact_tsne(vecs, where)),
+                ("tree_vs_blocked", lambda: ana_tree_vs_blocked(vecs, where)),
+                ("trees", lambda: ana_trees_finish(trees, where)),
+                ("lsh", lambda: ana_lsh(vecs, where))):
+            t1 = time.perf_counter()
+            fn()
+            secs[name] = round(time.perf_counter() - t1, 2)
+            gc.collect()
+            if torch.device(EMB_DEVICE).type == "cuda":
+                torch.cuda.empty_cache()
+    finally:
+        trees[0].terminate()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    check(all(v == 0 for v in counts.values()),
+          f"[analysis] kernels launched: {counts}")
+    print(f"[analysis] kernel launches over the phase: {counts}; seconds "
+          f"{secs}; phase {time.perf_counter() - t0:.1f} s on {where}")
+    return counts
+
+
 def main() -> int:
     import shutil
     import tempfile
@@ -10738,6 +11567,7 @@ def main() -> int:
     elastic_counts = phase_elastic()
     emb_counts, emb = phase_embeddings()
     knn_counts = phase_knn(emb)
+    ana_counts = phase_analysis(emb)
     del emb
     # last: the phases that make a process group, one after the other
     par_counts = phase_parallel()
@@ -10813,6 +11643,9 @@ def main() -> int:
         # the embedding trainers and the kNN server reach no kernel
         row["launches_by_path"]["embeddings"] = emb_counts[key]
         row["launches_by_path"]["knn"] = knn_counts[key]
+        # nor does the embedding analysis (k-means, the clustering
+        # framework, t-SNE, the trees, LSH)
+        row["launches_by_path"]["analysis"] = ana_counts[key]
     for row in bn_rows:
         row["yolo2_shapes"] = zoo["shapes"]
         row["transfer_shapes"] = transfer["shapes"]

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..utils.segments import scatter_add_ as _scatter_add
 from .vocab import VocabCache, huffman_tensors, unigram_table
 
 # --------------------------------------------------------------------------
@@ -38,20 +39,6 @@ from .vocab import VocabCache, huffman_tensors, unigram_table
 # word2vec learning rates diverges to inf. Rows that appear once (the common
 # case at large vocab) are untouched.
 # --------------------------------------------------------------------------
-
-
-def _scatter_add(table: torch.Tensor, idx: torch.Tensor,
-                 rows: torch.Tensor) -> None:
-    """``table[idx[i]] += rows[i]`` for every i, in place, repeated rows
-    summed one after another in the order of ``idx``, so two runs give the
-    same bits. Each device has its own deterministic form: on the card
-    ``index_put_(accumulate=True)`` (a stable sort of ``idx``, then each
-    row's additions in turn; ``index_add_`` there uses atomics), on the CPU
-    ``index_add_`` (a serial loop; ``index_put_`` there adds in parallel)."""
-    if table.is_cuda:
-        table.index_put_((idx,), rows, accumulate=True)
-    else:
-        table.index_add_(0, idx, rows)
 
 
 def _counts(n_rows: int, idx: torch.Tensor, weights: torch.Tensor = None
